@@ -23,6 +23,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      once per prefill and layer.
   6. profile — device time by kernel over one prefill and over 8 decode
      ticks of the same engine, and the device's busy share.
+Slice 2, training rwkv6-1.6b:
+  3b. wkv6 — the WKV-6 forward and backward kernels against
+     ``wkv6_plain``: first at the slice's shape (B=4, S=4096, 32 heads of
+     64, bf16, decays from the model's formula), then over S, head size,
+     decay strength (down to below the 1e-6 clip), init state and dtype;
+     o, final state and every gradient (tolerance fp32 5e-4, bf16 2e-2,
+     absolute and relative); then both kernels' times at the slice shape
+     beside the plain version and the card's bound (no library call
+     computes WKV-6).
+  4b. model  — rwkv6-1.6b at full width cut to 4 layers: loss and every
+     parameter gradient of one 2 x 1024 batch through the kernels and
+     through ``wkv6_plain`` agree; exact launch counts.
+  5b. slice  — rwkv6-1.6b at full width and depth (24 layers, fp32 params,
+     bf16 compute, AdamW, per-layer remat) trains 8 steps at 4 x 4096
+     through ``train.loop.train``: finite, falling loss; 2 forward and 1
+     backward kernel launch per layer and step; finite parameters.
+  6b. profile — one more training step under the profiler.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the kernels' JSON record.  Imports ``torch``, ``numpy`` and
 ``repro_torch`` only.
@@ -196,6 +213,143 @@ def phase_kernels(prompt_lens):
     )
 
 
+WKV_TOL = {"float32": 5e-4, "bfloat16": 2e-2}  # tests/test_kernels.py:68 for fp32
+WKV_SLICE = dict(B=4, S=4096, H=32, N=64)  # rwkv6-1.6b training: 4 x 4096 tokens
+WKV_SWEEP = dict(
+    S=[1, 63, 64, 100, 1000, 4096],
+    N=[32, 64],
+    dec=[-2.0, 0.0, 1.0, 3.0],  # w = exp(-exp(dec)): 0.87, 0.37, 0.066, below the 1e-6 clip
+    init=[False, True],
+    dtype=["float32", "bfloat16"],
+)
+FP32_PEAK = 67e12  # H100 SXM fp32 outside the tensor cores
+
+
+def _wkv_inputs(B, S, H, N, dtype, dec, init, seed):
+    """r, k, v, w in ``dtype``, u fp32, optional init state; ``dec=None``
+    draws the decays from the model's own formula at initialisation
+    (w0 = 0 plus the rank-64 tanh LoRA of small-normal weights, as
+    ``rwkv6_time_mix``), else ``w = exp(-exp(dec + 0.1 noise))``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    r, k, v = (mk(B, S, H, N).to(dt) for _ in range(3))
+    if dec is None:
+        D = H * N
+        x = mk(B, S, D)
+        a, b = 0.02 * mk(D, 64), 0.02 * mk(64, D)
+        decay = torch.tanh(x @ a) @ b
+    else:
+        decay = dec + 0.1 * mk(B, S, H, N)
+    w = torch.exp(-torch.exp(decay)).reshape(B, S, H, N).to(dt)
+    u = 0.02 * mk(H, N)
+    s0 = mk(B, H, N, N) if init else None
+    return r, k, v, w, u, s0
+
+
+def _wkv_grads(fn, ins, do, dsT):
+    """Forward outputs and the gradients of <o, do> + <final, dsT>."""
+    import torch
+
+    leaves = [x.detach().requires_grad_() for x in ins if x is not None]
+    args = iter(leaves)
+    o, sT = fn(*[next(args) if x is not None else None for x in ins])
+    if dsT is None:  # the final state unused, as on the training path
+        g = torch.autograd.grad([o], leaves, [do])
+    else:
+        g = torch.autograd.grad([o, sT], leaves, [do, dsT])
+    return [o.detach(), sT.detach(), *g]
+
+
+def phase_wkv6():
+    """Phase 3b: both WKV-6 kernels against ``wkv6_plain``, then their times
+    at the slice shape."""
+    import torch
+
+    from repro_torch.kernels import wkv6 as wk
+
+    names = ["o", "final_state", "dr", "dk", "dv", "dw", "du", "d_init_state"]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    used = {"float32": 0.0, "bfloat16": 0.0}  # largest share of an element's tolerance
+    where = {"float32": "", "bfloat16": ""}
+    n = 0
+    sl = WKV_SLICE
+    main_path = [(sl["B"], sl["S"], sl["H"], sl["N"], None, False, "bfloat16")]
+    sweep = [(2, S, 4, N, dec, init, dtype)
+             for S, N, dec, init, dtype in itertools.product(*WKV_SWEEP.values())]
+    for B, S, H, N, dec, init, dtype in main_path + sweep:
+        ins = _wkv_inputs(B, S, H, N, dtype, dec, init, seed=100 + n)
+        g = torch.Generator(device="cuda").manual_seed(n)
+        do = torch.randn(ins[2].shape, generator=g, device="cuda").to(ins[0].dtype)
+        dsT = None if dec is None else torch.randn((B, H, N, N), generator=g, device="cuda")
+        got = _wkv_grads(wk.wkv6, ins, do, dsT)
+        want = _wkv_grads(wk.wkv6_plain, ins, do, dsT)
+        torch.cuda.synchronize()
+        tol = WKV_TOL[dtype]
+        case = f"B={B} S={S} H={H} N={N} dec={dec} init={init} {dtype}"
+        for name, a, b in zip(names, got, want):
+            err = (a.float() - b.float()).abs()
+            bad = ~(err <= tol + tol * b.float().abs())
+            if bool(bad.any()) or not bool(torch.isfinite(a).all()):
+                fail(f"wkv6 kernel != plain for {name} at {case}: max abs err "
+                     f"{float(err.max()):.3g}, {int(bad.sum())} elements beyond {tol}")
+            worst[dtype] = max(worst[dtype], float(err.max()))
+            share = float((err / (tol + tol * b.float().abs())).max())
+            if share > used[dtype]:
+                used[dtype], where[dtype] = share, f"{name} at {case}"
+        n += 1
+    print(f"kernels: wkv6 forward and backward match wkv6_plain on {n} cases "
+          f"(o, final state, dr, dk, dv, dw, du, d init_state; 1 at the slice shape); "
+          f"max abs err fp32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}; largest "
+          f"share of an element's tolerance (tol + tol |plain|, tol fp32 {WKV_TOL['float32']}, "
+          f"bf16 {WKV_TOL['bfloat16']}): fp32 {used['float32']:.3g} ({where['float32']}), "
+          f"bf16 {used['bfloat16']:.3g} ({where['bfloat16']})",
+          flush=True)
+
+    B, S, H, N = (sl[x] for x in ("B", "S", "H", "N"))
+    r, k, v, w, u, _ = _wkv_inputs(B, S, H, N, "bfloat16", None, False, seed=7)
+    do = torch.randn(v.shape, device="cuda").to(v.dtype)
+    with torch.no_grad():
+        fwd_ms = _time_ms(lambda: wk.wkv6(r, k, v, w, u))
+        plain_fwd_ms = _time_ms(lambda: wk.wkv6_plain(r, k, v, w, u), reps=5)
+    leaves = [x.detach().requires_grad_() for x in (r, k, v, w, u)]
+    o, _ = wk.wkv6(*leaves)
+    bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+    del o
+    o, _ = wk.wkv6_plain(*leaves)
+    plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
+                            reps=5)
+    del o, leaves
+    torch.cuda.empty_cache()
+    steps = B * S * H  # (b, t, h) recurrence steps
+    elem = 2 * B * S * H * N  # bytes of one bf16 (B, S, H, N) tensor
+    fwd_bytes = 5 * elem + 4 * H * N + 4 * B * H * N * N  # r k v w in, o out; u; final state
+    bwd_bytes = 9 * elem + 2 * 4 * H * N  # r k v w do in, dr dk dv dw out; u, du
+    fwd_ops = steps * (5 * N * N + 4 * N)  # readout 2N^2, decay+outer product 3N^2, bonus
+    bwd_ops = steps * 14 * N * N  # state recompute 3, dr 2, G update 3, dk 2, dv 2, dw 2 (x N^2)
+    records = []
+    for name, ms, plain_ms, nbytes, ops in (
+            ("wkv6_fwd", fwd_ms, plain_fwd_ms, fwd_bytes, fwd_ops),
+            ("wkv6_bwd", bwd_ms, plain_bwd_ms, bwd_bytes, bwd_ops)):
+        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / FP32_PEAK
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"{name} B={B} S={S} H={H} N={N} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library none, bound {max(t_bytes, t_ops) * 1e3:.4f} ms ({bound_by}; "
+              f"{ops / 1e9:.2f} GFLOP at fp32 {FP32_PEAK / 1e12:.0f} TFLOP/s = "
+              f"{t_ops * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+              f"{t_bytes * 1e3:.4f} ms)", flush=True)
+        records.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
+            replaces="src/repro/kernels/wkv6.py:24", max_abs_err=max(worst.values()),
+            max_abs_err_fp32=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
+            cases=n, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by=bound_by, library_ms=None, shape=WKV_SLICE,
+        ))
+    return records
+
+
 def phase_model(cfg):
     import torch
 
@@ -292,6 +446,144 @@ def phase_slice(cfg, smi):
     return launches, eng
 
 
+RWKV_MODEL_TOL = dict(loss=1e-2, grad=5e-2)  # relative loss; grads vs each leaf's max |g|
+RWKV_TRAIN = dict(steps=8, batch=4, seq=4096)
+
+
+def _wkv_counts():
+    from repro_torch.kernels import wkv6 as wk
+
+    return dict(wk.launches)
+
+
+def phase_rwkv_model():
+    """Phase 4b: rwkv6-1.6b at full width cut to 4 layers, one 2 x 1024
+    batch: loss and every parameter gradient through the WKV kernels and
+    through ``wkv6_plain`` agree; the kernels ran 2 x 4 times forward
+    (remat recomputes each block) and 4 times backward."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import tree_leaves
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), num_layers=4)
+    api = get_model(cfg)
+    dev = torch.device("cuda")
+    params = api.init(torch.Generator(device=dev).manual_seed(1), dev)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    toks = np.random.default_rng(12).integers(0, cfg.vocab_size, (2, 1024))
+    batch = {"tokens": torch.as_tensor(toks, device=dev),
+             "labels": torch.as_tensor(np.roll(toks, -1, axis=1), device=dev)}
+
+    def loss_and_grads():
+        loss, _ = api.loss(params, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    wk.launches.update(fwd=0, bwd=0)
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    counts = _wkv_counts()
+    want = {"fwd": 2 * cfg.num_layers, "bwd": cfg.num_layers}
+    if counts != want:
+        fail(f"4-layer train step launched the wkv6 kernels {counts} times, not {want}")
+    kernel_wkv = ops.wkv
+    ops.wkv = lambda r, k, v, w, u, init_state=None: wk.wkv6_plain(r, k, v, w, u, init_state)
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        ops.wkv = kernel_wkv
+    if _wkv_counts() != want:
+        fail("the plain-WKV train step launched a wkv6 kernel")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    worst = max(float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+                for a, b in zip(grads_k, grads_p))
+    gnorm = float(torch.sqrt(sum(g.float().square().sum() for g in grads_k)))
+    print(f"model: rwkv6-1.6b x4 layers, 2 x 1024 tokens, bf16: loss kernel {float(loss_k):.6f} "
+          f"vs plain {float(loss_p):.6f} (rel diff {rel:.3g}, bound {RWKV_MODEL_TOL['loss']}); "
+          f"worst gradient leaf diff {worst:.3g} of its max |g| (bound {RWKV_MODEL_TOL['grad']}) "
+          f"over {len(leaves)} leaves; grad norm {gnorm:.4g}; wkv6 launches {counts}", flush=True)
+    if not (rel <= RWKV_MODEL_TOL["loss"] and worst <= RWKV_MODEL_TOL["grad"]
+            and np.isfinite(gnorm)):
+        fail("in-model wkv6 kernel and plain train step disagree")
+    del params, leaves, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def phase_rwkv_train(smi):
+    """Phase 5b: rwkv6-1.6b at full width and depth trains 8 steps at
+    4 x 4096 through ``train.loop.train``."""
+    import torch
+
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.loop import TrainConfig, train
+
+    cfg = get_config("rwkv6-1.6b")
+    n = RWKV_TRAIN
+    shape = dataclasses.replace(TRAIN_4K, seq_len=n["seq"], global_batch=n["batch"],
+                                name="smoke")
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    wk.launches.update(fwd=0, bwd=0)
+    rep = train(cfg, shape, TrainConfig(steps=n["steps"], seed=0, max_failures=0),
+                device="cuda")
+    counts, flash = _wkv_counts(), fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    want = {"fwd": n["steps"] * L * 2, "bwd": n["steps"] * L}
+    losses = rep.losses
+    tokens = n["batch"] * n["seq"]
+    step_s = float(np.median(rep.step_times))
+    print(f"train slice on {smi}: {cfg.name} {L} layers d_model {cfg.d_model} "
+          f"{cfg.param_dtype} params, {cfg.dtype} compute, "
+          f"{cfg.n_params() / 1e9:.2f} B params; {n['steps']} steps of "
+          f"{n['batch']} x {n['seq']} tokens; losses {[round(x, 4) for x in losses]}; "
+          f"median step {step_s * 1e3:.1f} ms ({tokens / step_s:.0f} tokens/s); step times "
+          f"{[round(t * 1e3, 1) for t in rep.step_times]} ms; peak memory "
+          f"{peak / 2**30:.2f} GiB; wkv6 launches {counts}", flush=True)
+    if rep.steps_done != n["steps"] or rep.restarts:
+        fail(f"{rep.steps_done} steps done, {rep.restarts} restarts")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"losses not finite and falling: {losses}")
+    if counts != want or flash:
+        fail(f"wkv6 launches {counts} != {want} (flash launches {flash})")
+    bad = [i for i, p in enumerate(tree_leaves(rep.state["params"]))
+           if not bool(torch.isfinite(p).all())]
+    if bad:
+        fail(f"non-finite parameters after the last step: leaves {bad}")
+    return counts, rep.state
+
+
+def phase_rwkv_profile(state):
+    """Phase 6b: one more training step of the slice under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config("rwkv6-1.6b")
+    n = RWKV_TRAIN
+    step = make_train_step(get_model(cfg), make_optimizer(cfg, total_steps=n["steps"]))
+    data = SyntheticLMData(cfg, n["batch"], n["seq"], seed=0, start_step=n["steps"],
+                           device="cuda")
+    batch = next(data)
+    data.close()
+    _profile(f"train step {n['batch']} x {n['seq']}", lambda: step(state, batch), top=12)
+
+
+KERNEL_FAMILIES = {  # kernel-name substrings -> family, for the profiles' summary line
+    "wkv6 kernels": ("wkv6_",),
+    "flash kernel": ("flash_fwd",),
+    "GEMM (cuBLAS)": ("nvjet", "gemm", "Gemm", "gemv"),
+}
+
+
 def _profile(label, fn, top=8):
     """Device time by kernel over ``fn()`` (torch.profiler/CUPTI), and the
     share of the wall time the device was busy."""
@@ -315,6 +607,13 @@ def _profile(label, fn, top=8):
     for e in sorted(rows, key=dev, reverse=True)[:top]:
         print(f"  {100 * dev(e) * 1e-6 / busy:5.1f}%  {dev(e) * 1e-3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
+    shares = {}
+    for e in rows:
+        fam = next((f for f, keys in KERNEL_FAMILIES.items() if any(k in e.key for k in keys)),
+                   "other (elementwise, copies, reductions)")
+        shares[fam] = shares.get(fam, 0.0) + dev(e) * 1e-6
+    print("  by family: " + "; ".join(f"{f} {100 * t / busy:.1f}% ({t * 1e3:.2f} ms)"
+                                      for f, t in sorted(shares.items(), key=lambda x: -x[1])))
     sys.stdout.flush()
 
 
@@ -342,12 +641,19 @@ def main() -> None:
 
     phase_build()
     cfg = get_config("llama3-8b")
-    record = phase_kernels([r["prompt_len"] for r in slice_trace(cfg.vocab_size).requests])
+    flash = phase_kernels([r["prompt_len"] for r in slice_trace(cfg.vocab_size).requests])
+    wkv_fwd, wkv_bwd = phase_wkv6()
     phase_model(cfg)
-    record["launches"], eng = phase_slice(cfg, smi)
+    flash["launches"], eng = phase_slice(cfg, smi)
     phase_profile(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    phase_rwkv_model()
+    counts, state = phase_rwkv_train(smi)
+    wkv_fwd["launches"], wkv_bwd["launches"] = counts["fwd"], counts["bwd"]
+    phase_rwkv_profile(state)
     print(f"card: {smi}")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [flash, wkv_fwd, wkv_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

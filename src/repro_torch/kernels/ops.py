@@ -1,16 +1,23 @@
 """Dispatch wrappers over the port's kernels.
 
-``attention`` mirrors ``repro/kernels/ops.py::attention``: a CUDA tensor
-launches the hand-written flash-attention kernel, a CPU tensor takes the
-kernel's plain PyTorch version.  There is no fallback from the card to the
-plain path.  ``ssd`` and ``wkv`` (the Mamba-2 and RWKV-6 kernels) are not
-ported yet.
+``attention`` and ``wkv`` mirror ``repro/kernels/ops.py``: a CUDA tensor
+launches the hand-written kernel (flash attention; WKV-6 forward, and its
+backward under autograd), a CPU tensor takes the kernel's plain PyTorch
+version.  There is no fallback from the card to the plain path.  ``ssd``
+(the Mamba-2 kernel) is not ported yet.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import wkv6 as _wkv
 
 
 def attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap)
+
+
+def wkv(r, k, v, w, u, init_state=None):
+    """-> ``(o, final_state)``; unlike the reference's ``wkv`` it takes an
+    initial state and returns the final one, as ``wkv6_chunked`` does."""
+    return _wkv.wkv6(r, k, v, w, u, init_state)

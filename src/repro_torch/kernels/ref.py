@@ -1,7 +1,9 @@
-"""Naive attention oracle: full softmax materialization, K/V heads repeated.
+"""Naive oracles: full-softmax attention and the sequential WKV-6.
 
-The port of ``repro/kernels/ref.py::attention_reference``; deliberately
-independent of the blocked formulation in ``flash_attention.py``.
+The port of ``repro/kernels/ref.py``: ``attention_reference`` (K/V heads
+repeated, full softmax) and ``wkv6_reference`` (one step at a time),
+deliberately independent of the blocked and chunked formulations in
+``flash_attention.py`` and ``wkv6.py``.
 """
 from __future__ import annotations
 
@@ -30,3 +32,23 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhst,bthd->bshd", p, vr)
     return o.to(q.dtype)
+
+
+def wkv6_reference(r, k, v, w, u, init_state=None) -> tuple:
+    """Sequential WKV-6: o_t = r_t.(S_{t-1} + diag(u) k_t v_t^T);
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T.  r/k/w (B, S, H, K), v (B, S, H, V),
+    u (H, K), init_state (B, H, K, V) -> (o in r's dtype, final state fp32).
+    No decay clip, as the reference oracle."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    s = (torch.zeros((B, H, K, V), dtype=f32, device=r.device)
+         if init_state is None else init_state.to(f32))
+    uf = u.to(f32)[None, :, :, None]
+    outs = []
+    for t in range(S):
+        r_t, k_t, v_t, w_t = (a[:, t].to(f32) for a in (r, k, v, w))
+        kv = k_t[..., :, None] * v_t[..., None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r_t, s + uf * kv))
+        s = s * w_t[..., None] + kv
+    return torch.stack(outs, 1).to(r.dtype), s

@@ -1,8 +1,10 @@
 """Model facade: one uniform API over the ported architecture families.
 
 The port of ``repro/models/api.py``.  ``get_model(cfg)`` returns a
-``ModelAPI`` whose members are plain functions of (params, inputs).  Only
-the ``attn_mlp`` family is ported; every other family raises.
+``ModelAPI`` whose members are plain functions of (params, inputs).  The
+``attn_mlp`` family (serving; its ``loss`` waits for the flash-attention
+backward kernel) and the ``rwkv6`` family (training and decode) are
+ported; every other family raises.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 
 from repro_torch._device import DeviceLike
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv_lm, transformer
 from repro_torch.models.layers import init_params
 
 
@@ -26,6 +28,7 @@ class ModelAPI:
     #   cache_len: scalar, or (B,) per-lane lengths
     cache_schema: Callable  # (batch, capacity) -> schema
     prefill: Optional[Callable] = None
+    loss: Optional[Callable] = None  # (params, batch) -> (loss, metrics)
 
     def init(self, generator: torch.Generator, device: DeviceLike = None):
         return init_params(self.schema, generator, device)
@@ -42,6 +45,15 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
             decode_step=lambda p, tok, cache, n: transformer.decode_step(p, tok, cache, n, cfg),
             cache_schema=lambda b, cap: transformer.cache_schema(cfg, b, cap),
         )
+    if cfg.block_type == "rwkv6":
+        return ModelAPI(
+            cfg=cfg,
+            schema=rwkv_lm.rwkv_lm_schema(cfg),
+            loss=lambda p, b: rwkv_lm.loss_fn(p, b, cfg),
+            forward=lambda p, t: rwkv_lm.forward(p, t, cfg),
+            decode_step=lambda p, tok, cache, n: rwkv_lm.decode_step(p, tok, cache, n, cfg),
+            cache_schema=lambda b, cap: rwkv_lm.cache_schema(cfg, b, cap),
+        )
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.block_type!r} is not ported yet "
-        "(ROADMAP Queue 1, item 10); the port serves attn_mlp models")
+        "(ROADMAP Queue 1, item 10); the port runs attn_mlp and rwkv6 models")

@@ -74,12 +74,21 @@ def serving_params(api: ModelAPI, params: dict, device: torch.device) -> dict:
     return tree_map(prep, params, api.schema)
 
 
+def _serving_api(cfg) -> ModelAPI:
+    api = get_model(cfg)
+    if api.prefill is None:
+        raise NotImplementedError(
+            f"{cfg.name}: serving the {cfg.block_type!r} family is not ported yet "
+            "(ROADMAP Queue 1, item 8)")
+    return api
+
+
 class ServingEngine:
     def __init__(self, cfg, params, batch: int, capacity: int,
                  device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.api = get_model(cfg)
+        self.api = _serving_api(cfg)
         self.params = serving_params(self.api, params, self.device)
         self.batch = batch
         self.capacity = capacity
@@ -167,7 +176,7 @@ class ContinuousBatchingEngine:
                  debug_checks: bool = False, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.api = get_model(cfg)
+        self.api = _serving_api(cfg)
         self.lanes = lanes
         self.page_tokens = page_tokens
         self.max_pages = -(-lane_capacity // page_tokens)
