@@ -1,9 +1,9 @@
-"""Naive oracles: full-softmax attention and the sequential WKV-6.
+"""Naive oracles: full-softmax attention, the sequential SSD and WKV-6.
 
 The port of ``repro/kernels/ref.py``: ``attention_reference`` (K/V heads
-repeated, full softmax) and ``wkv6_reference`` (one step at a time),
-deliberately independent of the blocked and chunked formulations in
-``flash_attention.py`` and ``wkv6.py``.
+repeated, full softmax), ``ssd_reference`` and ``wkv6_reference`` (one
+step at a time), deliberately independent of the blocked and chunked
+formulations in ``flash_attention.py``, ``ssd_scan.py`` and ``wkv6.py``.
 """
 from __future__ import annotations
 
@@ -32,6 +32,25 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhst,bthd->bshd", p, vr)
     return o.to(q.dtype)
+
+
+def ssd_reference(x, dt, A, Bm, Cm, init_state=None) -> tuple:
+    """Sequential SSM recurrence: h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T,
+    y_t = h_t C_t.  x (B, S, H, P), dt (B, S, H), A (H,), Bm/Cm (B, S, N),
+    init_state (B, H, P, N) -> (y in x's dtype, final state fp32)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    xb = x.to(f32) * dt.to(f32)[..., None]
+    dec = torch.exp(dt.to(f32) * A.to(f32))
+    h = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
+    ys = []
+    for t in range(S):
+        b_t, c_t = Bm[:, t].to(f32), Cm[:, t].to(f32)
+        h = h * dec[:, t, :, None, None] + xb[:, t, :, :, None] * b_t[:, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, c_t))
+    return torch.stack(ys, 1).to(x.dtype), h
 
 
 def wkv6_reference(r, k, v, w, u, init_state=None) -> tuple:

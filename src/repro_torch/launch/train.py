@@ -1,6 +1,6 @@
 """Training entrypoint of the port.
 
-  python -m repro_torch.launch.train --arch rwkv6-1.6b [--steps N] [--batch B]
+  python -m repro_torch.launch.train --arch rwkv6-1.6b|zamba2-2.7b [--steps N] [--batch B]
       [--seq S] [--ckpt-dir DIR] [--device cuda|cpu]
 
 Mirrors ``repro/launch/train.py --smoke``: the arch's ``reduced()`` config

@@ -2,9 +2,10 @@
 
 The port of ``repro/models/api.py``.  ``get_model(cfg)`` returns a
 ``ModelAPI`` whose members are plain functions of (params, inputs).  The
-``attn_mlp`` family (serving; its ``loss`` waits for the flash-attention
-backward kernel) and the ``rwkv6`` family (training and decode) are
-ported; every other family raises.
+``attn_mlp`` family (serving; its ``loss`` waits for ``transformer.loss_fn``),
+the ``rwkv6`` family and the ``mamba2`` hybrid family (training and
+decode; no ``prefill``, as in the reference) are ported; every other
+family raises.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch._device import DeviceLike
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv_lm, transformer
+from repro_torch.models import hybrid, rwkv_lm, transformer
 from repro_torch.models.layers import init_params
 
 
@@ -54,6 +55,15 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
             decode_step=lambda p, tok, cache, n: rwkv_lm.decode_step(p, tok, cache, n, cfg),
             cache_schema=lambda b, cap: rwkv_lm.cache_schema(cfg, b, cap),
         )
+    if cfg.block_type == "mamba2":
+        return ModelAPI(
+            cfg=cfg,
+            schema=hybrid.hybrid_schema(cfg),
+            loss=lambda p, b: hybrid.loss_fn(p, b, cfg),
+            forward=lambda p, t: hybrid.forward(p, t, cfg),
+            decode_step=lambda p, tok, cache, n: hybrid.decode_step(p, tok, cache, n, cfg),
+            cache_schema=lambda b, cap: hybrid.cache_schema(cfg, b, cap),
+        )
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.block_type!r} is not ported yet "
-        "(ROADMAP Queue 1, item 10); the port runs attn_mlp and rwkv6 models")
+        "(ROADMAP Queue 1, item 10); the port runs attn_mlp, rwkv6 and mamba2 models")

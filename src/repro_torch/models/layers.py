@@ -103,6 +103,14 @@ def stack_schema(schema: Any, n: int) -> Any:
     )
 
 
+def unstack(layers: dict, n: int) -> list:
+    """Per-layer views of a stacked tree through one ``unbind`` per leaf,
+    so the backward pass stacks each leaf's gradient once (indexing layer
+    by layer would add a zero-filled full-size gradient per layer)."""
+    parts = tree_map(lambda x: x.unbind(0), layers)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
 def param_count(schema: Any) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(schema))
 

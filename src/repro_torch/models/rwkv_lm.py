@@ -17,7 +17,7 @@ from repro_torch.models.layers import (
     rms_norm,
     softmax_xent,
     stack_schema,
-    tree_map,
+    unstack,
 )
 from repro_torch.models.rwkv6 import rwkv6_channel_mix, rwkv6_schema, rwkv6_time_mix
 from repro_torch.models.transformer import embed_tokens, layer_params, unembed
@@ -61,17 +61,9 @@ def _block_h(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
     return _block(lp, h, cfg)[0]
 
 
-def _unstack(layers: dict, n: int) -> list:
-    """Per-layer views of the stacked tree through one ``unbind`` per leaf,
-    so the backward pass stacks each leaf's gradient once (indexing layer
-    by layer would add a zero-filled full-size gradient per layer)."""
-    parts = tree_map(lambda x: x.unbind(0), layers)
-    return [tree_map(lambda t: t[i], parts) for i in range(n)]
-
-
 def hidden_states(params: dict, tokens, cfg) -> torch.Tensor:
     h = embed_tokens(params, tokens, cfg)
-    for lp in _unstack(params["layers"], cfg.num_layers):
+    for lp in unstack(params["layers"], cfg.num_layers):
         if cfg.remat_policy != "none":
             h = checkpoint(_block_h, lp, h, cfg, use_reentrant=False)
         else:

@@ -16,8 +16,8 @@ from repro_torch.models.layers import tree_leaves, tree_map
 def make_train_step(api, optimizer):
     if api.loss is None:
         raise NotImplementedError(
-            f"{api.cfg.name}: training the {api.cfg.block_type!r} family needs the "
-            "flash-attention backward kernel, not ported yet (ROADMAP Queue 2, item 1)")
+            f"{api.cfg.name}: training the {api.cfg.block_type!r} family waits for "
+            "its loss_fn, not ported yet (ROADMAP Queue 1, item 4)")
 
     def train_step(state, batch):
         params = state["params"]

@@ -3,10 +3,14 @@
 ``flash_attention_plain`` (the CUDA kernel's plain version, which the
 wrapper takes on the CPU) is held against ``repro.kernels.ref`` and against
 the Pallas kernel run in interpret mode, over the sweep of
-``tests/test_kernels.py:18-34`` with its tolerances; ragged lengths and a
-window whose first tile is fully masked against the reference oracle; and
-the model-level paths against ``repro.models.attention``.
+``tests/test_kernels.py:18-34`` with its tolerances, and at d_head 80;
+ragged lengths and a window whose first tile is fully masked against the
+reference oracle; its row log-sum-exp and its autograd gradients (the
+backward kernel's plain version) against ``jax.grad`` of the reference's
+``full_attention``; and the model-level paths against
+``repro.models.attention``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,9 +89,9 @@ def test_plain_window_with_fully_masked_first_tile():
 
 def test_ops_attention_on_cpu_takes_plain_path_without_launch():
     (_, _, _), (tq, tk, tv) = _both(_qkv(1, 40, 40, 4, 2, 32, 1), "float32")
-    before = fa.launches
+    before = dict(fa.launches)
     got = port_ops.attention(tq, tk, tv, causal=True, window=8)
-    assert fa.launches == before  # the counter moves only on a kernel launch
+    assert fa.launches == before  # the counters move only on a kernel launch
     torch.testing.assert_close(
         got, fa.flash_attention_plain(tq, tk, tv, causal=True, window=8))
 
@@ -102,6 +106,88 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
         fa.flash_attention(tq, tk[..., :16], tv)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(tq, tk.double(), tv)
+
+
+@pytest.mark.parametrize("oracle", ["reference", "pallas_interpret"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV,window", [(4, 4, 0), (4, 2, 96)])
+def test_plain_head_dim_80(H, KV, window, dtype, oracle):
+    """zamba2's shared attention has d_head 80 (five k16 slices)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, 128, 128, H, KV, 80, H + KV + window), dtype)
+    if oracle == "reference":
+        want = ref_kernels.attention_reference(jq, jk, jv, causal=True, window=window)
+    else:
+        want = ref_ops.attention(jq, jk, jv, causal=True, window=window,
+                                 force="pallas_interpret")
+    _close(fa.flash_attention_plain(tq, tk, tv, causal=True, window=window), want, TOL[dtype])
+
+
+@pytest.mark.parametrize("causal,window,S", [(True, 0, 40), (True, 16, 150), (False, 0, 33)])
+def test_plain_lse(causal, window, S):
+    """The row log-sum-exp the forward kernel writes for the backward."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, S, S, 4, 2, 80, S), "float32")
+    _, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal, window=window,
+                                      return_lse=True)
+    kr = jnp.repeat(jk, 2, axis=2)
+    s = jnp.einsum("bshd,bthd->bhst", jq, kr) / np.sqrt(80.0)
+    pos = jnp.arange(S)
+    ok = jnp.ones((S, S), bool)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if window:
+        ok &= pos[None, :] > pos[:, None] - window
+    want = jax.nn.logsumexp(jnp.where(ok, s, -1e30), axis=-1)
+    assert lse.shape == (2, 4, S) and lse.dtype == torch.float32
+    _close(lse, want, 1e-5)
+
+
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV,d,causal,window,S", [
+    (4, 4, 80, True, 0, 64), (4, 2, 64, True, 24, 100), (8, 1, 32, True, 0, 37),
+    (4, 2, 80, False, 0, 50), (2, 2, 128, True, 7, 20)])
+def test_plain_gradients_match_jax_grad(H, KV, d, causal, window, S, dtype):
+    """dq, dk, dv of <o, P> through ``flash_attention_plain`` (the backward
+    kernel's plain version) against ``jax.grad`` of the reference's
+    ``full_attention``: causal, window, GQA, ragged S, fp32 and bf16.  fp32
+    to 1e-4; bf16 to 3e-2 of each gradient's largest magnitude (both
+    round the bf16 inputs alike, then the output and the gradients to bf16
+    at different points)."""
+    arrs = _qkv(2, S, S, H, KV, d, H * d + S)
+    proj = np.random.default_rng(1).standard_normal((2, S, H, d)).astype(np.float32)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, dtype)
+    jproj = jnp.asarray(proj).astype(jnp.dtype(dtype))
+
+    def jloss(q, k, v):
+        o = ref_attn.full_attention(q, k, v, causal=causal, window=window)
+        return jnp.sum((o * jproj).astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    o = fa.flash_attention_plain(*leaves, causal=causal, window=window)
+    got = torch.autograd.grad((o * torch.from_numpy(proj).to(o.dtype)).float().sum(), leaves)
+    for g, w in zip(got, want):
+        assert g.dtype == tq.dtype
+        w = np.asarray(w.astype(jnp.float32))
+        if dtype == "bfloat16":
+            atol, rtol = GRAD_TOL[dtype] * float(np.abs(w).max()), 0.0
+        else:
+            atol = rtol = GRAD_TOL[dtype]
+        np.testing.assert_allclose(g.float().numpy(), w, atol=atol, rtol=rtol)
+
+
+def test_cpu_output_carries_autograd():
+    """The wrapper never hands back a detached output: on the CPU autograd
+    runs through the plain version (on the card through the kernels'
+    ``FlashAttentionFunction``)."""
+    (_, _, _), (tq, tk, tv) = _both(_qkv(1, 12, 12, 4, 2, 80, 3), "float32")
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    o = port_ops.attention(*leaves, causal=True)
+    assert o.grad_fn is not None
+    assert all(g is not None and g.abs().sum() > 0
+               for g in torch.autograd.grad(o.square().sum(), leaves))
 
 
 # ---------------------------------------------------------------------------

@@ -88,7 +88,8 @@ def test_bf16_forward_and_prefill():
 
 
 @pytest.mark.parametrize("name,match", [
-    ("qwen3-moe-30b-a3b", "MoE"), ("pixtral-12b", "vision"), ("zamba2-2.7b", "not ported")])
+    ("qwen3-moe-30b-a3b", "MoE"), ("pixtral-12b", "vision"),
+    ("seamless-m4t-large-v2", "not ported")])
 def test_unported_families_raise(name, match):
     cfg = port_config(small_config(name))
     with pytest.raises(NotImplementedError, match=match):
