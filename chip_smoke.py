@@ -8,11 +8,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
   2. build   — compile every CUDA source of ``src/repro_torch/kernels/csrc``.
   3. kernels — the flash-attention kernel against its plain PyTorch version
      at the slice's own prefill shapes (phase 5's prompt lengths), then over
-     a sweep of head layouts, head dims, ragged lengths, windows and
-     dtypes (tolerance fp32 2e-5, bf16 2e-2, absolute and relative, as
-     ``tests/test_kernels.py``); then its time at the llama3-8b prefill
-     shape beside the plain version, ``scaled_dot_product_attention`` (the
-     library yardstick, never used by the port) and the card's bound.
+     a sweep of head layouts, head dims, ragged lengths (129 and 257 one
+     past the kernel's 128-row tiles), windows and dtypes, and non-causal
+     cases with Sq != Skv (tolerance fp32 2e-5, bf16 2e-2, absolute and
+     relative, as ``tests/test_kernels.py``); then its time at the
+     llama3-8b prefill shape beside the plain version,
+     ``scaled_dot_product_attention`` (the library yardstick, never used by
+     the port) and the card's bound.
   4. model   — llama3-8b at full width cut to 4 layers: prefill logits of a
      1000-token prompt through the kernel and through the plain attention
      path agree (bf16 tolerance below) and pick the same next token.
@@ -54,11 +56,13 @@ once the rwkv6 state is freed):
      (B=4, S=4096, 32 heads of 80, causal, window 4096) and its row LSE,
      then dq, dk, dv of the backward kernels against autograd through
      ``flash_attention_plain``: the slice shape, then over head layouts,
-     d in {32, 64, 80, 128}, causal/window, ragged S and dtype (tolerance
-     fp32 2e-4 absolute and relative; bf16 2e-2 absolute and relative plus
-     2e-2 of each tensor's largest magnitude); then forward and backward
-     times at the slice shape beside the plain version, autograd through
-     ``scaled_dot_product_attention`` and the card's bound.
+     d in {32, 64, 80, 128}, causal/window, ragged S (129 and 257 one past
+     the tiles) and dtype (tolerance fp32 2e-4 absolute and relative; bf16
+     2e-2 absolute and relative plus 2e-2 of each tensor's largest
+     magnitude); then forward and backward times at the slice shape beside
+     the plain version, autograd through ``scaled_dot_product_attention``
+     and the card's bound, and two backward calls there must give
+     bit-identical dq, dk, dv.
   4c. model — zamba2-2.7b at full width cut to 7 layers (the shared block
      runs twice): loss and every parameter gradient of one 2 x 1024 batch
      through the kernels and through the plain versions agree; exact
@@ -69,10 +73,13 @@ once the rwkv6 state is freed):
      108 forward and 54 backward per step, flash 18 and 9; finite
      parameters; median step, tokens/s and peak memory.
   6c. profile — one more training step under the profiler.
-Phase 3 sweeps d_head 80 too.  The last line is ``{"ok": true, "device":
-{...}}``; the line before it is the kernels' JSON record (six kernels:
-flash forward and backward, WKV-6 forward and backward, SSD forward and
-backward).  Imports ``torch``, ``numpy`` and ``repro_torch`` only.
+Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
+the function's own operation count) and its share of the bound (bound ms /
+kernel ms), and its JSON record carries both.  The last line is ``{"ok":
+true, "device": {...}}``; the line before it is the kernels' JSON record
+(six kernels: flash forward and backward, WKV-6 forward and backward, SSD
+forward and backward).  Imports ``torch``, ``numpy`` and ``repro_torch``
+only.
 """
 from __future__ import annotations
 
@@ -100,11 +107,12 @@ PEAK_BYTES = 3.35e12
 SWEEP = dict(
     heads=[(32, 8), (4, 4), (8, 1)],
     d=[32, 64, 80, 128],
-    S=[1, 17, 128, 200, 1000, 2048],
+    S=[1, 17, 128, 129, 200, 257, 1000, 2048],  # 129, 257: one past the 128-row tiles
     window=[0, 96],
     dtype=["float32", "bfloat16"],
     causal=[True, False],
 )
+CROSS_LENS = [(100, 300), (300, 100), (129, 1), (1, 257), (1000, 2048)]  # (Sq, Skv)
 PREFILL = dict(B=1, S=2048, H=32, KV=8, d=128)  # llama3-8b prefill attention
 
 
@@ -181,6 +189,14 @@ def _time_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
+def _rate(name, ops, ms, bound_ms):
+    """Achieved TFLOP/s of the function's operation count and the share of
+    the bound (bound ms / kernel ms), printed and returned for the record."""
+    tflops, share = ops / (ms * 1e-3) / 1e12, bound_ms / ms
+    print(f"{name}: {tflops:.1f} TFLOP/s, {share:.3f} of the bound", flush=True)
+    return dict(tflops=tflops, bound_share=share)
+
+
 def phase_kernels(prompt_lens):
     import torch
     import torch.nn.functional as F
@@ -190,24 +206,30 @@ def phase_kernels(prompt_lens):
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     B, H, KV, d = (PREFILL[x] for x in ("B", "H", "KV", "d"))
-    main_path = [(B, (H, KV), d, S, 0, "bfloat16", True) for S in prompt_lens]
-    sweep = [(2, *c) for c in itertools.product(*SWEEP.values())]
-    for b, (H, KV), d, S, window, dtype, causal in main_path + sweep:
-        q, k, v = _inputs(b, S, S, H, KV, d, dtype, seed=n)
+    main_path = [(B, (H, KV), d, (S, S), 0, "bfloat16", True) for S in prompt_lens]
+    sweep = [(2, hd, dd, (S, S), w, dt, c)
+             for hd, dd, S, w, dt, c in itertools.product(*SWEEP.values())]
+    cross = [(2, hd, dd, lens, 0, dt, False)  # non-causal, Sq != Skv
+             for hd, dd, lens, dt in itertools.product(
+                 SWEEP["heads"], SWEEP["d"], CROSS_LENS, SWEEP["dtype"])]
+    for b, (H, KV), d, (Sq, Skv), window, dtype, causal in main_path + sweep + cross:
+        q, k, v = _inputs(b, Sq, Skv, H, KV, d, dtype, seed=n)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         tol = TOL[dtype]
         bad = ~(err <= tol + tol * want.float().abs())
-        case = f"B={b} H={H} KV={KV} d={d} S={S} window={window} {dtype} causal={causal}"
+        case = (f"B={b} H={H} KV={KV} d={d} Sq={Sq} Skv={Skv} window={window} {dtype} "
+                f"causal={causal}")
         if bool(bad.any()) or not bool(torch.isfinite(got).all()):
             fail(f"kernel != plain at {case}: max abs err {float(err.max()):.3g}, "
                  f"{int(bad.sum())} elements beyond {tol}")
         worst[dtype] = max(worst[dtype], float(err.max()))
         n += 1
     print(f"kernels: flash_attention matches its plain version on {n} cases "
-          f"({len(main_path)} at the slice's prompt lengths {sorted(prompt_lens)}); max abs err fp32 {worst['float32']:.3g} (tol {TOL['float32']}), "
+          f"({len(main_path)} at the slice's prompt lengths {sorted(prompt_lens)}, "
+          f"{len(cross)} non-causal with Sq != Skv); max abs err fp32 {worst['float32']:.3g} (tol {TOL['float32']}), "
           f"bf16 {worst['bfloat16']:.3g} (tol {TOL['bfloat16']})")
 
     B, S, H, KV, d = (PREFILL[x] for x in ("B", "S", "H", "KV", "d"))
@@ -231,7 +253,8 @@ def phase_kernels(prompt_lens):
           f"bound {bound_s * 1e3:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB); kernel vs sdpa max abs err {lib_err:.3g}; "
           f"{flops / (kernel_ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
-    return dict(
+    rate = _rate("flash_attention (llama3-8b prefill)", flops, kernel_ms, bound_s * 1e3)
+    return dict(**rate,
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:29",
@@ -388,6 +411,7 @@ def phase_wkv6():
             max_abs_err_fp32=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
             cases=n, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by=bound_by, library_ms=None, shape=WKV_SLICE,
+            **_rate(name, ops, ms, max(t_bytes, t_ops) * 1e3),
         ))
     return records
 
@@ -498,6 +522,7 @@ def phase_ssd(sweep=SSD_SWEEP):
             tol_share_fp32=used["float32"], tol_share_bf16=used["bfloat16"],
             cases=n, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by=bound_by, library_ms=None, shape=SSD_SLICE,
+            **_rate(name, ops, ms, max(t_bytes, t_ops) * 1e3),
         ))
     return records
 
@@ -508,7 +533,7 @@ FLASH_BWD_SWEEP = dict(
     heads=[(4, 4), (8, 2), (8, 1)],
     d=[32, 64, 80, 128],
     mask=[(True, 0), (True, 96), (False, 0)],
-    S=[1, 17, 200, 1000],
+    S=[1, 17, 129, 200, 257, 1000],  # 129, 257: one past the 64- and 128-row tiles
     dtype=["float32", "bfloat16"],
 )
 
@@ -585,8 +610,14 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     o = fa.flash_attention(*leaves, causal=True, window=W)
     bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+    again = torch.autograd.grad(o, leaves, do, retain_graph=True)
     got = torch.autograd.grad(o, leaves, do)
-    del o
+    same = [torch.equal(a, b) for a, b in zip(again, got)]
+    print(f"flash backward determinism at the slice shape: two calls give bit-identical "
+          f"dq, dk, dv: {same}", flush=True)
+    if not all(same):
+        fail("flash backward is not deterministic: two calls differ")
+    del o, again
     lt = [t.transpose(1, 2) for t in leaves]  # (B, heads, S, d) views
     o = F.scaled_dot_product_attention(*lt, is_causal=True)
     dot = do.transpose(1, 2)
@@ -617,7 +648,8 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
               f"{max(t_b, t_o) * 1e3:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB); {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
         records.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=max(t_b, t_o) * 1e3, bound_by=bound_by, shape=FLASH_SLICE))
+                            bound_ms=max(t_b, t_o) * 1e3, bound_by=bound_by, shape=FLASH_SLICE,
+                            **_rate(name, ops, ms, max(t_b, t_o) * 1e3)))
     print(f"flash backward vs sdpa backward at the slice shape: max abs err {lib_err:.3g}",
           flush=True)
     d80, bwd = records
@@ -626,7 +658,8 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
                replaces="src/repro/kernels/flash_attention.py:29 (no TPU backward)",
                max_abs_err=max(worst.values()), max_abs_err_fp32=worst["float32"],
                max_abs_err_bf16=worst["bfloat16"], tol_share_fp32=used["float32"],
-               tol_share_bf16=used["bfloat16"], cases=n, vs_sdpa_max_abs_err=lib_err)
+               tol_share_bf16=used["bfloat16"], cases=n, vs_sdpa_max_abs_err=lib_err,
+               deterministic=all(same))
     d80.update(max_abs_err=fwd_err, lse_max_abs_err=lse_err)
     return d80, bwd
 

@@ -10,15 +10,17 @@ statistics and accumulator, the finite ``NEG_INF`` and the ``l == 0 -> 1``
 guard.  Any ``Sq, Skv >= 1`` works; the Pallas block-multiple assert does
 not carry over.
 
-On an H100 the kernel is bound by tensor-core FLOPs (989 TFLOP/s bf16) at
-prefill shapes; bf16 runs on ``mma.sync`` with Q, S, P, m/l and O in
-registers and K/V tiles in shared memory, fp32 on plain FMAs (see the
-header of the ``.cu`` source for the design).
+On an H100 the kernels are bound by tensor-core FLOPs (989 TFLOP/s bf16)
+at prefill and training shapes.  bf16 runs every product on ``wgmma``
+with tiles brought into swizzled shared memory by TMA from a producer
+warpgroup, S/P/m/l and the accumulators in registers; fp32 runs on plain
+FMAs (see the header of the ``.cu`` source for the design).
 
 The backward (the TPU kernel has none) recomputes ``P = exp(S - LSE)``
 from the row log-sum-exp the forward writes, and gives dq, dk and dv
-(summed over each GQA group in a fixed order) from FMA kernels; autograd
-through ``flash_attention_plain`` is its plain version.
+(summed over each GQA group in a fixed order, so bit-identical from run
+to run); autograd through ``flash_attention_plain`` is its plain
+version.
 
 ``flash_attention`` is the wrapper: a CUDA tensor launches the kernels (or
 the wrapper raises) through ``FlashAttentionFunction`` whenever an input
@@ -37,6 +39,7 @@ NEG_INF = -1.0e30
 HEAD_DIMS = (32, 64, 80, 128)
 BLOCK_K = 128  # the plain version's kv tile: the Pallas kernel's block
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_Y = 65535  # the kernels' grid is (tiles, B x heads)
 
 launches = {"fwd": 0, "bwd": 0}  # kernel launches through ``flash_attention``
 
@@ -110,7 +113,9 @@ def _check(q, k, v, causal, window, softcap) -> None:
 
 
 def _check_kernel(q, k, v) -> None:
-    """What the CUDA kernels take; anything else raises (no fallback)."""
+    """What the CUDA kernels take; anything else raises (no fallback).  A
+    pure function of the tensors' layouts: TMA (bf16) reads 16-byte-aligned
+    bases and strides, and the grid's second axis holds B x heads."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
@@ -122,6 +127,9 @@ def _check_kernel(q, k, v) -> None:
             raise ValueError(f"flash_attention kernel needs contiguous {name}")
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel needs 16-byte aligned {name}")
+    if q.shape[0] * q.shape[2] > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention kernel takes B x heads <= {_MAX_GRID_Y}, "
+                         f"not {q.shape[0] * q.shape[2]}")
 
 
 def _forward(q, k, v, causal, window, want_lse):
@@ -138,7 +146,7 @@ def _forward(q, k, v, causal, window, want_lse):
         None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], B, Sq, Skv, H,
         KV, d, *strides, int(bool(causal)), int(window), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: {_error(err)}")
     launches["fwd"] += 1
     return o, lse
 
@@ -161,6 +169,8 @@ class FlashAttentionFunction(torch.autograd.Function):
         B, Sq, H, d = q.shape
         Skv, KV = k.shape[1], k.shape[2]
         do = do.to(q.dtype).contiguous()
+        if do.data_ptr() % 16:  # TMA and the pre-pass read 16-byte-aligned rows
+            do = do.clone()
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         rowdot = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -170,8 +180,7 @@ class FlashAttentionFunction(torch.autograd.Function):
             _DTYPE_CODE[q.dtype], B, Sq, Skv, H, KV, d, int(bool(ctx.causal)),
             int(ctx.window), stream)
         if err != 0:
-            raise RuntimeError(f"flash_attention backward kernel launch failed: "
-                               f"CUDA error {err}")
+            raise RuntimeError(f"flash_attention backward kernel launch failed: {_error(err)}")
         launches["bwd"] += 1
         return dq, dk, dv, None, None
 
@@ -196,9 +205,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 _fns = None
 
 
+def _error(err: int) -> str:
+    site = _lib().flash_attention_error_site().decode()
+    return f"error {err} at {site or 'an unnamed step'}"
+
+
 def _lib():
-    """The C entries ``flash_attention_fwd`` and ``flash_attention_bwd``,
-    built and typed at first use."""
+    """The C entries ``flash_attention_fwd``, ``flash_attention_bwd`` and
+    ``flash_attention_error_site``, built and typed at first use."""
     global _fns
     if _fns is None:
         from repro_torch.kernels import _build
@@ -209,5 +223,7 @@ def _lib():
         lib.flash_attention_fwd.argtypes = [p] * 5 + [i] * 7 + [ll] * 12 + [i] * 2 + [p]
         lib.flash_attention_bwd.restype = i
         lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [p]
+        lib.flash_attention_error_site.restype = ctypes.c_char_p
+        lib.flash_attention_error_site.argtypes = []
         _fns = lib
     return _fns

@@ -64,10 +64,11 @@ def test_plain_matches_reference_and_pallas(S, H, KV, dtype, window, oracle):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S", [1, 17, 200])
+@pytest.mark.parametrize("S", [1, 17, 200, 129])
 def test_plain_ragged_lengths(S, causal):
     """Lengths that are no block multiple (the Pallas kernel asserts they
-    are): short last kv tile, and keys past Skv masked when non-causal."""
+    are): short last kv tile, and keys past Skv masked when non-causal.
+    129 is one past the kernels' 128-row and 128-key tiles."""
     for dtype in ("float32", "bfloat16"):
         (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, S, S, 4, 2, 32, S), dtype)
         want = ref_kernels.attention_reference(jq, jk, jv, causal=causal)
@@ -122,9 +123,11 @@ def test_plain_head_dim_80(H, KV, window, dtype, oracle):
     _close(fa.flash_attention_plain(tq, tk, tv, causal=True, window=window), want, TOL[dtype])
 
 
-@pytest.mark.parametrize("causal,window,S", [(True, 0, 40), (True, 16, 150), (False, 0, 33)])
+@pytest.mark.parametrize("causal,window,S", [(True, 0, 40), (True, 16, 150), (False, 0, 33),
+                                             (True, 0, 129), (False, 0, 129), (True, 96, 257)])
 def test_plain_lse(causal, window, S):
-    """The row log-sum-exp the forward kernel writes for the backward."""
+    """The row log-sum-exp the forward kernel writes for the backward (d 80;
+    129 and 257 are one past the kernels' tiles)."""
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, S, S, 4, 2, 80, S), "float32")
     _, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal, window=window,
                                       return_lse=True)
@@ -147,7 +150,8 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("H,KV,d,causal,window,S", [
     (4, 4, 80, True, 0, 64), (4, 2, 64, True, 24, 100), (8, 1, 32, True, 0, 37),
-    (4, 2, 80, False, 0, 50), (2, 2, 128, True, 7, 20)])
+    (4, 2, 80, False, 0, 50), (2, 2, 128, True, 7, 20), (4, 2, 80, True, 96, 129),
+    (4, 4, 64, False, 0, 129)])
 def test_plain_gradients_match_jax_grad(H, KV, d, causal, window, S, dtype):
     """dq, dk, dv of <o, P> through ``flash_attention_plain`` (the backward
     kernel's plain version) against ``jax.grad`` of the reference's
@@ -176,6 +180,93 @@ def test_plain_gradients_match_jax_grad(H, KV, d, causal, window, S, dtype):
         else:
             atol = rtol = GRAD_TOL[dtype]
         np.testing.assert_allclose(g.float().numpy(), w, atol=atol, rtol=rtol)
+
+
+def _jax_lse(jq, jk, causal, window):
+    """Rows' log-sum-exp of the scaled, masked scores, by jax."""
+    G = jq.shape[2] // jk.shape[2]
+    s = jnp.einsum("bshd,bthd->bhst", jq, jnp.repeat(jk, G, axis=2)) / np.sqrt(jq.shape[3])
+    q_pos, k_pos = jnp.arange(jq.shape[1])[:, None], jnp.arange(jk.shape[1])[None, :]
+    ok = jnp.ones((jq.shape[1], jk.shape[1]), bool)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window:
+        ok &= k_pos > q_pos - window
+    return jax.nn.logsumexp(jnp.where(ok, s, -1e30), axis=-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,d", [(100, 300, 80), (300, 100, 64), (129, 1, 32),
+                                      (1, 257, 128)])
+def test_plain_cross_lengths(Sq, Skv, d, dtype):
+    """Non-causal attention with Sq != Skv (cross-attention lengths, ragged
+    against the kernels' tiles): output and LSE against the reference
+    oracle, gradients against ``jax.grad`` of ``full_attention``, at the
+    tolerances above."""
+    q, k, v = _qkv(2, Sq, Skv, 8, 2, d, Sq + Skv + d)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), dtype)
+    got, lse = fa.flash_attention_plain(tq, tk, tv, causal=False, return_lse=True)
+    _close(got, ref_kernels.attention_reference(jq, jk, jv, causal=False), TOL[dtype])
+    (fq, fk, _), _ = _both((q, k, v), "float32")
+    _, lse32 = fa.flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                        causal=False, return_lse=True)
+    _close(lse32, _jax_lse(fq, fk, False, 0), 1e-5)
+    assert lse.shape == (2, 8, Sq) and bool(torch.isfinite(lse).all())
+
+    proj = np.random.default_rng(2).standard_normal((2, Sq, 8, d)).astype(np.float32)
+    jproj = jnp.asarray(proj).astype(jnp.dtype(dtype))
+    want = jax.grad(lambda a, b, c: jnp.sum(
+        (ref_attn.full_attention(a, b, c, causal=False) * jproj).astype(jnp.float32)),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    o = fa.flash_attention_plain(*leaves, causal=False)
+    grads = torch.autograd.grad((o * torch.from_numpy(proj).to(o.dtype)).float().sum(), leaves)
+    for g, w in zip(grads, want):
+        w = np.asarray(w.astype(jnp.float32))
+        if dtype == "bfloat16":
+            atol, rtol = GRAD_TOL[dtype] * float(np.abs(w).max()), 0.0
+        else:
+            atol = rtol = GRAD_TOL[dtype]
+        np.testing.assert_allclose(g.float().numpy(), w, atol=atol, rtol=rtol)
+
+
+def _misaligned(shape):
+    """A contiguous bf16 tensor whose data starts 2 bytes past its storage."""
+    n = int(np.prod(shape))
+    t = torch.zeros(n + 8, dtype=torch.bfloat16)[1:n + 1].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 2
+    return t
+
+
+@pytest.mark.parametrize("case", ["dtype", "head_dim", "noncontiguous", "misaligned",
+                                  "grid", "accepted_bf16", "accepted_fp32"])
+def test_check_kernel_refuses_what_the_kernels_cannot_take(case):
+    """``_check_kernel`` (a pure function of the layouts, so it runs on CPU
+    tensors) raises on every layout the CUDA kernels refuse (no fallback):
+    a dtype other than fp32/bf16, d outside {32, 64, 80, 128}, a
+    non-contiguous or not 16-byte-aligned tensor (TMA's bases and strides),
+    and more than 65535 (b, head) pairs in the grid."""
+    bf = torch.bfloat16
+    mk = lambda B, S, n, d, dt=bf: torch.zeros((B, S, n, d), dtype=dt)
+    q, k, v = mk(1, 8, 4, 80), mk(1, 8, 2, 80), mk(1, 8, 2, 80)
+    if case == "accepted_bf16":
+        fa._check_kernel(q, k, v)
+        return
+    if case == "accepted_fp32":
+        fa._check_kernel(*(t.float() for t in (q, k, v)))
+        return
+    if case == "dtype":
+        err, args = TypeError, [t.half() for t in (q, k, v)]
+    elif case == "head_dim":
+        err, args = ValueError, [mk(1, 8, 4, 96), mk(1, 8, 2, 96), mk(1, 8, 2, 96)]
+    elif case == "noncontiguous":
+        err, args = ValueError, [mk(1, 4, 8, 80).transpose(1, 2), k, v]
+    elif case == "misaligned":
+        err, args = ValueError, [q, k, _misaligned((1, 8, 2, 80))]
+    else:
+        err, args = ValueError, [mk(1, 1, 65536, 32), mk(1, 1, 1, 32), mk(1, 1, 1, 32)]
+    with pytest.raises(err):
+        fa._check_kernel(*args)
 
 
 def test_cpu_output_carries_autograd():
