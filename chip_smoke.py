@@ -44,13 +44,18 @@ Slice 2, training rwkv6-1.6b:
   6b. profile — one more training step under the profiler.
 Slice 3, training zamba2-2.7b (3c and 3d run after 3b; 4c-6c after 6b,
 once the rwkv6 state is freed):
-  3c. ssd — the SSD-scan forward and backward kernels against
-     ``ssd_plain``: first at the slice's shape (B=4, S=4096, 80 heads of
-     64, state 64, bf16, dt and A from the model's formula at
-     initialisation), then over S, P, N, decay strength, init state and
-     dtype; y, final state and every gradient (tolerance fp32 5e-4, bf16
-     2e-2, absolute and relative); then both kernels' times at the slice
-     shape beside the plain version and the card's bound (no library call
+  3c. ssd — which kernels each route runs (from the profiler: bf16 the
+     chunked tensor-core kernels, fp32 the recurrence); then the SSD-scan
+     forward and backward kernels against ``ssd_plain``: first at the
+     slice's shape (B=4, S=4096, 80 heads of 64, state 64, bf16, dt and A
+     from the model's formula at initialisation), then over S (with the
+     bf16 kernels' 64-step chunk, one past it, and one short of and one
+     past two chunks), P, N, decay strength, init state and dtype; y,
+     final state and every gradient (tolerance fp32 5e-4, bf16 2e-2,
+     absolute and relative; the largest share of it printed for each
+     output); two backward calls at the slice shape must give
+     bit-identical gradients; then both kernels' times at the slice shape
+     beside the plain version and the card's bound (no library call
      computes SSD).
   3d. flash backward — the forward at d_head 80 at the slice's shape
      (B=4, S=4096, 32 heads of 80, causal, window 4096) and its row LSE,
@@ -72,7 +77,9 @@ once the rwkv6 state is freed):
      through ``train.loop.train``: finite, falling loss; SSD launches
      108 forward and 54 backward per step, flash 18 and 9; finite
      parameters; median step, tokens/s and peak memory.
-  6c. profile — one more training step under the profiler.
+  6c. profile — one more training step under the profiler; lists the SSD
+     kernels it ran and fails unless the chunked ones ran (and no
+     recurrence kernel).
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
@@ -157,7 +164,7 @@ def phase_build():
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(paths)}")
     for name in sorted(paths):
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error", "warning")):
                 print(f"  ptxas[{name}]: {line.strip()}")
     sys.stdout.flush()
 
@@ -316,10 +323,12 @@ def _scan_grads(fn, ins, do, dsT):
     return [o.detach(), sT.detach(), *g]
 
 
-def _check_close(label, names, got, want, tol, worst, used, where, dtype, rel_to_max=False):
+def _check_close(label, names, got, want, tol, worst, used, where, dtype, rel_to_max=False,
+                 by_name=None):
     """Fail unless every pair agrees within ``tol + tol |want|`` (plus
     ``tol max|want|`` when ``rel_to_max``); track the worst error and the
-    largest share of an element's tolerance."""
+    largest share of an element's tolerance (also per output name and dtype
+    in ``by_name`` when given)."""
     import torch
 
     for name, a, b in zip(names, got, want):
@@ -334,6 +343,9 @@ def _check_close(label, names, got, want, tol, worst, used, where, dtype, rel_to
                  f"{int(bad.sum())} elements beyond their bound (tol {tol})")
         worst[dtype] = max(worst[dtype], float(err.max()))
         share = float((err / bound).max())
+        if by_name is not None:
+            key = (name, dtype)
+            by_name[key] = max(by_name.get(key, 0.0), share)
         if share > used[dtype]:
             used[dtype], where[dtype] = share, f"{name} at {label}"
 
@@ -419,7 +431,7 @@ def phase_wkv6():
 SSD_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
 SSD_SLICE = dict(B=4, S=4096, H=80, P=64, N=64)  # zamba2-2.7b training: 4 x 4096 tokens
 SSD_SWEEP = dict(
-    S=[1, 63, 128, 1000, 4096],
+    S=[1, 63, 64, 65, 127, 128, 129, 1000, 4096],  # the bf16 kernels' chunk is 64
     PN=[(32, 16), (32, 32), (32, 64), (64, 32), (64, 64)],
     a_log=[-2.0, 0.0, 2.0],  # A = -exp(a_log) = -0.14, -1, -7.4 with dt = softplus(N(1, 1))
     init=[False, True],
@@ -448,6 +460,45 @@ def _ssd_inputs(B, S, H, P, N, dtype, a_log, init, seed):
     return x, dt, A, Bm, Cm, s0
 
 
+def _kernel_name(key):
+    """The kernel's own name in a profiler key (a demangled signature)."""
+    import re
+
+    found = re.findall(r"(\w+_kernel)\b", key)
+    return found[-1] if found else key[:60]
+
+
+def _ssd_routes():
+    """The CUDA kernels one bf16 and one fp32 call (forward and backward)
+    launch, from the profiler: bf16 must run the chunked tensor-core kernels
+    and no recurrence kernel, fp32 the reverse."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ssd_scan as ss
+
+    chunked = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_out_kernel",
+               "ssd_chunk_dstate_kernel", "ssd_chunk_bwd_kernel")
+    recurrence = ("ssd_fwd_kernel", "ssd_bwd_kernel")
+    for dtype, must, must_not in (("bfloat16", chunked, recurrence),
+                                  ("float32", recurrence, chunked)):
+        ins = _ssd_inputs(2, 200, 4, 64, 64, dtype, 0.0, True, seed=7)
+        leaves = [t.detach().requires_grad_() for t in ins]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y, sT = ss.ssd(*leaves)
+            torch.autograd.grad([y, sT], leaves, [torch.ones_like(y), torch.ones_like(sT)])
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        ran = sorted({_kernel_name(k) for k in names if "ssd_" in k})
+        missing = [k for k in must if k not in ran]
+        wrong = [k for k in must_not if k in ran]
+        if missing or wrong:
+            fail(f"ssd {dtype} route: kernels missing {missing}, unexpected {wrong}; ran {ran}")
+        print(f"ssd {dtype} route runs: {', '.join(ran)}", flush=True)
+
+
 def phase_ssd(sweep=SSD_SWEEP):
     """Phase 3c: both SSD kernels against ``ssd_plain``, then their times at
     the slice shape."""
@@ -455,10 +506,12 @@ def phase_ssd(sweep=SSD_SWEEP):
 
     from repro_torch.kernels import ssd_scan as ss
 
+    _ssd_routes()
     names = ["y", "final_state", "dx", "ddt", "dA", "dBm", "dCm", "d_init_state"]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     used = {"float32": 0.0, "bfloat16": 0.0}
     where = {"float32": "", "bfloat16": ""}
+    by_name = {}
     n = 0
     sl = SSD_SLICE
     main_path = [(sl["B"], sl["S"], sl["H"], sl["P"], sl["N"], None, False, "bfloat16")]
@@ -473,7 +526,8 @@ def phase_ssd(sweep=SSD_SWEEP):
         want = _scan_grads(ss.ssd_plain, ins, dy, dsT)
         torch.cuda.synchronize()
         _check_close(f"B={B} S={S} H={H} P={P} N={N} a_log={a_log} init={init} {dtype}",
-                     names, got, want, SSD_TOL[dtype], worst, used, where, dtype)
+                     names, got, want, SSD_TOL[dtype], worst, used, where, dtype,
+                     by_name=by_name)
         n += 1
     print(f"kernels: ssd forward and backward match ssd_plain on {n} cases "
           f"(y, final state, dx, ddt, dA, dBm, dCm, d init_state; 1 at the slice shape); "
@@ -481,6 +535,11 @@ def phase_ssd(sweep=SSD_SWEEP):
           f"share of an element's tolerance (tol + tol |plain|, tol fp32 {SSD_TOL['float32']}, "
           f"bf16 {SSD_TOL['bfloat16']}): fp32 {used['float32']:.3g} ({where['float32']}), "
           f"bf16 {used['bfloat16']:.3g} ({where['bfloat16']})", flush=True)
+    shares = {dtype: {name: by_name[(name, dtype)] for name in names if (name, dtype) in by_name}
+              for dtype in ("float32", "bfloat16")}
+    for dtype, per in shares.items():
+        print(f"  largest share of the tolerance by output, {dtype}: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in per.items()), flush=True)
 
     B, S, H, P, N = (sl[x] for x in ("B", "S", "H", "P", "N"))
     x, dt, A, Bm, Cm, _ = _ssd_inputs(B, S, H, P, N, "bfloat16", None, False, seed=8)
@@ -491,7 +550,15 @@ def phase_ssd(sweep=SSD_SWEEP):
     leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
     y, _ = ss.ssd(*leaves)
     bwd_ms = _time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
-    del y
+    first = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    second = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    print(f"ssd backward at the slice shape, two calls bit-identical: "
+          + ", ".join(f"{k} {v}" for k, v in zip(("dx", "ddt", "dA", "dBm", "dCm"), same)),
+          flush=True)
+    if not all(same):
+        fail("ssd backward is not deterministic at the slice shape")
+    del y, first, second
     y, _ = ss.ssd_plain(*leaves)
     plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
                             reps=5)
@@ -520,6 +587,7 @@ def phase_ssd(sweep=SSD_SWEEP):
             replaces="src/repro/kernels/ssd_scan.py:28", max_abs_err=max(worst.values()),
             max_abs_err_fp32=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
             tol_share_fp32=used["float32"], tol_share_bf16=used["bfloat16"],
+            tol_share_by_output=shares, deterministic=all(same),
             cases=n, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by=bound_by, library_ms=None, shape=SSD_SLICE,
             **_rate(name, ops, ms, max(t_bytes, t_ops) * 1e3),
@@ -1042,8 +1110,18 @@ def phase_zamba_profile(state):
                            device="cuda")
     batch = next(data)
     data.close()
-    _profile(f"zamba2 train step {n['batch']} x {n['seq']}", lambda: step(state, batch),
-             top=14)
+    rows = _profile(f"zamba2 train step {n['batch']} x {n['seq']}",
+                    lambda: step(state, batch), top=14)
+    ssd = {k: v for k, v in rows.items() if "ssd_" in k}
+    print("  ssd kernels in the step: " + "; ".join(
+        f"{_kernel_name(k)} x{c} {ms:.2f} ms"
+        for k, (c, ms) in sorted(ssd.items(), key=lambda x: -x[1][1])))
+    for need in ("ssd_chunk_state_kernel", "ssd_chunk_out_kernel", "ssd_chunk_dstate_kernel",
+                 "ssd_chunk_bwd_kernel", "ssd_state_pass_kernel"):
+        if not any(need in k for k in ssd):
+            fail(f"profile of the zamba2 step shows no {need}")
+    if any(_kernel_name(k) in ("ssd_fwd_kernel", "ssd_bwd_kernel") for k in ssd):
+        fail("the zamba2 step ran the fp32 recurrence SSD kernels")
 
 
 KERNEL_FAMILIES = {  # kernel-name substrings -> family, for the profiles' summary line
@@ -1056,7 +1134,8 @@ KERNEL_FAMILIES = {  # kernel-name substrings -> family, for the profiles' summa
 
 def _profile(label, fn, top=8):
     """Device time by kernel over ``fn()`` (torch.profiler/CUPTI), and the
-    share of the wall time the device was busy."""
+    share of the wall time the device was busy; returns ``{kernel: (count,
+    device ms)}``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1085,6 +1164,7 @@ def _profile(label, fn, top=8):
     print("  by family: " + "; ".join(f"{f} {100 * t / busy:.1f}% ({t * 1e3:.2f} ms)"
                                       for f, t in sorted(shares.items(), key=lambda x: -x[1])))
     sys.stdout.flush()
+    return {e.key: (e.count, dev(e) * 1e-3) for e in rows}
 
 
 def phase_profile(eng, cfg):

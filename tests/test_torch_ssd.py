@@ -215,3 +215,113 @@ def test_shape_checks(bad):
         s0 = s0[:, :1]
     with pytest.raises(ValueError):
         ss.ssd(x, dt, A, Bm, Cm, s0)
+
+
+# --- the bf16 kernels' chunked backward, in plain PyTorch ---------------------
+
+CHUNK_CASES = [(S, init, a_log, dt_mean) for S in (1, 63, 65, 129) for init in (False, True)
+               for a_log, dt_mean in ((0.0, 0.0), (2.0, 1.0), (3.0, 2.0))]
+
+
+def _seq(x, dt, A, Bm, Cm, s0):
+    """The sequential recurrence in the inputs' dtype (the fp64 oracle)."""
+    Bsz, S, H, P = x.shape
+    h = torch.zeros((Bsz, H, P, Bm.shape[-1]), dtype=x.dtype) if s0 is None else s0
+    ys = []
+    for t in range(S):
+        h = (h * torch.exp(dt[:, t] * A)[..., None, None]
+             + (x[:, t] * dt[:, t, :, None])[..., None] * Bm[:, t, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t]))
+    return torch.stack(ys, 1), h
+
+
+def _chunk_case(S, init, a_log, dt_mean):
+    arrs = _inputs(2, S, 2, 8, 8, a_log=a_log, dt_mean=dt_mean, seed=100 + S, init=init)
+    rng = np.random.default_rng(S)
+    dy = rng.standard_normal((2, S, 2, 8)).astype(np.float32)
+    dsT = rng.standard_normal((2, 2, 8, 8)).astype(np.float32)
+    return arrs, dy, dsT
+
+
+def _autograd(fn, arrs, dy, dsT):
+    leaves = [t.requires_grad_() for t in arrs]
+    y, sT = fn(*leaves[:5], leaves[5] if len(leaves) > 5 else None)
+    return torch.autograd.grad((y * dy).sum() + (sT * dsT).sum(), leaves)
+
+
+@pytest.mark.parametrize("S,init,a_log,dt_mean", CHUNK_CASES)
+def test_chunked_grads_plain_fp64_matches_the_oracle(S, init, a_log, dt_mean):
+    """In fp64 the bf16 backward's formulas (chunk states, the reverse state
+    pass, the in-chunk products with span-sum exponents) equal autograd
+    through the sequential recurrence to rounding: ragged S, with and
+    without an initial state, decays down to exp(-40) a step."""
+    arrs, dy, dsT = _chunk_case(S, init, a_log, dt_mean)
+    t64 = [torch.from_numpy(a).double() for a in arrs]
+    dy64, dsT64 = torch.from_numpy(dy).double(), torch.from_numpy(dsT).double()
+    got = ss.ssd_chunked_grads_plain(*t64[:5], t64[5] if init else None, dy64, dsT64)
+    want = _autograd(_seq, [t.clone() for t in t64], dy64, dsT64)
+    got = [g for g in got if g is not None]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-10, rtol=1e-9)
+
+
+@pytest.mark.parametrize("S,init,a_log,dt_mean", CHUNK_CASES)
+def test_chunked_grads_plain_fp32_matches_autograd_and_jax(S, init, a_log, dt_mean):
+    """In fp32 the same formulas agree with autograd through ``ssd_plain``
+    and with ``jax.grad`` of the reference's ``ssd_chunked`` (its inputs
+    padded to whole chunks with dt = 0 steps, which change nothing)."""
+    arrs, dy, dsT = _chunk_case(S, init, a_log, dt_mean)
+    t32 = _t(arrs)
+    got = ss.ssd_chunked_grads_plain(*t32[:5], t32[5] if init else None,
+                                     torch.from_numpy(dy), torch.from_numpy(dsT))
+    got = [g for g in got if g is not None]
+    want = _autograd(ss.ssd_plain, [t.clone() for t in t32], torch.from_numpy(dy),
+                     torch.from_numpy(dsT))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w.numpy(), GRAD_TOL)
+
+    pad = (-S) % 64
+    padded = [a if i == 2 else np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+              for i, a in enumerate(arrs[:5])]  # A has no time axis
+    dy_p = np.pad(dy, [(0, 0), (0, pad), (0, 0), (0, 0)])
+
+    def jloss(*a):
+        y, sT = ref_ssd_chunked(*a[:5], chunk=64, init_state=a[5] if init else None)
+        return jnp.sum(y * dy_p) + jnp.sum(sT * dsT)
+
+    jin = _j(padded + ([arrs[5]] if init else []))
+    jgrads = jax.grad(jloss, argnums=tuple(range(len(jin))))(*jin)
+    for i, (g, jg) in enumerate(zip(got, jgrads)):
+        jg = np.asarray(jg)
+        if i in (0, 1, 3, 4):  # time-major inputs: the real steps only
+            jg = jg[:, :S]
+        _close(g, jg, GRAD_TOL)
+
+
+def test_kernel_refuses_misaligned_bf16():
+    """The bf16 kernels read x, Bm, Cm and the initial state 16 bytes at a
+    time: a contiguous view that starts off a 16-byte boundary raises."""
+    x, dt, A, Bm, Cm, s0 = _t(_inputs(1, 8, 2, 32, 16, init=True))
+    x, Bm, Cm = (t.bfloat16() for t in (x, Bm, Cm))
+    ss._check_kernel(x, dt, A, Bm, Cm, s0)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(x.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        ss._check_kernel(shifted, dt, A, Bm, Cm, s0)
+    ss._check_kernel(shifted.float(), dt, A, Bm.float(), Cm.float(), s0)  # fp32: no such need
+
+
+def test_wrapper_constants_match_the_cuda_source():
+    """The wrapper sizes the bf16 kernels' buffers by the chunk and the heads
+    a CTA holds: they must be the source's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ss.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+    assert int(re.search(r"constexpr int L = (\d+);", src).group(1)) == ss.CHUNK
+    assert int(re.search(r"constexpr int HG = (\d+);", src).group(1)) == ss.HEAD_GROUP
+    assert int(re.search(r"constexpr int SEG = (\d+);", src).group(1)) == ss.SEG
