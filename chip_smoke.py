@@ -26,12 +26,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
   6. profile — device time by kernel over one prefill and over 8 decode
      ticks of the same engine, and the device's busy share.
 Slice 2, training rwkv6-1.6b:
-  3b. wkv6 — the WKV-6 forward and backward kernels against
-     ``wkv6_plain``: first at the slice's shape (B=4, S=4096, 32 heads of
-     64, bf16, decays from the model's formula), then over S, head size,
-     decay strength (down to below the 1e-6 clip), init state and dtype;
-     o, final state and every gradient (tolerance fp32 5e-4, bf16 2e-2,
-     absolute and relative); then both kernels' times at the slice shape
+  3b. wkv6 — which kernels each route runs (from the profiler: bf16 the
+     chunked kernels ``wkv6_chunk_*``/``wkv6_state_pass_kernel``, fp32 the
+     recurrence ``wkv6_fwd_kernel``/``wkv6_bwd_*``); then the WKV-6
+     forward and backward kernels against ``wkv6_plain``: first at the
+     slice's shape (B=4, S=4096, 32 heads of 64, bf16, decays from the
+     model's formula), then over S (the bf16 kernels' 16-step sub-chunk
+     and 64-step chunk, one short of and one past each), head size, decay
+     strength (down to below the 1e-6 clip), init state and dtype; o,
+     final state and every gradient (tolerance fp32 5e-4, bf16 2e-2,
+     absolute and relative; the largest share of it printed for each
+     output); two backward calls at the slice shape must give
+     bit-identical gradients; then both kernels' times at the slice shape
      beside the plain version and the card's bound (no library call
      computes WKV-6).
   4b. model  — rwkv6-1.6b at full width cut to 4 layers: loss and every
@@ -41,7 +47,9 @@ Slice 2, training rwkv6-1.6b:
      bf16 compute, AdamW, per-layer remat) trains 8 steps at 4 x 4096
      through ``train.loop.train``: finite, falling loss; 2 forward and 1
      backward kernel launch per layer and step; finite parameters.
-  6b. profile — one more training step under the profiler.
+  6b. profile — one more training step under the profiler; lists the
+     WKV-6 kernels it ran and fails unless the chunked ones ran (and no
+     recurrence kernel).
 Slice 3, training zamba2-2.7b (3c and 3d run after 3b; 4c-6c after 6b,
 once the rwkv6 state is freed):
   3c. ssd — which kernels each route runs (from the profiler: bf16 the
@@ -276,7 +284,8 @@ def phase_kernels(prompt_lens):
 WKV_TOL = {"float32": 5e-4, "bfloat16": 2e-2}  # tests/test_kernels.py:68 for fp32
 WKV_SLICE = dict(B=4, S=4096, H=32, N=64)  # rwkv6-1.6b training: 4 x 4096 tokens
 WKV_SWEEP = dict(
-    S=[1, 63, 64, 100, 1000, 4096],
+    # the bf16 kernels' chunk is 64 and their sub-chunk 16
+    S=[1, 16, 17, 63, 64, 65, 100, 127, 128, 129, 1000, 4096],
     N=[32, 64],
     dec=[-2.0, 0.0, 1.0, 3.0],  # w = exp(-exp(dec)): 0.87, 0.37, 0.066, below the 1e-6 clip
     init=[False, True],
@@ -350,23 +359,63 @@ def _check_close(label, names, got, want, tol, worst, used, where, dtype, rel_to
             used[dtype], where[dtype] = share, f"{name} at {label}"
 
 
-def phase_wkv6():
-    """Phase 3b: both WKV-6 kernels against ``wkv6_plain``, then their times
-    at the slice shape."""
+WKV_CHUNKED = ("wkv6_chunk_state_kernel", "wkv6_state_pass_kernel", "wkv6_chunk_out_kernel",
+               "wkv6_chunk_dv_kernel", "wkv6_chunk_walk_kernel", "wkv6_chunk_du_kernel")
+WKV_RECURRENCE = ("wkv6_fwd_kernel", "wkv6_bwd_rows_kernel", "wkv6_bwd_cols_kernel")
+
+
+def _routes(prefix, fn, make_inputs, chunked, recurrence):
+    """The CUDA kernels bf16 and fp32 calls of ``fn`` (forward and
+    backward) launch, from the profiler: bf16 must run the chunked
+    tensor-core kernels and no recurrence kernel, fp32 the reverse.  One
+    call runs before the profiled window and two inside it (the profiler
+    has dropped the window's first kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def call(leaves):
+        out, sT = fn(*leaves)
+        torch.autograd.grad([out, sT], leaves, [torch.ones_like(out), torch.ones_like(sT)])
+
+    for dtype, must, must_not in (("bfloat16", chunked, recurrence),
+                                  ("float32", recurrence, chunked)):
+        leaves = [t.detach().requires_grad_() for t in make_inputs(dtype)]
+        call(leaves)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call(leaves)
+            call(leaves)
+            torch.cuda.synchronize()
+        ran = sorted({_kernel_name(e.key) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and prefix in e.key})
+        missing = [k for k in must if k not in ran]
+        wrong = [k for k in must_not if k in ran]
+        if missing or wrong:
+            fail(f"{prefix} {dtype} route: kernels missing {missing}, unexpected {wrong}; "
+                 f"ran {ran}")
+        print(f"{prefix.rstrip('_')} {dtype} route runs: {', '.join(ran)}", flush=True)
+
+
+def phase_wkv6(sweep=WKV_SWEEP):
+    """Phase 3b: which kernels each route runs, then both WKV-6 kernels
+    against ``wkv6_plain``, then their times at the slice shape."""
     import torch
 
     from repro_torch.kernels import wkv6 as wk
 
+    _routes("wkv6_", wk.wkv6, lambda dt: _wkv_inputs(2, 200, 4, 64, dt, 0.0, True, seed=7),
+            WKV_CHUNKED, WKV_RECURRENCE)
     names = ["o", "final_state", "dr", "dk", "dv", "dw", "du", "d_init_state"]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     used = {"float32": 0.0, "bfloat16": 0.0}  # largest share of an element's tolerance
     where = {"float32": "", "bfloat16": ""}
+    by_name = {}
     n = 0
     sl = WKV_SLICE
     main_path = [(sl["B"], sl["S"], sl["H"], sl["N"], None, False, "bfloat16")]
-    sweep = [(2, S, 4, N, dec, init, dtype)
-             for S, N, dec, init, dtype in itertools.product(*WKV_SWEEP.values())]
-    for B, S, H, N, dec, init, dtype in main_path + sweep:
+    cases = [(2, S, 4, N, dec, init, dtype)
+             for S, N, dec, init, dtype in itertools.product(*sweep.values())]
+    for B, S, H, N, dec, init, dtype in main_path + cases:
         ins = _wkv_inputs(B, S, H, N, dtype, dec, init, seed=100 + n)
         g = torch.Generator(device="cuda").manual_seed(n)
         do = torch.randn(ins[2].shape, generator=g, device="cuda").to(ins[0].dtype)
@@ -375,7 +424,7 @@ def phase_wkv6():
         want = _scan_grads(wk.wkv6_plain, ins, do, dsT)
         torch.cuda.synchronize()
         _check_close(f"wkv6 B={B} S={S} H={H} N={N} dec={dec} init={init} {dtype}", names,
-                     got, want, WKV_TOL[dtype], worst, used, where, dtype)
+                     got, want, WKV_TOL[dtype], worst, used, where, dtype, by_name=by_name)
         n += 1
     print(f"kernels: wkv6 forward and backward match wkv6_plain on {n} cases "
           f"(o, final state, dr, dk, dv, dw, du, d init_state; 1 at the slice shape); "
@@ -384,6 +433,11 @@ def phase_wkv6():
           f"bf16 {WKV_TOL['bfloat16']}): fp32 {used['float32']:.3g} ({where['float32']}), "
           f"bf16 {used['bfloat16']:.3g} ({where['bfloat16']})",
           flush=True)
+    shares = {dtype: {name: by_name[(name, dtype)] for name in names if (name, dtype) in by_name}
+              for dtype in ("float32", "bfloat16")}
+    for dtype, per in shares.items():
+        print(f"  largest share of the tolerance by output, {dtype}: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in per.items()), flush=True)
 
     B, S, H, N = (sl[x] for x in ("B", "S", "H", "N"))
     r, k, v, w, u, _ = _wkv_inputs(B, S, H, N, "bfloat16", None, False, seed=7)
@@ -394,33 +448,50 @@ def phase_wkv6():
     leaves = [x.detach().requires_grad_() for x in (r, k, v, w, u)]
     o, _ = wk.wkv6(*leaves)
     bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
-    del o
+    first = torch.autograd.grad(o, leaves, do, retain_graph=True)
+    second = torch.autograd.grad(o, leaves, do, retain_graph=True)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    print(f"wkv6 backward at the slice shape, two calls bit-identical: "
+          + ", ".join(f"{k} {v}" for k, v in zip(("dr", "dk", "dv", "dw", "du"), same)),
+          flush=True)
+    if not all(same):
+        fail("wkv6 backward is not deterministic at the slice shape")
+    del o, first, second
     o, _ = wk.wkv6_plain(*leaves)
     plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
                             reps=5)
     del o, leaves
     torch.cuda.empty_cache()
-    steps = B * S * H  # (b, t, h) recurrence steps
+    L = wk.KCHUNK
+    blocks = B * H * (S // L)  # (chunk, head, b) blocks of the chunked form
     elem = 2 * B * S * H * N  # bytes of one bf16 (B, S, H, N) tensor
     fwd_bytes = 5 * elem + 4 * H * N + 4 * B * H * N * N  # r k v w in, o out; u; final state
     bwd_bytes = 9 * elem + 2 * 4 * H * N  # r k v w do in, dr dk dv dw out; u, du
-    fwd_ops = steps * (5 * N * N + 4 * N)  # readout 2N^2, decay+outer product 3N^2, bonus
-    bwd_ops = steps * 14 * N * N  # state recompute 3, dr 2, G update 3, dk 2, dv 2, dw 2 (x N^2)
+    # the chunked form: forward own state, A, A v, rdec S_in; backward D,
+    # A, A^T do, kdec G_out and the walk's dr, dk, dw products (x 2 L N^2 each)
+    fwd_ops = blocks * (4 * L * N * N + 2 * L * L * N)
+    bwd_ops = blocks * (10 * L * N * N + 2 * L * L * N)
+    steps = B * S * H  # (b, t, h) steps of the fp32 route's recurrence
+    rec_ops = {"wkv6_fwd": steps * (5 * N * N + 4 * N), "wkv6_bwd": steps * 14 * N * N}
     records = []
     for name, ms, plain_ms, nbytes, ops in (
             ("wkv6_fwd", fwd_ms, plain_fwd_ms, fwd_bytes, fwd_ops),
             ("wkv6_bwd", bwd_ms, plain_bwd_ms, bwd_bytes, bwd_ops)):
-        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / FP32_PEAK
+        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["bfloat16"]
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        rec_ms = max(t_bytes, rec_ops[name] / FP32_PEAK) * 1e3
         print(f"{name} B={B} S={S} H={H} N={N} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library none, bound {max(t_bytes, t_ops) * 1e3:.4f} ms ({bound_by}; "
-              f"{ops / 1e9:.2f} GFLOP at fp32 {FP32_PEAK / 1e12:.0f} TFLOP/s = "
+              f"{ops / 1e9:.2f} GFLOP of the chunked form at 989 TFLOP/s = "
               f"{t_ops * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
-              f"{t_bytes * 1e3:.4f} ms)", flush=True)
+              f"{t_bytes * 1e3:.4f} ms; the fp32 recurrence's bound {rec_ms:.4f} ms, "
+              f"{rec_ops[name] / 1e9:.2f} GFLOP at {FP32_PEAK / 1e12:.0f} TFLOP/s)", flush=True)
         records.append(dict(
             name=name, route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
             replaces="src/repro/kernels/wkv6.py:24", max_abs_err=max(worst.values()),
             max_abs_err_fp32=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
+            tol_share_fp32=used["float32"], tol_share_bf16=used["bfloat16"],
+            tol_share_by_output=shares, deterministic=all(same),
             cases=n, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by=bound_by, library_ms=None, shape=WKV_SLICE,
             **_rate(name, ops, ms, max(t_bytes, t_ops) * 1e3),
@@ -468,35 +539,9 @@ def _kernel_name(key):
     return found[-1] if found else key[:60]
 
 
-def _ssd_routes():
-    """The CUDA kernels one bf16 and one fp32 call (forward and backward)
-    launch, from the profiler: bf16 must run the chunked tensor-core kernels
-    and no recurrence kernel, fp32 the reverse."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import ssd_scan as ss
-
-    chunked = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_out_kernel",
+SSD_CHUNKED = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_out_kernel",
                "ssd_chunk_dstate_kernel", "ssd_chunk_bwd_kernel")
-    recurrence = ("ssd_fwd_kernel", "ssd_bwd_kernel")
-    for dtype, must, must_not in (("bfloat16", chunked, recurrence),
-                                  ("float32", recurrence, chunked)):
-        ins = _ssd_inputs(2, 200, 4, 64, 64, dtype, 0.0, True, seed=7)
-        leaves = [t.detach().requires_grad_() for t in ins]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            y, sT = ss.ssd(*leaves)
-            torch.autograd.grad([y, sT], leaves, [torch.ones_like(y), torch.ones_like(sT)])
-            torch.cuda.synchronize()
-        names = sorted({e.key for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA})
-        ran = sorted({_kernel_name(k) for k in names if "ssd_" in k})
-        missing = [k for k in must if k not in ran]
-        wrong = [k for k in must_not if k in ran]
-        if missing or wrong:
-            fail(f"ssd {dtype} route: kernels missing {missing}, unexpected {wrong}; ran {ran}")
-        print(f"ssd {dtype} route runs: {', '.join(ran)}", flush=True)
+SSD_RECURRENCE = ("ssd_fwd_kernel", "ssd_bwd_kernel")
 
 
 def phase_ssd(sweep=SSD_SWEEP):
@@ -506,7 +551,8 @@ def phase_ssd(sweep=SSD_SWEEP):
 
     from repro_torch.kernels import ssd_scan as ss
 
-    _ssd_routes()
+    _routes("ssd_", ss.ssd, lambda dt: _ssd_inputs(2, 200, 4, 64, 64, dt, 0.0, True, seed=7),
+            SSD_CHUNKED, SSD_RECURRENCE)
     names = ["y", "final_state", "dx", "ddt", "dA", "dBm", "dCm", "d_init_state"]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     used = {"float32": 0.0, "bfloat16": 0.0}
@@ -956,7 +1002,8 @@ def phase_rwkv_profile(state):
                            device="cuda")
     batch = next(data)
     data.close()
-    _profile(f"train step {n['batch']} x {n['seq']}", lambda: step(state, batch), top=12)
+    rows = _profile(f"train step {n['batch']} x {n['seq']}", lambda: step(state, batch), top=12)
+    _step_ran_chunked("rwkv6", rows, "wkv6_", WKV_CHUNKED, WKV_RECURRENCE)
 
 
 # 20 steps: the reference's cosine schedule warms up for steps // 10 steps,
@@ -1112,16 +1159,21 @@ def phase_zamba_profile(state):
     data.close()
     rows = _profile(f"zamba2 train step {n['batch']} x {n['seq']}",
                     lambda: step(state, batch), top=14)
-    ssd = {k: v for k, v in rows.items() if "ssd_" in k}
-    print("  ssd kernels in the step: " + "; ".join(
+    _step_ran_chunked("zamba2", rows, "ssd_", SSD_CHUNKED, SSD_RECURRENCE)
+
+
+def _step_ran_chunked(model, rows, prefix, chunked, recurrence):
+    """Lists the kernels of one family in a profiled step and fails unless
+    every chunked kernel ran and no recurrence kernel did."""
+    ran = {k: v for k, v in rows.items() if prefix in k}
+    print(f"  {prefix.rstrip('_')} kernels in the step: " + "; ".join(
         f"{_kernel_name(k)} x{c} {ms:.2f} ms"
-        for k, (c, ms) in sorted(ssd.items(), key=lambda x: -x[1][1])))
-    for need in ("ssd_chunk_state_kernel", "ssd_chunk_out_kernel", "ssd_chunk_dstate_kernel",
-                 "ssd_chunk_bwd_kernel", "ssd_state_pass_kernel"):
-        if not any(need in k for k in ssd):
-            fail(f"profile of the zamba2 step shows no {need}")
-    if any(_kernel_name(k) in ("ssd_fwd_kernel", "ssd_bwd_kernel") for k in ssd):
-        fail("the zamba2 step ran the fp32 recurrence SSD kernels")
+        for k, (c, ms) in sorted(ran.items(), key=lambda x: -x[1][1])))
+    for need in chunked:
+        if not any(need in k for k in ran):
+            fail(f"profile of the {model} step shows no {need}")
+    if any(_kernel_name(k) in recurrence for k in ran):
+        fail(f"the {model} step ran the fp32 recurrence {prefix} kernels")
 
 
 KERNEL_FAMILIES = {  # kernel-name substrings -> family, for the profiles' summary line

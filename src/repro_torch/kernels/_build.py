@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``<repo>/build/repro_torch_kernels/<name>-<hash>.so``; the hash covers the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused.  All sources start compiling together (one ``nvcc`` each).  A
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  All sources start compiling together (one ``nvcc`` each).  A
 failed build raises with the compiler's output.  The libraries have a C
 interface and are loaded with ``ctypes``; nothing here includes PyTorch's
 headers.
@@ -39,7 +39,8 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

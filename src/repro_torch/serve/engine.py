@@ -174,6 +174,10 @@ class ContinuousBatchingEngine:
     def __init__(self, cfg, params, *, lanes: int, n_pages: int,
                  page_tokens: int = 16, lane_capacity: int = 128,
                  debug_checks: bool = False, device: DeviceLike = None):
+        if cfg.block_type not in ("attn_mlp", "moe"):
+            raise ValueError(
+                f"paged serving needs a KV-cache family, got {cfg.block_type}"
+            )
         self.device = resolve_device(device)
         self.cfg = cfg
         self.api = _serving_api(cfg)

@@ -168,3 +168,14 @@ def test_launch_serve_runs_on_cpu(continuous, capsys):
     serve.main(argv + (["--continuous"] if continuous else []))
     out = capsys.readouterr().out
     assert ("served 3 requests" if continuous else "generated (4, 16)") in out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
+def test_continuous_engine_refuses_families_without_a_kv_cache(arch):
+    """Both engines raise the same ValueError for the recurrent families."""
+    cfg = small_config(arch)
+    with pytest.raises(ValueError, match="paged serving needs a KV-cache family") as want:
+        RefContinuous(cfg, {}, lanes=1, n_pages=4)
+    with pytest.raises(ValueError, match="paged serving needs a KV-cache family") as got:
+        ContinuousBatchingEngine(port_config(cfg), {}, lanes=1, n_pages=4, device="cpu")
+    assert str(got.value) == str(want.value)

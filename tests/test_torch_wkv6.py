@@ -208,6 +208,36 @@ def test_kernel_input_checks_raise(case, err):
     wk._check_kernel(*good)  # the accepted inputs pass
 
 
+@pytest.mark.parametrize("which", ["r", "w", "init_state"])
+def test_kernel_refuses_misaligned_bf16(which):
+    """The bf16 kernels read r, k, v, w and the initial state 16 bytes at a
+    time: a contiguous view that starts off a 16-byte boundary raises."""
+    r, k, v, w, u, s0 = _t(_inputs(1, 8, 2, 32, 32, init=True))
+    ins = dict(r=r.bfloat16(), k=k.bfloat16(), v=v.bfloat16(), w=w.bfloat16(), u=u, s0=s0)
+    wk._check_kernel(*ins.values())
+    key = "s0" if which == "init_state" else which
+    flat = torch.empty(ins[key].numel() + 1, dtype=ins[key].dtype)
+    shifted = flat[1:].view(ins[key].shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match=f"{which} 16-byte aligned"):
+        wk._check_kernel(*{**ins, key: shifted}.values())
+    fp32 = dict(r=r, k=k, v=v, w=w, u=u, s0=s0)
+    wk._check_kernel(*{**fp32, key: shifted.float()}.values())  # fp32: no such need
+
+
+def test_wrapper_constants_match_the_cuda_source():
+    """``wkv6_chunked_grads_plain`` and the wrapper's buffers follow the
+    kernels' chunk, sub-chunk and checkpoint interval: they must be the
+    source's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(wk.__file__).parent / "csrc" / "wkv6.cu").read_text()
+    assert int(re.search(r"constexpr int L = (\d+);", src).group(1)) == wk.KCHUNK
+    assert int(re.search(r"constexpr int SUB = (\d+);", src).group(1)) == wk.SUB
+    assert int(re.search(r"constexpr int SEG = (\d+);", src).group(1)) == wk.SEG
+
+
 def test_other_devices_raise():
     r, k, v, w, u = (x.to("meta") for x in _t(_inputs(1, 4, 1, 32, 32)))
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -225,3 +255,81 @@ def test_shape_checks(bad):
         s0 = s0[:, :1]
     with pytest.raises(ValueError):
         wk.wkv6(r, k, v, w, u, s0)
+
+
+# ---- the bf16 kernels' formulas (``wkv6_chunked_grads_plain``) ----
+#
+# Held against autograd through ``wkv6_plain`` in fp32, at 1e-3 absolute and
+# relative (both fp32; they differ only in summation order), over the
+# kernels' sub-chunk (16) and chunk (64) edges, both head sizes, decays from
+# mild (w 0.87) to below the 1e-6 clip (dec = 3), with and without an
+# initial state and a loss on the final state.
+
+def _with_states(S, K):
+    """Whether a sweep case has an ``init_state`` and a ``dsT``: all four
+    ways over the S sweep."""
+    return (S + K // 32) % 2 == 1, (S // 16 + K // 32) % 2 == 0
+
+
+def _chunked_case(S, K, dec, init, with_dsT, seed):
+    arrs = _inputs(2, S, 2, K, K, dec=dec, seed=seed, init=init)
+    rng = np.random.default_rng(seed + 1)
+    do = rng.standard_normal((2, S, 2, K)).astype(np.float32)
+    dsT = rng.standard_normal((2, 2, K, K)).astype(np.float32) if with_dsT else None
+    return arrs, do, dsT
+
+
+def _autograd_through_plain(arrs, do, dsT):
+    leaves = [x.requires_grad_() for x in _t(arrs)]
+    o, sT = wk.wkv6_plain(*leaves)
+    loss = (o * torch.from_numpy(do)).sum()
+    if dsT is not None:
+        loss = loss + (sT * torch.from_numpy(dsT)).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    return [o, sT, *grads] + ([None] if len(leaves) == 5 else [])
+
+
+@pytest.mark.parametrize("dec", [-2.0, 0.0, 1.0, 3.0])
+@pytest.mark.parametrize("K", [32, 64])
+@pytest.mark.parametrize("S", [1, 16, 17, 63, 64, 65, 129])
+def test_chunked_grads_plain_matches_autograd(S, K, dec):
+    """o, final state, dr, dk, dv, dw, du and d init_state."""
+    init, with_dsT = _with_states(S, K)
+    arrs, do, dsT = _chunked_case(S, K, dec, init, with_dsT, seed=S * K)
+    t = _t(arrs)
+    got = wk.wkv6_chunked_grads_plain(*t[:5], t[5] if init else None, torch.from_numpy(do),
+                                      None if dsT is None else torch.from_numpy(dsT))
+    want = _autograd_through_plain(arrs, do, dsT)
+    names = ["o", "final_state", "dr", "dk", "dv", "dw", "du", "d_init_state"]
+    for name, g, w_ in zip(names, got, want):
+        if w_ is None:
+            assert g is None, name
+            continue
+        assert torch.isfinite(g).all(), name
+        _close(g, w_.detach().numpy(), GRAD_TOL)
+
+
+def test_chunked_grads_plain_covers_init_and_final_state_both_ways():
+    """The S sweep above runs with and without ``init_state`` and ``dsT``."""
+    combos = {_with_states(S, K) for S in (1, 16, 17, 63, 64, 65, 129) for K in (32, 64)}
+    assert combos == {(False, False), (False, True), (True, False), (True, True)}
+
+
+@pytest.mark.parametrize("S,dec", [(65, -1.0), (129, 1.0), (100, 2.0)])
+def test_chunked_grads_plain_matches_jax_grad(S, dec):
+    """Against jax.grad of the reference's sequential oracle (with an initial
+    state and a loss on the final state), where it is safe at every decay."""
+    arrs, do, dsT = _chunked_case(S, 32, dec, True, True, seed=S)
+
+    def jloss(*a):
+        o, sT = _jax_wkv_with_state(*a)
+        return jnp.sum(o * do) + jnp.sum(sT * dsT)
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*_j(arrs))
+    t = _t(arrs)
+    got = wk.wkv6_chunked_grads_plain(*t, torch.from_numpy(do), torch.from_numpy(dsT))
+    for g, jg in zip(got[2:], want[:4] + (want[4], want[5])):
+        _close(g, jg, GRAD_TOL)
+    o, sT = _jax_wkv_with_state(*_j(arrs))
+    _close(got[0], o, FWD_TOL)
+    _close(got[1], sT, FWD_TOL)
