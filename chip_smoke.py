@@ -6,6 +6,13 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device  — the card's name and power limit; TF32 off for fp32 products.
   2. build   — compile every CUDA source of ``src/repro_torch/kernels/csrc``.
+  2b. plan   — the burst-parallel planner stack: ``calibrate_kinds`` on the
+     card (the per-kind ratios) and one empty launch timed with CUDA
+     events (``costmodel.H100.kernel_overhead``); plans of llama3-8b and
+     qwen2-1.5b (``TRAIN_4K``) on ``H100`` at 8, 64 and 256 devices: the
+     unconstrained burst plan never slower than data parallel, the amp
+     limit held, the static verifier clean; the quickstart's 256-device
+     plan and collocation simulation.
   3. kernels — the flash-attention kernel against its plain PyTorch version
      at the slice's own prefill shapes (phase 5's prompt lengths), then over
      a sweep of head layouts, head dims, ragged lengths (129 and 257 one
@@ -88,13 +95,39 @@ once the rwkv6 state is freed):
   6c. profile — one more training step under the profiler; lists the SSD
      kernels it ran and fails unless the chunked ones ran (and no
      recurrence kernel).
+Slice 4, the quickstart and training qwen2-1.5b (the ``attn_mlp`` family;
+3e after 3d, 4q-6q after 6c, 7 last):
+  3e. flash at the qwen2 shape — forward and backward times at B=4,
+     S=4096, 12 query heads over 2 KV heads of 128 (a group of 6),
+     causal, bf16, beside the plain version, ``scaled_dot_product_attention``
+     (autograd through it for the backward) and the card's bound; two
+     backward calls bit-identical.  Phases 3 and 3d sweep the (12, 2)
+     head layout too.
+  4q. model — qwen2-1.5b at full width cut to 4 layers: loss and every
+     parameter gradient of one 2 x 1024 batch through the flash kernels
+     and through ``flash_attention_plain`` agree; exact launch counts.
+  5q. slice — qwen2-1.5b at full width and depth (28 layers, d_model
+     1536, 12 heads over 2 KV heads of 128, d_ff 8960, vocab 151936, QKV
+     bias, tied embeddings; fp32 params, bf16 compute, AdamW on the cosine
+     schedule, per-layer remat) trains 20 steps at 4 x 4096 through
+     ``train.loop.train``: finite, falling loss; flash launches 56 forward
+     and 28 backward per step; peak memory under 80 GB; median step,
+     tokens/s.
+  6q. profile — one more training step under the profiler; fails unless
+     ``flash_fwd_sm90<128>`` and both ``flash_bwd_*_sm90`` kernels ran.
+  7. quickstart — ``repro_torch.launch.quickstart.main(["--arch",
+     "llama3-8b"])`` on the card: plan, gaps, collocation, then 10 steps
+     of reduced llama3-8b; every loss finite, the last below the first.
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
 true, "device": {...}}``; the line before it is the kernels' JSON record
 (six kernels: flash forward and backward, WKV-6 forward and backward, SSD
-forward and backward).  Imports ``torch``, ``numpy`` and ``repro_torch``
-only.
+forward and backward; the flash records carry their times at the
+qwen2-1.5b shape under ``qwen2`` and their launches by path); the line
+before that is ``card: ...``, and before it ``planning: {...}`` (the
+measured launch overhead and kind ratios).  Imports ``torch``, ``numpy``
+and ``repro_torch`` only.
 """
 from __future__ import annotations
 
@@ -120,7 +153,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 
 SWEEP = dict(
-    heads=[(32, 8), (4, 4), (8, 1)],
+    heads=[(32, 8), (4, 4), (8, 1), (12, 2)],  # (12, 2): qwen2-1.5b's group of 6
     d=[32, 64, 80, 128],
     S=[1, 17, 128, 129, 200, 257, 1000, 2048],  # 129, 257: one past the 128-row tiles
     window=[0, 96],
@@ -129,6 +162,8 @@ SWEEP = dict(
 )
 CROSS_LENS = [(100, 300), (300, 100), (129, 1), (1, 257), (1000, 2048)]  # (Sq, Skv)
 PREFILL = dict(B=1, S=2048, H=32, KV=8, d=128)  # llama3-8b prefill attention
+QWEN_FLASH = dict(B=4, S=4096, H=12, KV=2, d=128, window=0)  # qwen2-1.5b training
+QUICK_FLASH = dict(B=4, S=64, H=4, KV=1, d=32)  # the quickstart: reduced llama3-8b, 4 x 64
 
 
 def slice_trace(vocab_size: int):
@@ -222,6 +257,9 @@ def phase_kernels(prompt_lens):
     n = 0
     B, H, KV, d = (PREFILL[x] for x in ("B", "H", "KV", "d"))
     main_path = [(B, (H, KV), d, (S, S), 0, "bfloat16", True) for S in prompt_lens]
+    qw, qs = QWEN_FLASH, QUICK_FLASH
+    main_path += [(qw["B"], (qw["H"], qw["KV"]), qw["d"], (qw["S"], qw["S"]), 0, "bfloat16", True),
+                  (qs["B"], (qs["H"], qs["KV"]), qs["d"], (qs["S"], qs["S"]), 0, "bfloat16", True)]
     sweep = [(2, hd, dd, (S, S), w, dt, c)
              for hd, dd, S, w, dt, c in itertools.product(*SWEEP.values())]
     cross = [(2, hd, dd, lens, 0, dt, False)  # non-causal, Sq != Skv
@@ -243,7 +281,8 @@ def phase_kernels(prompt_lens):
         worst[dtype] = max(worst[dtype], float(err.max()))
         n += 1
     print(f"kernels: flash_attention matches its plain version on {n} cases "
-          f"({len(main_path)} at the slice's prompt lengths {sorted(prompt_lens)}, "
+          f"({len(main_path)} on main paths: the serving slice's prompt lengths "
+          f"{sorted(prompt_lens)}, qwen2-1.5b training, the quickstart; "
           f"{len(cross)} non-causal with Sq != Skv); max abs err fp32 {worst['float32']:.3g} (tol {TOL['float32']}), "
           f"bf16 {worst['bfloat16']:.3g} (tol {TOL['bfloat16']})")
 
@@ -369,7 +408,8 @@ def _routes(prefix, fn, make_inputs, chunked, recurrence):
     backward) launch, from the profiler: bf16 must run the chunked
     tensor-core kernels and no recurrence kernel, fp32 the reverse.  One
     call runs before the profiled window and two inside it (the profiler
-    has dropped the window's first kernel)."""
+    has dropped the window's first kernel, and once every kernel of a
+    window: such an empty capture is taken again, up to three times)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -382,12 +422,18 @@ def _routes(prefix, fn, make_inputs, chunked, recurrence):
         leaves = [t.detach().requires_grad_() for t in make_inputs(dtype)]
         call(leaves)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call(leaves)
-            call(leaves)
-            torch.cuda.synchronize()
-        ran = sorted({_kernel_name(e.key) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and prefix in e.key})
+        for attempt in range(3):  # a capture that recorded no kernel at all is taken again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call(leaves)
+                call(leaves)
+                torch.cuda.synchronize()
+            ran = sorted({_kernel_name(e.key) for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and prefix in e.key})
+            if ran:
+                break
+            print(f"{prefix} {dtype} route: the profiler recorded no {prefix} kernel "
+                  f"(capture {attempt + 1} of 3)", flush=True)
         missing = [k for k in must if k not in ran]
         wrong = [k for k in must_not if k in ran]
         if missing or wrong:
@@ -644,7 +690,7 @@ def phase_ssd(sweep=SSD_SWEEP):
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 FLASH_SLICE = dict(B=4, S=4096, H=32, KV=32, d=80, window=4096)  # zamba2 shared attention
 FLASH_BWD_SWEEP = dict(
-    heads=[(4, 4), (8, 2), (8, 1)],
+    heads=[(4, 4), (8, 2), (8, 1), (12, 2)],  # (12, 2): qwen2-1.5b's group of 6
     d=[32, 64, 80, 128],
     mask=[(True, 0), (True, 96), (False, 0)],
     S=[1, 17, 129, 200, 257, 1000],  # 129, 257: one past the 64- and 128-row tiles
@@ -660,15 +706,135 @@ def _attn_grads(fn, q, k, v, do, causal, window):
     return [o.detach(), *torch.autograd.grad(o, leaves, do)]
 
 
-def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
-    """Phase 3d: the d=80 forward and its LSE at the slice shape, the
-    backward kernels against autograd through ``flash_attention_plain``,
-    then times at the slice shape."""
+def _flash_times(sl, seed):
+    """Forward and backward times of the flash kernels at shape ``sl``
+    (bf16, causal, window ``sl["window"]``) beside the plain version,
+    ``scaled_dot_product_attention`` (autograd through it for the
+    backward) and the card's bound; fails unless two backward calls give
+    bit-identical dq, dk, dv and the output and gradients agree with
+    autograd through ``flash_attention_plain`` (``FLASH_BWD_TOL``).  Returns ((fwd record, bwd record), the
+    determinism flags, the backward's max abs err against SDPA's)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
+    B, S, H, KV, d, W = (sl[x] for x in ("B", "S", "H", "KV", "d", "window"))
+    q, k, v = _inputs(B, S, S, H, KV, d, "bfloat16", seed=seed)
+    do = torch.randn(q.shape, device="cuda").to(q.dtype)
+    gqa = dict(enable_gqa=True) if H != KV else {}
+    with torch.no_grad():
+        fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=W))
+        plain_fwd_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                                                 window=W), reps=3)
+        lib_fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, **gqa))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention(*leaves, causal=True, window=W)
+    bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+    again = torch.autograd.grad(o, leaves, do, retain_graph=True)
+    got = [o.detach(), *torch.autograd.grad(o, leaves, do)]
+    same = [torch.equal(a, b) for a, b in zip(again, got[1:])]
+    print(f"flash backward determinism at B={B} S={S} H={H} KV={KV} d={d}: two calls give "
+          f"bit-identical dq, dk, dv: {same}", flush=True)
+    if not all(same):
+        fail("flash backward is not deterministic: two calls differ")
+    del o, again
+    lt = [t.transpose(1, 2) for t in leaves]  # (B, heads, S, d) views
+    o = F.scaled_dot_product_attention(*lt, is_causal=True, **gqa)
+    dot = do.transpose(1, 2)
+    lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
+    lib = torch.autograd.grad(o, leaves, dot)
+    lib_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], lib))
+    del o, lib
+    torch.cuda.empty_cache()
+    o = fa.flash_attention_plain(*leaves, causal=True, window=W)
+    plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
+                            reps=3, warmup=1)
+    want = [o.detach(), *torch.autograd.grad(o, leaves, do)]
+    del o, leaves
+    # the timed kernels against the plain version on the same inputs, as the
+    # sweep of phase 3d holds them
+    worst, used = {"bfloat16": 0.0}, {"bfloat16": 0.0}
+    _check_close(f"timed shape B={B} S={S} H={H} KV={KV} d={d} window={W} bfloat16",
+                 ["o", "dq", "dk", "dv"], got, want, FLASH_BWD_TOL["bfloat16"], worst, used,
+                 {"bfloat16": ""}, "bfloat16", rel_to_max=True)
+    print(f"flash forward and backward at B={B} S={S} H={H} KV={KV} d={d} match autograd "
+          f"through flash_attention_plain: max abs err {worst['bfloat16']:.3g}, largest "
+          f"share of an element's tolerance {used['bfloat16']:.3g} (bf16 tol (max|plain| + "
+          f"|plain|), tol {FLASH_BWD_TOL['bfloat16']})", flush=True)
+    del got, want
+    torch.cuda.empty_cache()
+    # live (query, key) pairs of causal attention, cut by the window
+    pairs = sum(min(i + 1, W) if W else i + 1 for i in range(S))
+    fwd_ops = 4 * B * H * d * pairs
+    bwd_ops = 10 * B * H * d * pairs  # 5 products: S, dP, dV, dK, dQ (2.5x the forward)
+    t_bytes = 2 * (q.numel() + k.numel() + v.numel())
+    fwd_bytes = t_bytes + 2 * q.numel() + 4 * B * H * S  # o, lse out
+    bwd_bytes = 2 * t_bytes + 4 * q.numel() + 4 * B * H * S  # q k v o dO in, dq dk dv out, lse
+    records = []
+    for name, ms, plain_ms, lib_ms, nbytes, ops in (
+            ("flash_attention_fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms, fwd_bytes, fwd_ops),
+            ("flash_attention_bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, bwd_bytes, bwd_ops)):
+        t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["bfloat16"]
+        bound_by = "operations" if t_o >= t_b else "bytes"
+        print(f"{name} B={B} S={S} H={H} KV={KV} d={d} bf16 causal: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{max(t_b, t_o) * 1e3:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB); {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
+        records.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            timed_shape_max_abs_err=worst["bfloat16"],
+                            timed_shape_tol_share=used["bfloat16"],
+                            bound_ms=max(t_b, t_o) * 1e3, bound_by=bound_by, shape=dict(sl),
+                            **_rate(f"{name} (B={B} S={S} H={H} KV={KV} d={d})", ops, ms,
+                                    max(t_b, t_o) * 1e3)))
+    print(f"flash backward vs sdpa backward at B={B} S={S} H={H} KV={KV} d={d}: max abs err "
+          f"{lib_err:.3g}", flush=True)
+    return records, same, lib_err
+
+
+def _fresh_thread_flash():
+    """The bf16 flash kernels encode their TMA tensor maps with
+    ``cuTensorMapEncodeTiled``, which needs a context current on the
+    calling thread; a thread that has made no CUDA call yet (autograd's
+    backward worker can be one) lacks it unless the kernels bind it.  Calls the forward from a new
+    host thread and compares it with the plain version."""
+    import threading
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _inputs(1, 130, 130, 12, 2, 128, "bfloat16", seed=5)
+    out = {}
+
+    def run():
+        try:
+            out["o"] = fa.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+        except Exception as e:  # reported below, on the main thread
+            out["err"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "err" in out:
+        fail(f"flash forward from a fresh host thread: {out['err']}")
+    err = float((out["o"].float() - fa.flash_attention_plain(q, k, v).float()).abs().max())
+    print(f"flash forward from a fresh host thread: max abs err {err:.3g}", flush=True)
+    if not err <= TOL["bfloat16"]:
+        fail("flash forward from a fresh host thread disagrees with the plain version")
+
+
+def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
+    """Phase 3d: the d=80 forward and its LSE at the slice shape, the
+    backward kernels against autograd through ``flash_attention_plain``,
+    then times at the slice shape."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    _fresh_thread_flash()
     sl = FLASH_SLICE
     B, S, H, KV, d, W = (sl[x] for x in ("B", "S", "H", "KV", "d", "window"))
     q, k, v = _inputs(B, S, S, H, KV, d, "bfloat16", seed=77)
@@ -691,7 +857,9 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
     used = {"float32": 0.0, "bfloat16": 0.0}
     where = {"float32": "", "bfloat16": ""}
     n = 0
-    main_path = [(B, (H, KV), d, (True, W), S, "bfloat16")]
+    qs = QUICK_FLASH
+    main_path = [(B, (H, KV), d, (True, W), S, "bfloat16"),
+                 (qs["B"], (qs["H"], qs["KV"]), qs["d"], (True, 0), qs["S"], "bfloat16")]
     cases = [(2, *c) for c in itertools.product(*sweep.values())]
     for b, (h, kv), dd, (causal, window), s, dtype in main_path + cases:
         q, k, v = _inputs(b, s, s, h, kv, dd, dtype, seed=500 + n)
@@ -706,67 +874,15 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
         n += 1
     torch.cuda.empty_cache()
     print(f"kernels: flash backward matches autograd through flash_attention_plain on {n} "
-          f"cases (o, dq, dk, dv; 1 at the slice shape); max abs err fp32 "
+          f"cases (o, dq, dk, dv; {len(main_path)} on main paths: zamba2's slice shape, the "
+          f"quickstart; qwen2-1.5b's in phase 3e); max abs err fp32 "
           f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}; largest share of an "
           f"element's tolerance (fp32 tol + tol |plain|, tol {FLASH_BWD_TOL['float32']}; "
           f"bf16 tol (max|plain| + |plain|), tol {FLASH_BWD_TOL['bfloat16']}): fp32 "
           f"{used['float32']:.3g} ({where['float32']}), bf16 {used['bfloat16']:.3g} "
           f"({where['bfloat16']})", flush=True)
 
-    q, k, v = _inputs(B, S, S, H, KV, d, "bfloat16", seed=78)
-    do = torch.randn(q.shape, device="cuda").to(q.dtype)
-    with torch.no_grad():
-        fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=W))
-        plain_fwd_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
-                                                                 window=W), reps=3)
-        lib_fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True))
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    o = fa.flash_attention(*leaves, causal=True, window=W)
-    bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
-    again = torch.autograd.grad(o, leaves, do, retain_graph=True)
-    got = torch.autograd.grad(o, leaves, do)
-    same = [torch.equal(a, b) for a, b in zip(again, got)]
-    print(f"flash backward determinism at the slice shape: two calls give bit-identical "
-          f"dq, dk, dv: {same}", flush=True)
-    if not all(same):
-        fail("flash backward is not deterministic: two calls differ")
-    del o, again
-    lt = [t.transpose(1, 2) for t in leaves]  # (B, heads, S, d) views
-    o = F.scaled_dot_product_attention(*lt, is_causal=True)
-    dot = do.transpose(1, 2)
-    lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
-    lib = torch.autograd.grad(o, leaves, dot)
-    lib_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, lib))
-    del o, got, lib
-    torch.cuda.empty_cache()
-    o = fa.flash_attention_plain(*leaves, causal=True, window=W)
-    plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
-                            reps=3, warmup=1)
-    del o, leaves
-    torch.cuda.empty_cache()
-    pairs = S * (S + 1) // 2  # the 4096 window is no cut at S = 4096
-    fwd_ops = 4 * B * H * d * pairs
-    bwd_ops = 10 * B * H * d * pairs  # 5 products: S, dP, dV, dK, dQ (2.5x the forward)
-    t_bytes = 2 * (q.numel() + k.numel() + v.numel())
-    fwd_bytes = t_bytes + 2 * q.numel() + 4 * B * H * S  # o, lse out
-    bwd_bytes = 2 * t_bytes + 4 * q.numel() + 4 * B * H * S  # q k v o dO in, dq dk dv out, lse
-    records = []
-    for name, ms, plain_ms, lib_ms, nbytes, ops in (
-            ("flash_attention_d80", fwd_ms, plain_fwd_ms, lib_fwd_ms, fwd_bytes, fwd_ops),
-            ("flash_attention_bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, bwd_bytes, bwd_ops)):
-        t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["bfloat16"]
-        bound_by = "operations" if t_o >= t_b else "bytes"
-        print(f"{name} B={B} S={S} H={H} KV={KV} d={d} bf16 causal: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-              f"{max(t_b, t_o) * 1e3:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB); {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
-        records.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=max(t_b, t_o) * 1e3, bound_by=bound_by, shape=FLASH_SLICE,
-                            **_rate(name, ops, ms, max(t_b, t_o) * 1e3)))
-    print(f"flash backward vs sdpa backward at the slice shape: max abs err {lib_err:.3g}",
-          flush=True)
-    d80, bwd = records
+    (d80, bwd), same, lib_err = _flash_times(sl, seed=78)
     bwd.update(name="flash_attention_bwd", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:29 (no TPU backward)",
@@ -776,6 +892,243 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
                deterministic=all(same))
     d80.update(max_abs_err=fwd_err, lse_max_abs_err=lse_err)
     return d80, bwd
+
+
+def phase_flash_qwen2():
+    """Phase 3e: the flash forward and backward at the qwen2-1.5b training
+    shape (B=4, S=4096, 12 query heads over 2 KV heads of 128, causal),
+    timed and held against autograd through the plain version."""
+    (fwd, bwd), same, lib_err = _flash_times(QWEN_FLASH, seed=79)
+    bwd.update(deterministic=all(same), vs_sdpa_max_abs_err=lib_err)
+    return fwd, bwd
+
+
+PLAN_ARCHS = ("llama3-8b", "qwen2-1.5b")
+PLAN_DEVICES = (8, 64, 256)
+
+
+def phase_plan(smi):
+    """Phase 2b: the burst-parallel planner stack on the card's own
+    numbers: ``calibrate_kinds`` and one empty launch timed on the card,
+    then plans of llama3-8b and qwen2-1.5b (``TRAIN_4K``) on ``H100`` at
+    8, 64 and 256 devices, held to the invariants of
+    ``tests/test_plan_regression.py`` (the unconstrained burst plan never
+    loses to data parallelism; the amp limit holds, per layer within the
+    planner's 10% soft bound) and to the static verifier, and the
+    collocation simulation of the quickstart."""
+    from repro_torch.analysis.verify import verify_plan
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.configs.vgg16 import CONFIG as VGG
+    from repro_torch.core.coordinator import ClusterCoordinator, Job
+    from repro_torch.core.costmodel import H100
+    from repro_torch.core.multiplex import MultiplexConfig
+    from repro_torch.core.planner import plan, plan_data_parallel
+    from repro_torch.core.profiler import calibrate_kinds, measure_kernel_overhead
+    from repro_torch.models.graph import build_lm_graph, build_vgg_graph
+
+    probe = build_lm_graph(get_config("llama3-8b"), TRAIN_4K) + build_vgg_graph(VGG, 32)
+    ratios = calibrate_kinds(probe, repeats=20, device="cuda")
+    if min(ratios.values()) != 1.0 or not all(np.isfinite(list(ratios.values()))):
+        fail(f"calibrate_kinds ratios {ratios}")
+    overhead = measure_kernel_overhead("cuda")
+    print(f"plan: calibrate_kinds on the card: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(ratios.items()))
+          + f"; one empty launch {overhead * 1e6:.3f} us (CUDA events, median of 200; "
+          f"costmodel.H100.kernel_overhead {H100.kernel_overhead * 1e6:.3f} us) on {smi}",
+          flush=True)
+    t0 = time.perf_counter()
+    for arch in PLAN_ARCHS:
+        g = build_lm_graph(get_config(arch), TRAIN_4K)
+        for G in PLAN_DEVICES:
+            bp = plan(g, G, amp_limit=2.0, hw=H100)
+            free = plan(g, G, amp_limit=1e9, hw=H100)
+            dp = plan_data_parallel(g, G, hw=H100)
+            bad = verify_plan(bp, pool_size=G)
+            print(f"plan {arch} G={G}: {bp.summary().splitlines()[0]}; data parallel "
+                  f"{dp.total_time * 1e3:.3f} ms, unconstrained {free.total_time * 1e3:.3f} ms",
+                  flush=True)
+            if not free.total_time <= dp.total_time * (1 + 1e-9):
+                fail(f"{arch} G={G}: unconstrained burst plan slower than data parallel")
+            if not (bp.amplification <= 2.0 + 1e-9
+                    and all(l.amp <= 2.0 * 1.1 + 1e-9 for l in bp.layers)):
+                fail(f"{arch} G={G}: amp limit broken ({bp.amplification})")
+            if bad:
+                fail(f"{arch} G={G}: plan fails verification: {[str(v) for v in bad]}")
+    coord = ClusterCoordinator(256, H100)
+    bp = coord.submit_foreground(
+        Job("llama3-8b", "foreground", build_lm_graph(get_config("llama3-8b"), TRAIN_4K),
+            amp_limit=2.0))
+    res = coord.simulate_collocation(MultiplexConfig())
+    print(f"plan: llama3-8b on 256 x H100\n{bp.summary()}\ncollocation: {res.row()}; "
+          f"planning took {time.perf_counter() - t0:.2f} s on the host", flush=True)
+    if not (np.isfinite(res.fg_slowdown) and res.fg_slowdown >= 1.0):
+        fail(f"collocation simulation: {res.row()}")
+    return dict(kernel_overhead_s=overhead, calibrate_kinds=ratios)
+
+
+def phase_quickstart():
+    """Phase 7: ``python -m repro_torch.launch.quickstart --arch llama3-8b``
+    on the card: the plan and collocation lines, then 10 training steps
+    of reduced llama3-8b; every loss finite and the last below the first."""
+    from repro_torch.launch import quickstart
+
+    _reset_counts()
+    _, _, rep = quickstart.main(["--arch", "llama3-8b"])
+    counts = _counts()["flash"]
+    losses = rep.losses
+    print(f"quickstart on the card: losses {[round(x, 4) for x in losses]}; flash launches "
+          f"{counts}", flush=True)
+    if not (rep.steps_done == 10 and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"quickstart losses not finite and falling: {losses}")
+    if not (counts["fwd"] and counts["bwd"]):
+        fail(f"the quickstart's training steps did not run the flash kernels: {counts}")
+    return counts
+
+
+# 20 steps, as zamba2: the cosine schedule then warms up for 2 steps
+QWEN_TRAIN = dict(steps=20, batch=4, seq=4096)
+
+
+def phase_qwen_model():
+    """Phase 4q: qwen2-1.5b at full width cut to 4 layers, one 2 x 1024
+    batch: loss and every parameter gradient through the flash kernels and
+    through ``flash_attention_plain`` agree; per-layer remat runs the
+    forward twice per layer."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import tree_leaves
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=4)
+    api = get_model(cfg)
+    dev = torch.device("cuda")
+    params = api.init(torch.Generator(device=dev).manual_seed(1), dev)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    toks = np.random.default_rng(14).integers(0, cfg.vocab_size, (2, 1024))
+    batch = {"tokens": torch.as_tensor(toks, device=dev),
+             "labels": torch.as_tensor(np.roll(toks, -1, axis=1), device=dev)}
+
+    def loss_and_grads():
+        loss, _ = api.loss(params, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    _reset_counts()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    counts = _counts()["flash"]
+    want = {"fwd": 2 * cfg.num_layers, "bwd": cfg.num_layers}
+    if counts != want:
+        fail(f"4-layer qwen2 train step launched the flash kernels {counts} times, not {want}")
+    kernel_attention = ops.attention
+    ops.attention = lambda q, k, v, *, causal=True, window=0, softcap=0.0: (
+        fa.flash_attention_plain(q, k, v, causal=causal, window=window))
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        ops.attention = kernel_attention
+    if _counts()["flash"] != want:
+        fail("the plain-attention qwen2 train step launched a flash kernel")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    diffs = [float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+             for a, b in zip(grads_k, grads_p)]
+    worst = max(diffs)
+    worst_leaf = list(flatten(params))[diffs.index(worst)]
+    gnorm = float(torch.sqrt(sum(g.float().square().sum() for g in grads_k)))
+    print(f"model: qwen2-1.5b x{cfg.num_layers} layers (12 heads over 2 KV heads of 128), "
+          f"2 x 1024 tokens, bf16: loss kernel {float(loss_k):.6f} vs plain {float(loss_p):.6f} "
+          f"(rel diff {rel:.3g}, bound {TRAIN_MODEL_TOL['loss']}); worst gradient leaf diff "
+          f"{worst:.3g} of its max |g| ({worst_leaf}; bound {TRAIN_MODEL_TOL['grad']}) over "
+          f"{len(leaves)} leaves; grad norm {gnorm:.4g}; flash launches {counts}", flush=True)
+    if not (rel <= TRAIN_MODEL_TOL["loss"] and worst <= TRAIN_MODEL_TOL["grad"]
+            and np.isfinite(gnorm)):
+        fail("in-model qwen2 flash kernels and plain train step disagree")
+    del params, leaves, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def phase_qwen_train(smi):
+    """Phase 5q: qwen2-1.5b at full width and depth (28 layers, fp32
+    params, bf16 compute, AdamW on the cosine schedule, per-layer remat)
+    trains 20 steps at 4 x 4096 through ``train.loop.train``."""
+    import torch
+
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.loop import TrainConfig, train
+
+    cfg = get_config("qwen2-1.5b")
+    n = QWEN_TRAIN
+    shape = dataclasses.replace(TRAIN_4K, seq_len=n["seq"], global_batch=n["batch"],
+                                name="smoke")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rep = train(cfg, shape, TrainConfig(steps=n["steps"], seed=0, max_failures=0),
+                device="cuda")
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    L, steps = cfg.num_layers, n["steps"]
+    want = {"fwd": steps * 2 * L, "bwd": steps * L}
+    losses = rep.losses
+    tokens = n["batch"] * n["seq"]
+    step_s = float(np.median(rep.step_times))
+    print(f"train slice on {smi}: {cfg.name} {L} layers d_model {cfg.d_model} "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype} params, {cfg.dtype} compute, "
+          f"{cfg.n_params() / 1e9:.2f} B params; {steps} steps of "
+          f"{n['batch']} x {n['seq']} tokens; losses {[round(x, 4) for x in losses]}; "
+          f"median step {step_s * 1e3:.1f} ms ({tokens / step_s:.0f} tokens/s); step times "
+          f"{[round(t * 1e3, 1) for t in rep.step_times]} ms; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {counts}", flush=True)
+    if rep.steps_done != steps or rep.restarts:
+        fail(f"{rep.steps_done} steps done, {rep.restarts} restarts")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"losses not finite and falling: {losses}")
+    if counts["flash"] != want or any(counts["ssd"].values()):
+        fail(f"launches {counts} != flash {want}")
+    if peak >= 80e9:
+        fail(f"peak memory {peak / 1e9:.2f} GB does not fit an 80 GB card")
+    bad = [i for i, p in enumerate(tree_leaves(rep.state["params"]))
+           if not bool(torch.isfinite(p).all())]
+    if bad:
+        fail(f"non-finite parameters after the last step: leaves {bad}")
+    return counts["flash"], rep.state
+
+
+FLASH_SM90 = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90")
+
+
+def phase_qwen_profile(state):
+    """Phase 6q: one more qwen2 training step under the profiler; fails
+    unless the ``wgmma`` flash forward at d=128 and both backward kernels
+    ran (and no fp32 FMA flash kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config("qwen2-1.5b")
+    n = QWEN_TRAIN
+    step = make_train_step(get_model(cfg), make_optimizer(cfg, total_steps=n["steps"]))
+    data = SyntheticLMData(cfg, n["batch"], n["seq"], seed=0, start_step=n["steps"],
+                           device="cuda")
+    batch = next(data)
+    data.close()
+    rows = _profile(f"qwen2 train step {n['batch']} x {n['seq']}", lambda: step(state, batch),
+                    top=14)
+    ran = {k: v for k, v in rows.items() if "flash_" in k}
+    print("  flash kernels in the step: " + "; ".join(
+        f"{k[:70]} x{c} {ms:.2f} ms" for k, (c, ms) in sorted(ran.items(), key=lambda x: -x[1][1])))
+    fwd128 = [k for k in ran if "flash_fwd_sm90" in k and "128" in k]
+    missing = [name for name in FLASH_SM90[1:] if not any(name in k for k in ran)]
+    if not fwd128 or missing:
+        fail(f"the qwen2 step ran no flash_fwd_sm90<128> ({fwd128}) or misses {missing}")
+    if any("f32" in k or "flash_bwd_dq<" in k or "flash_bwd_dkdv<" in k for k in ran):
+        fail(f"the qwen2 step ran an fp32 flash kernel: {sorted(ran)}")
 
 
 def phase_model(cfg):
@@ -1242,11 +1595,13 @@ def main() -> None:
     from repro_torch.configs import get_config
 
     phase_build()
+    planning = phase_plan(smi)
     cfg = get_config("llama3-8b")
     flash = phase_kernels([r["prompt_len"] for r in slice_trace(cfg.vocab_size).requests])
     wkv_fwd, wkv_bwd = phase_wkv6()
     ssd_fwd, ssd_bwd = phase_ssd()
     flash["d80"], flash_bwd = phase_flash_bwd()
+    flash["qwen2"], flash_bwd["qwen2"] = phase_flash_qwen2()
     phase_model(cfg)
     serve_launches, eng = phase_slice(cfg, smi)
     phase_profile(eng, cfg)
@@ -1264,10 +1619,22 @@ def main() -> None:
     del state
     torch.cuda.empty_cache()
     ssd_fwd["launches"], ssd_bwd["launches"] = counts["ssd"]["fwd"], counts["ssd"]["bwd"]
-    flash_bwd["launches"] = counts["flash"]["bwd"]
+    phase_qwen_model()
+    qwen, state = phase_qwen_train(smi)
+    phase_qwen_profile(state)
+    del state
+    torch.cuda.empty_cache()
+    quick = phase_quickstart()
     flash["launches_by_path"] = {"serve llama3-8b": serve_launches,
-                                 "train zamba2-2.7b": counts["flash"]["fwd"]}
-    flash["launches"] = sum(flash["launches_by_path"].values())
+                                 "train zamba2-2.7b": counts["flash"]["fwd"],
+                                 "train qwen2-1.5b": qwen["fwd"],
+                                 "quickstart llama3-8b (reduced)": quick["fwd"]}
+    flash_bwd["launches_by_path"] = {"train zamba2-2.7b": counts["flash"]["bwd"],
+                                     "train qwen2-1.5b": qwen["bwd"],
+                                     "quickstart llama3-8b (reduced)": quick["bwd"]}
+    for rec in (flash, flash_bwd):
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    print(f"planning: {json.dumps(planning)}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": [flash, flash_bwd, wkv_fwd, wkv_bwd, ssd_fwd, ssd_bwd]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,14 @@
+"""Static analysis over the burst-parallel runtime, the port of
+``repro/analysis``: the plan verifier (``verify``).  The other passes
+(``shardcheck``, ``protocheck``, ``lint``) are not ported yet (ROADMAP
+Queue 1, item 13)."""
+from repro_torch.analysis.verify import (  # noqa: F401
+    PlanVerificationError,
+    Violation,
+    verify_carving,
+    verify_plan,
+    verify_plan_or_raise,
+    verify_serving_submeshes,
+    verify_stage_shardings,
+    verify_submeshes,
+)

@@ -72,7 +72,12 @@
 // TMA needs 16-byte-aligned bases and strides; the tensor maps are encoded
 // on every call (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the library needs no -lcuda) and passed as
-// __grid_constant__ kernel parameters.
+// __grid_constant__ kernel parameters.  cuTensorMapEncodeTiled needs a
+// context current on the calling thread, which a thread that has made no CUDA
+// runtime call yet lacks (autograd runs a backward on a worker thread of
+// its own, and the flash backward can be its first CUDA work): each C
+// entry first makes current the device that holds q, and so its primary
+// context.
 //
 // C interface (loaded with ctypes): flash_attention_fwd and
 // flash_attention_bwd return the first error of the call (the CUDA error of
@@ -1460,6 +1465,17 @@ int make_map(CUtensorMap* map, const void* base, int d, int heads, int S, int B,
   return static_cast<int>(r);  // the driver's CUresult when it refuses the map
 }
 
+// Makes the device that holds `p` current on the calling thread, and with
+// it that device's primary context, which cuTensorMapEncodeTiled needs;
+// every launch below then goes to that device.  Once per call.
+int bind_device(const void* p) {
+  cudaPointerAttributes a;
+  cudaError_t e = cudaPointerGetAttributes(&a, p);
+  if (e == cudaSuccess && a.type != cudaMemoryTypeDevice) e = cudaErrorInvalidDevicePointer;
+  if (e == cudaSuccess) e = cudaSetDevice(a.device);
+  return static_cast<int>(e);
+}
+
 // The dynamic shared-memory attribute belongs to a kernel on one device:
 // it is set the first time the kernel launches on each device, and a
 // refusal is returned, never ignored (nor remembered as done).
@@ -1582,6 +1598,7 @@ extern "C" int flash_attention_fwd(
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || (dtype != 0 && dtype != 1))
     return fail_at("arguments", static_cast<int>(cudaErrorInvalidValue));
   cudaGetLastError();  // report this call's errors only, not an earlier caller's
+  if (int e = fail_at("device of q", bind_device(q))) return e;
   Geom g{Sq,   Skv,  H,    KV,   q_sb, q_ss, q_sh,   k_sb,  k_ss,
          k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1604,6 +1621,7 @@ extern "C" int flash_attention_bwd(
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0)
     return fail_at("arguments", static_cast<int>(cudaErrorInvalidValue));
   cudaGetLastError();  // report this call's errors only, not an earlier caller's
+  if (int e = fail_at("device of q", bind_device(q))) return e;
   const long long qs = static_cast<long long>(H) * D, ks = static_cast<long long>(KV) * D;
   Geom g{Sq, Skv, H, KV, Sq * qs, qs, D, Skv * ks, ks, D,
          Skv * ks, ks, D, Sq * qs, qs, D, causal, window};

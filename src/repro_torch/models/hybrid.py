@@ -8,15 +8,14 @@ zamba2 signature).  Its input is concat(hidden, first-layer embedding)
 
 The reference's ``lax.cond`` on the layer index is a Python ``if``; its
 ``lax.scan`` over layers a Python loop over the stacked layers, unbound
-once.  With ``cfg.remat_policy != "none"`` each layer, its shared-block
-invocation included, runs under non-reentrant ``torch.utils.checkpoint``,
-the counterpart of the reference's ``jax.checkpoint``.  The reference's
+once.  Each layer, its shared-block invocation included, runs under
+``layers.remat`` (the reference's ``jax.checkpoint`` unless
+``cfg.remat_policy == "none"``).  The reference's
 ``fsdp.gather`` is the identity on one device and is dropped.
 """
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
@@ -26,6 +25,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_schema,
     out_project,
+    remat,
     rms_norm,
     softmax_xent,
     stack_schema,
@@ -104,10 +104,7 @@ def hidden_states(params: dict, tokens, cfg) -> torch.Tensor:
     positions = torch.arange(S, device=h.device).expand(B, S)
     sp = params["shared"]
     for idx, lp in enumerate(unstack(params["layers"], cfg.num_layers)):
-        if cfg.remat_policy != "none":
-            h = checkpoint(_layer, lp, sp, h, h0, positions, idx, cfg, use_reentrant=False)
-        else:
-            h = _layer(lp, sp, h, h0, positions, idx, cfg)
+        h = remat(cfg, _layer, lp, sp, h, h0, positions, idx, cfg)
     return h
 
 

@@ -14,12 +14,18 @@ reference leaves them to XLA.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch._device import DeviceLike, as_dtype, resolve_device
 
@@ -113,6 +119,37 @@ def unstack(layers: dict, n: int) -> list:
 
 def param_count(schema: Any) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(schema))
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+# products without batch dimensions: (tokens, D) x (D, F) weight matmuls;
+# the attention scores (bmm, or the flash kernel) are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(cfg, block: Callable, *args):
+    """``block(*args)`` under ``cfg.remat_policy``, for every family's layer
+    loop (the reference's ``_maybe_remat``): ``"full"`` saves only the
+    layer's inputs (non-reentrant ``torch.utils.checkpoint``), ``"dots"``
+    also saves the weight matmuls' outputs (the counterpart of
+    ``checkpoint_dots_with_no_batch_dims``), ``"none"`` saves everything.
+    Any other value raises.  The reference's rwkv6 and zamba2 stacks take
+    ``"dots"`` as ``"full"``; here it means the same in every family."""
+    if cfg.remat_policy == "none":
+        return block(*args)
+    if cfg.remat_policy == "dots":
+        return checkpoint(block, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return checkpoint(block, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------

@@ -2,18 +2,18 @@
 
 The port of ``repro/models/rwkv_lm.py``.  Per-layer leaves are stacked on a
 leading ``layers`` axis, as in the reference; its ``lax.scan`` over layers
-is a Python loop.  With ``cfg.remat_policy != "none"`` each block runs
-under ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
-reference's ``jax.checkpoint``: the block's activations are recomputed in
-the backward pass, WKV forward included.
+is a Python loop.  Each block runs under ``layers.remat`` (the
+reference's ``jax.checkpoint`` unless ``cfg.remat_policy == "none"``):
+the block's activations are recomputed in the backward pass, WKV forward
+included.
 """
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (
     ParamSpec,
+    remat,
     rms_norm,
     softmax_xent,
     stack_schema,
@@ -64,10 +64,7 @@ def _block_h(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
 def hidden_states(params: dict, tokens, cfg) -> torch.Tensor:
     h = embed_tokens(params, tokens, cfg)
     for lp in unstack(params["layers"], cfg.num_layers):
-        if cfg.remat_policy != "none":
-            h = checkpoint(_block_h, lp, h, cfg, use_reentrant=False)
-        else:
-            h = _block_h(lp, h, cfg)
+        h = remat(cfg, _block_h, lp, h, cfg)
     return h
 
 

@@ -7,8 +7,13 @@ reference's ``lax.scan`` over layers is a Python loop over that axis.
 
 Modes:
   forward(params, tokens)                        -> logits     (teacher forcing)
+  loss_fn(params, batch)                         -> (loss, metrics)
   prefill(params, tokens, cache_capacity)        -> (last-position logits, cache)
   decode_step(params, token, cache, cache_len)   -> (logits, cache)
+
+The training stack (``hidden_states``) rematerialises each layer as
+``cfg.remat_policy`` says (``layers.remat``, the reference's
+``_maybe_remat``).
 
 ``decode_step`` writes the new KV entries into ``cache`` in place and
 returns the same tensors.  MoE blocks and the vision frontend are not
@@ -28,9 +33,12 @@ from repro_torch.models.layers import (
     mlp_schema,
     out_project,
     qkv_project,
+    remat,
     rms_norm,
+    softmax_xent,
     stack_schema,
     tree_map,
+    unstack,
     zeros,
 )
 
@@ -158,18 +166,36 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device).expand(B, S)
 
 
+def _block_h(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
+    return decoder_block(lp, h, positions, cfg)[0]
+
+
 def hidden_states(params: dict, tokens, cfg) -> torch.Tensor:
     _check_supported(cfg)
     h = embed_tokens(params, tokens, cfg)
     B, S, _ = h.shape
     positions = _positions(B, S, h.device)
-    for i in range(cfg.num_layers):
-        h, _ = decoder_block(layer_params(params, i), h, positions, cfg)
+    for lp in unstack(params["layers"], cfg.num_layers):
+        h = remat(cfg, _block_h, lp, h, positions, cfg)
     return h
 
 
 def forward(params: dict, tokens, cfg) -> torch.Tensor:
     return unembed(params, hidden_states(params, tokens, cfg), cfg)
+
+
+def loss_fn(params: dict, batch: dict, cfg) -> tuple:
+    """batch: tokens (B,S), labels (B,S) (-1 = masked).  Masked
+    cross-entropy plus ``0.01 * aux``; ``aux`` (the MoE load-balancing
+    loss) is an fp32 zero until MoE is ported.  Returns (loss, metrics)."""
+    h = hidden_states(params, batch["tokens"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    logits = unembed(params, h, cfg)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    mask = (labels >= 0).float()
+    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask)
+    loss = xent + 0.01 * aux
+    return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
 
 
 def prefill(params: dict, tokens, cfg, cache_capacity: int) -> tuple:

@@ -17,7 +17,7 @@ def make_train_step(api, optimizer):
     if api.loss is None:
         raise NotImplementedError(
             f"{api.cfg.name}: training the {api.cfg.block_type!r} family waits for "
-            "its loss_fn, not ported yet (ROADMAP Queue 1, item 4)")
+            "its loss_fn, not ported yet (ROADMAP Queue 1, item 10)")
 
     def train_step(state, batch):
         params = state["params"]

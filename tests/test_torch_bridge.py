@@ -52,9 +52,13 @@ def reference_params(cfg, seed=0):
 
 
 def bridged(cfg, seed=0):
-    """(reference jax params, port torch params on the CPU), equal weights."""
+    """(reference jax params, port torch params on the CPU), equal weights
+    in separate memory: on the CPU both ``jnp.asarray`` and
+    ``torch.from_numpy`` may share the numpy buffer, and the port's
+    optimizer updates parameters in place while a reference step
+    dispatched just before may still be reading them."""
     jparams, flat = reference_params(cfg, seed)
-    return jparams, params_from_numpy(flat, device="cpu")
+    return jparams, params_from_numpy({k: v.copy() for k, v in flat.items()}, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["llama3-8b", "qwen2-1.5b"])
