@@ -118,13 +118,45 @@ Slice 4, the quickstart and training qwen2-1.5b (the ``attn_mlp`` family;
   7. quickstart — ``repro_torch.launch.quickstart.main(["--arch",
      "llama3-8b"])`` on the card: plan, gaps, collocation, then 10 steps
      of reduced llama3-8b; every loss finite, the last below the first.
+Slice 5, executable gap multiplexing (after 7; phases 3 and 3d also hold
+the flash kernels at the background tenants' shapes):
+  8a. tenants — ``launch/train.py``'s two --bg-arch tenants (reduced
+     qwen2-1.5b and minicpm-2b, 2 x 32 tokens, each on the card on a stream
+     of its own of the least priority) alone, 20 steps each: finite,
+     falling losses; their flash shapes among phase 3's and 3d's cases.
+  8b. multiplexed training — qwen2-1.5b at full width and depth (phase
+     5q's recipe) at 1 x 4096, 12 steps through ``train.loop.train``:
+     isolated twice, then with both tenants round-robin under three
+     settings (naive: ``use_priorities=False, max_inflight=64``;
+     priorities: ``True, 64``; priorities and pacing: ``True, 2``).  Fails
+     if a collocated foreground loss differs from the isolated run's by
+     more than the two isolated runs differ, if ``bg_steps`` is not steps x
+     ``max_inflight``, if tenant losses are not finite and falling, if a
+     stream's priority is not the setting's, or if
+     ``torch.cuda.synchronize`` runs during a collocated run (it is
+     swapped for a function that fails).  Prints each setting's median
+     foreground step and slowdown against the slower isolated run, tenant
+     steps/s, the device's busy share over one profiled collocated step
+     (union of kernel intervals) and the kernel time that overlapped, peak
+     memory, beside the paper's A100 inflations (1.9, 1.8, 1.25).
+  8c. run_executable — ``launch/multiplex_demo.py``'s ``main`` on the card
+     (VGG-16's plan on 8 positions, all the card), then
+     ``ClusterCoordinator.collocate(executable=True)`` on the same plan
+     with feedback off: each tenant launches ``schedule_tenants()``'s steps
+     every iteration, no 'fallback' event, and ``predict()`` after
+     ``calibrate([res])`` gives the measured steps per iteration exactly.
+  8d. admission — phase 5's trace once more through
+     ``ContinuousScheduler(admission=ServingAdmission(...))`` with phase
+     5's prefill and decode-step times and a TTFT SLO of 1.5x the prefill:
+     every request gets its budget, no page leaks; ``admission_deferrals``.
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
 true, "device": {...}}``; the line before it is the kernels' JSON record
 (six kernels: flash forward and backward, WKV-6 forward and backward, SSD
 forward and backward; the flash records carry their times at the
-qwen2-1.5b shape under ``qwen2`` and their launches by path); the line
+qwen2-1.5b shape under ``qwen2`` and their launches by path, the
+multiplexed foreground and the background tenants among them); the line
 before that is ``card: ...``, and before it ``planning: {...}`` (the
 measured launch overhead and kind ratios).  Imports ``torch``, ``numpy``
 and ``repro_torch`` only.
@@ -164,6 +196,44 @@ CROSS_LENS = [(100, 300), (300, 100), (129, 1), (1, 257), (1000, 2048)]  # (Sq, 
 PREFILL = dict(B=1, S=2048, H=32, KV=8, d=128)  # llama3-8b prefill attention
 QWEN_FLASH = dict(B=4, S=4096, H=12, KV=2, d=128, window=0)  # qwen2-1.5b training
 QUICK_FLASH = dict(B=4, S=64, H=4, KV=1, d=32)  # the quickstart: reduced llama3-8b, 4 x 64
+# the qwen2-1.5b foreground of phase 8b: phase 5q's recipe at the batch a card
+# of a 256-card data-parallel train_4k job (256 x 4096) holds
+MUX_TRAIN = dict(steps=12, batch=1, seq=4096)
+MUX_FLASH = dict(QWEN_FLASH, B=MUX_TRAIN["batch"], S=MUX_TRAIN["seq"])
+
+
+# every flash case phases 3 and 3d held against the plain version, as
+# (B, Sq, Skv, H, KV, d, dtype, causal, window): the shapes the tenants of
+# phases 8a-8c run must be among them
+SWEPT_FWD, SWEPT_BWD = set(), set()
+BG_ARCHS = ("qwen2-1.5b", "minicpm-2b")  # phase 8b's tenants, as launch/train.py --bg-arch
+
+
+def tenant_flash_cases():
+    """(B, S, H, KV, d, dtype) of the flash calls the background tenants
+    make: ``launch/train.py``'s (``BG_PER_DEVICE_BATCH`` sequences of
+    ``BG_SEQ`` per step on the card) and ``launch/multiplex_demo.py``'s
+    (``TENANT_BATCH`` sequences of ``TENANT_SEQ`` per position of each gap
+    chunk the demo's carving gives its roster)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.multiplex import BgTenant, Collocator, MultiplexConfig
+    from repro_torch.launch import multiplex_demo as demo
+    from repro_torch.launch.train import BG_PER_DEVICE_BATCH, BG_SEQ
+
+    def case(arch, b, s):
+        c = get_config(arch).reduced()
+        return (b, s, c.num_heads, c.num_kv_heads, c.d_head, c.dtype)
+
+    out = {case(arch, BG_PER_DEVICE_BATCH, BG_SEQ) for arch in BG_ARCHS}
+    split = Collocator(demo.demo_plan(), MultiplexConfig(collocate_same_device=True),
+                       tenants=[BgTenant(job, prio) for job, prio, _ in demo.ROSTER],
+                       devices=[torch.device("cpu")] * 8).submeshes()
+    for slots in split.bg_tenants.values():
+        out |= {case(demo.TENANT_ARCH, demo.TENANT_BATCH * (e[0][1] - e[0][0]), demo.TENANT_SEQ)
+                for e in slots if e is not None}
+    return sorted(out)
 
 
 def slice_trace(vocab_size: int):
@@ -257,9 +327,9 @@ def phase_kernels(prompt_lens):
     n = 0
     B, H, KV, d = (PREFILL[x] for x in ("B", "H", "KV", "d"))
     main_path = [(B, (H, KV), d, (S, S), 0, "bfloat16", True) for S in prompt_lens]
-    qw, qs = QWEN_FLASH, QUICK_FLASH
-    main_path += [(qw["B"], (qw["H"], qw["KV"]), qw["d"], (qw["S"], qw["S"]), 0, "bfloat16", True),
-                  (qs["B"], (qs["H"], qs["KV"]), qs["d"], (qs["S"], qs["S"]), 0, "bfloat16", True)]
+    main_path += [(x["B"], (x["H"], x["KV"]), x["d"], (x["S"], x["S"]), 0, "bfloat16", True)
+                  for x in (QWEN_FLASH, MUX_FLASH, QUICK_FLASH)]
+    main_path += [(b, (h, kv), dd, (s, s), 0, dt, True) for b, s, h, kv, dd, dt in tenant_flash_cases()]
     sweep = [(2, hd, dd, (S, S), w, dt, c)
              for hd, dd, S, w, dt, c in itertools.product(*SWEEP.values())]
     cross = [(2, hd, dd, lens, 0, dt, False)  # non-causal, Sq != Skv
@@ -279,10 +349,12 @@ def phase_kernels(prompt_lens):
             fail(f"kernel != plain at {case}: max abs err {float(err.max()):.3g}, "
                  f"{int(bad.sum())} elements beyond {tol}")
         worst[dtype] = max(worst[dtype], float(err.max()))
+        SWEPT_FWD.add((b, Sq, Skv, H, KV, d, dtype, causal, window))
         n += 1
     print(f"kernels: flash_attention matches its plain version on {n} cases "
           f"({len(main_path)} on main paths: the serving slice's prompt lengths "
-          f"{sorted(prompt_lens)}, qwen2-1.5b training, the quickstart; "
+          f"{sorted(prompt_lens)}, qwen2-1.5b training at 4 x 4096 and "
+          f"multiplexed at 1 x 4096, the quickstart, the background tenants of phases 8a-8c; "
           f"{len(cross)} non-causal with Sq != Skv); max abs err fp32 {worst['float32']:.3g} (tol {TOL['float32']}), "
           f"bf16 {worst['bfloat16']:.3g} (tol {TOL['bfloat16']})")
 
@@ -857,9 +929,11 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
     used = {"float32": 0.0, "bfloat16": 0.0}
     where = {"float32": "", "bfloat16": ""}
     n = 0
-    qs = QUICK_FLASH
+    qs, mx = QUICK_FLASH, MUX_FLASH
     main_path = [(B, (H, KV), d, (True, W), S, "bfloat16"),
+                 (mx["B"], (mx["H"], mx["KV"]), mx["d"], (True, 0), mx["S"], "bfloat16"),
                  (qs["B"], (qs["H"], qs["KV"]), qs["d"], (True, 0), qs["S"], "bfloat16")]
+    main_path += [(b, (h, kv), dd, (True, 0), s, dt) for b, s, h, kv, dd, dt in tenant_flash_cases()]
     cases = [(2, *c) for c in itertools.product(*sweep.values())]
     for b, (h, kv), dd, (causal, window), s, dtype in main_path + cases:
         q, k, v = _inputs(b, s, s, h, kv, dd, dtype, seed=500 + n)
@@ -871,11 +945,14 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
                      f"{dtype}", names, got, want, FLASH_BWD_TOL[dtype], worst, used, where,
                      dtype, rel_to_max=dtype == "bfloat16")
         del got, want
+        SWEPT_BWD.add((b, s, s, h, kv, dd, dtype, causal, window))
         n += 1
     torch.cuda.empty_cache()
     print(f"kernels: flash backward matches autograd through flash_attention_plain on {n} "
-          f"cases (o, dq, dk, dv; {len(main_path)} on main paths: zamba2's slice shape, the "
-          f"quickstart; qwen2-1.5b's in phase 3e); max abs err fp32 "
+          f"cases (o, dq, dk, dv; {len(main_path)} on main paths: zamba2's slice shape, "
+          f"qwen2-1.5b multiplexed at 1 x 4096, the quickstart, the background tenants of "
+          f"phases 8a-8c; qwen2-1.5b's at 4 x 4096 in phase 3e); "
+          f"max abs err fp32 "
           f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}; largest share of an "
           f"element's tolerance (fp32 tol + tol |plain|, tol {FLASH_BWD_TOL['float32']}; "
           f"bf16 tol (max|plain| + |plain|), tol {FLASH_BWD_TOL['bfloat16']}): fp32 "
@@ -983,6 +1060,542 @@ def phase_quickstart():
     if not (counts["fwd"] and counts["bwd"]):
         fail(f"the quickstart's training steps did not run the flash kernels: {counts}")
     return counts
+
+
+# -- slice 5: executable gap multiplexing (phases 8a-8d) ----------------------
+
+MUX_SETTINGS = (  # (name, use_priorities, max_inflight): three existing MultiplexConfigs
+    ("naive", False, 64),
+    ("priorities", True, 64),
+    ("priorities+pacing", True, 2),
+)
+
+
+class _FlashShapes:
+    """Records the shape of every flash forward launch while active, as
+    ``SWEPT_FWD``'s keys (every tenant forward has its backward)."""
+
+    def __init__(self):
+        self.seen = set()
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+
+        self.fa, self.orig = fa, fa._forward
+
+        def recording(q, k, v, causal, window, want_lse):
+            self.seen.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                           q.shape[3], str(q.dtype).split(".")[-1], bool(causal), int(window)))
+            return self.orig(q, k, v, causal, window, want_lse)
+
+        fa._forward = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._forward = self.orig
+
+    def check_swept(self, label):
+        missing_f = sorted(self.seen - SWEPT_FWD)
+        missing_b = sorted(self.seen - SWEPT_BWD)
+        print(f"{label}: flash shapes {sorted(self.seen)} (B, Sq, Skv, H, KV, d, dtype, "
+              f"causal, window), all among phase 3's and 3d's cases: "
+              f"{not missing_f and not missing_b}", flush=True)
+        if not self.seen or missing_f or missing_b:
+            fail(f"{label}: flash shapes not swept: forward {missing_f}, backward {missing_b}")
+
+
+class _NoDeviceSync:
+    """While active, ``torch.cuda.synchronize()`` and the port's
+    ``_device.sync()`` fail: either waits for every stream, so a collocated
+    run that called one would time the background into the foreground."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch import _device
+
+        self.torch, self.orig_sync, self.orig_port = torch, torch.cuda.synchronize, _device.sync
+        self.patched = [m for m in list(sys.modules.values())
+                        if getattr(m, "__name__", "").startswith("repro_torch")
+                        and getattr(m, "sync", None) is _device.sync]
+
+        def refuse(*a, **k):
+            raise AssertionError("torch.cuda.synchronize() called inside a collocated run")
+
+        torch.cuda.synchronize = refuse
+        for m in self.patched:
+            m.sync = refuse
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize = self.orig_sync
+        for m in self.patched:
+            m.sync = self.orig_port
+
+
+def _distinct_streams(label, streams):
+    """Fails unless every live slice's stream is a stream of its own: none
+    on the default stream, no CUDA stream handle shared by two."""
+    import torch
+
+    handles = [s.cuda_stream for s in streams]
+    default = torch.cuda.default_stream().cuda_stream
+    if len(set(handles)) != len(handles) or default in handles:
+        fail(f"{label}: live slices share a stream or use the default one: handles "
+             f"{handles} (default {default})")
+
+
+class _IssuedStreams:
+    """While active, records the stream on which ``run_executable`` issues
+    every foreground stage call and tenant step (``core.multiplex._issue``);
+    ``stage(make)`` wraps a stage factory so its stage fns are known as the
+    foreground's."""
+
+    def __init__(self):
+        self.issued, self.fg = [], []  # (fn, stream); fg stage fns (held: ids stay unique)
+
+    def stage(self, make):
+        def wrapped(stage, mesh):
+            fn = make(stage, mesh)
+            self.fg.append(fn)
+            return fn
+
+        return wrapped
+
+    def __enter__(self):
+        from repro_torch.core import multiplex
+
+        self.mod, self.orig = multiplex, multiplex._issue
+
+        def recording(fn, stream):
+            self.issued.append((fn, stream))
+            return self.orig(fn, stream)
+
+        multiplex._issue = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._issue = self.orig
+
+    def check(self, label, use_priorities):
+        """One stream for every stage, one of its own for each tenant slice
+        (a built step), none shared or default, priorities as the setting's."""
+        import torch
+
+        least, greatest = torch.cuda.Stream.priority_range()
+        fg_ids = {id(f) for f in self.fg}
+        fg = {s.cuda_stream: s for f, s in self.issued if id(f) in fg_ids}
+        bg = {}
+        for f, s in self.issued:
+            if id(f) not in fg_ids:
+                bg.setdefault(id(f), {})[s.cuda_stream] = s
+        if len(fg) != 1 or any(len(v) != 1 for v in bg.values()):
+            fail(f"{label}: {len(fg)} foreground streams, tenant slices on "
+                 f"{sorted(len(v) for v in bg.values())} streams each (want 1 each)")
+        fg_s = next(iter(fg.values()))
+        bg_s = [next(iter(v.values())) for v in bg.values()]
+        _distinct_streams(label, [fg_s] + bg_s)
+        want_fg = greatest if use_priorities else least
+        prios = sorted({s.priority for s in bg_s})
+        print(f"{label}: {len(self.issued)} issues, the stages on one stream of priority "
+              f"{fg_s.priority}, {len(bg_s)} tenant slices each on a stream of its own "
+              f"(priorities {prios}; least {least}, greatest {greatest})", flush=True)
+        if fg_s.priority != want_fg or prios != [least]:
+            fail(f"{label}: stream priorities fg {fg_s.priority} (want {want_fg}), tenants "
+                 f"{prios} (want {least})")
+
+
+def _tenants():
+    """``launch/train.py``'s two --bg-arch tenants (same-device: each on the
+    card, on a stream of its own of the least priority), each wrapped to
+    keep its losses and count its flash launches.  Returns (wrapped fns,
+    their raw steps, loss lists, launch counter)."""
+    from repro_torch.core.coordinator import ClusterCoordinator
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as cli
+
+    import torch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    raw = cli._register_bg_jobs(ClusterCoordinator(256), list(BG_ARCHS),
+                                [None] * len(BG_ARCHS), dev)
+    losses = [[] for _ in raw]
+    launched = {"fwd": 0, "bwd": 0}
+
+    def wrap(i, fn):
+        def step():
+            before = dict(fa.launches)
+            loss = fn()
+            for k in launched:
+                launched[k] += fa.launches[k] - before[k]
+            losses[i].append(loss)
+            return loss
+
+        return step
+
+    return [wrap(i, fn) for i, fn in enumerate(raw)], raw, losses, launched
+
+
+def _check_falling(label, losses):
+    """Each tenant's losses (device scalars, read after the run) finite and
+    falling; returns them as floats."""
+    out = [[float(x) for x in ls] for ls in losses]
+    for arch, ls in zip(BG_ARCHS, out):
+        if not (ls and np.isfinite(ls).all() and ls[-1] < ls[0]):
+            fail(f"{label}: tenant {arch} losses not finite and falling: {ls}")
+    return out
+
+
+def phase_bg_tenants():
+    """Phase 8a: both tenants alone, 20 steps each on their own streams of
+    the least priority: finite, falling losses, and flash shapes among the
+    cases phases 3 and 3d held against the plain version."""
+    import torch
+
+    _reset_counts()
+    with _FlashShapes() as shapes:
+        fns, raw, losses, launched = _tenants()
+        for _ in range(20):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    counts = _counts()["flash"]
+    prio = [fn.mesh.stream.priority for fn in raw]
+    least, greatest = torch.cuda.Stream.priority_range()
+    out = _check_falling("8a", losses)
+    print(f"8a tenants alone: " + "; ".join(
+        f"{a} loss {ls[0]:.4f} -> {ls[-1]:.4f} over {len(ls)} steps" for a, ls in zip(BG_ARCHS, out))
+        + f"; stream priorities {prio} (range least {least}, greatest {greatest}); flash "
+        f"launches {counts}", flush=True)
+    if any(p != least for p in prio):
+        fail(f"8a: tenant streams have priorities {prio}, not the least ({least})")
+    _distinct_streams("8a", [fn.mesh.stream for fn in raw])
+    shapes.check_swept("8a")
+    return counts
+
+
+def _busy_union(prof):
+    """(union of the device intervals of every kernel, their sum) in
+    seconds: where streams overlap the sum exceeds the union."""
+    import torch
+
+    ivs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.time_range.end > e.time_range.start)
+    union, total, cur_s, cur_e = 0.0, 0.0, None, None
+    for s_, e_ in ivs:
+        total += e_ - s_
+        if cur_e is None or s_ > cur_e:
+            if cur_e is not None:
+                union += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    if cur_e is not None:
+        union += cur_e - cur_s
+    return union * 1e-6, total * 1e-6
+
+
+def _profile_collocated_step(cfg, state, tc, bg_fn=None):
+    """One more foreground step with its background steps (none without
+    ``bg_fn``), as the train loop issues them, under the profiler: wall
+    time, the device's busy time (union of kernel intervals) and the
+    kernel time summed over streams."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch._device import priority_stream
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    n = MUX_TRAIN
+    step = make_train_step(get_model(cfg), make_optimizer(cfg, total_steps=n["steps"]))
+    fg = priority_stream(torch.device("cuda", torch.cuda.current_device()),
+                         urgent=tc.multiplex.use_priorities)
+    fg.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(fg):
+        data = SyntheticLMData(cfg, n["batch"], n["seq"], seed=0, start_step=n["steps"],
+                               device="cuda")
+        batch = next(data)
+        data.close()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.cuda.stream(fg):
+            _, metrics = step(state, batch)
+            for _ in range(tc.multiplex.max_inflight if bg_fn else 0):
+                bg_fn()
+            float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, total = _busy_union(prof)
+    if busy <= 0.0:
+        fail("the profiled collocated step recorded no device time")
+    return wall, busy, total
+
+
+def phase_multiplex_train(smi):
+    """Phase 8b: qwen2-1.5b at full width and depth (phase 5q's recipe) at
+    1 x 4096, 12 steps through ``train()``: isolated twice, then with both
+    tenants round-robin (as ``launch/train.py --bg-arch``) under three
+    settings.  Fails if a collocated foreground loss moves by more than the
+    two isolated runs differ, if ``bg_steps`` is not steps x
+    ``max_inflight``, if tenant losses are not finite and falling, if a
+    stream's priority is not the setting's, or if anything calls
+    ``torch.cuda.synchronize()`` while a collocated run is timed."""
+    import torch
+
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.core.multiplex import InterferenceModel, MultiplexConfig
+    from repro_torch.launch.train import round_robin
+    from repro_torch.train.loop import TrainConfig, train
+
+    cfg = get_config("qwen2-1.5b")
+    n = MUX_TRAIN
+    shape = dataclasses.replace(TRAIN_4K, seq_len=n["seq"], global_batch=n["batch"],
+                                name="mux")
+    L, steps = cfg.num_layers, n["steps"]
+    fg_want = {"fwd": steps * 2 * L, "bwd": steps * L}
+    least, greatest = torch.cuda.Stream.priority_range()
+    shapes = _FlashShapes()  # the foreground's and the tenants' flash shapes
+    iso = []
+    for run in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with shapes:
+            rep = train(cfg, shape, TrainConfig(steps=steps, seed=0, max_failures=0),
+                        device="cuda")
+        counts = _counts()["flash"]
+        peak = torch.cuda.max_memory_allocated()
+        iso.append(rep)
+        print(f"8b isolated run {run + 1} on {smi}: {cfg.name} {n['batch']} x {n['seq']}, "
+              f"median step {np.median(rep.step_times) * 1e3:.2f} ms; losses "
+              f"{[round(x, 4) for x in rep.losses]}; peak {peak / 2**30:.2f} GiB; flash "
+              f"launches {counts}", flush=True)
+        if counts != fg_want or not np.isfinite(rep.losses).all():
+            fail(f"8b isolated: flash launches {counts} != {fg_want} or losses not finite")
+        if run:
+            wall, busy, _ = _profile_collocated_step(cfg, rep.state, TrainConfig(steps=steps))
+            print(f"8b isolated: one profiled step: wall {wall * 1e3:.2f} ms, device busy "
+                  f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%)", flush=True)
+        rep.state = None
+        torch.cuda.empty_cache()
+    spread = max(abs(a - b) for a, b in zip(iso[0].losses, iso[1].losses))
+    iso_ms = max(float(np.median(r.step_times)) for r in iso) * 1e3
+    im = InterferenceModel()
+    rows, fg_total, bg_total = [], {"fwd": 0, "bwd": 0}, {"fwd": 0, "bwd": 0}
+    for name, prio, inflight in MUX_SETTINGS:
+        fns, raw, losses, launched = _tenants()
+        rr = round_robin(fns)
+        seen_fg, t_first, issue = [], [], [0.0]
+
+        def bg_fn():
+            t0 = time.perf_counter()
+            if not seen_fg:
+                seen_fg.append(torch.cuda.current_stream())  # the loop's foreground stream
+                t_first.append(t0)
+            out = rr()
+            issue[0] += time.perf_counter() - t0
+            return out
+
+        tc = TrainConfig(steps=steps, seed=0, max_failures=0, bg_step_fn=bg_fn,
+                         multiplex=MultiplexConfig(use_priorities=prio, max_inflight=inflight))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with shapes, _NoDeviceSync():
+            rep = train(cfg, shape, tc, device="cuda")
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counts = _counts()["flash"]
+        peak = torch.cuda.max_memory_allocated()
+        bg_counts = dict(launched)
+        fg_counts = {k: counts[k] - bg_counts[k] for k in counts}
+        tenant_losses = _check_falling(f"8b {name}", losses)
+        fg_stream, prios = seen_fg[0], [fn.mesh.stream.priority for fn in raw]
+        want_fg = greatest if prio else least
+        diff = max(abs(a - b) for a, b in zip(rep.losses, iso[0].losses))
+        med_ms = float(np.median(rep.step_times)) * 1e3
+        bg_rate = rep.bg_steps / (t_end - t_first[0])
+        issue_ms = issue[0] / steps * 1e3  # host time issuing tenant steps, per fg step
+        wall, busy, total = _profile_collocated_step(cfg, rep.state, tc, bg_fn)
+        rep.state = None
+        torch.cuda.empty_cache()
+        paper = {"naive": im.naive_inflation, "priorities": im.priority_inflation,
+                 "priorities+pacing": im.paced_inflation}[name]
+        rows.append(dict(setting=name, use_priorities=prio, max_inflight=inflight,
+                         fg_median_ms=med_ms, fg_slowdown=med_ms / iso_ms,
+                         tenant_steps_per_s=bg_rate, bg_steps=rep.bg_steps,
+                         tenant_issue_ms_per_fg_step=issue_ms,
+                         busy_share=busy / wall, overlap_ms=(total - busy) * 1e3,
+                         profiled_wall_ms=wall * 1e3, peak_gib=peak / 2**30,
+                         paper_a100_inflation=paper, fg_loss_max_diff=diff,
+                         stream_priorities={"fg": fg_stream.priority, "tenants": prios}))
+        print(f"8b {name} (use_priorities={prio}, max_inflight={inflight}) on {smi}: fg median "
+              f"step {med_ms:.2f} ms, slowdown {med_ms / iso_ms:.4f} against the slower "
+              f"isolated run ({iso_ms:.2f} ms) [the paper's A100 figure for this setting: "
+              f"{paper:.2f}x]; tenant steps {rep.bg_steps} at {bg_rate:.1f} steps/s, their "
+              f"host issue {issue_ms:.2f} ms per fg step; one "
+              f"profiled collocated step: wall {wall * 1e3:.2f} ms, device busy "
+              f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%), kernel time overlapping "
+              f"another stream's {(total - busy) * 1e3:.2f} ms; peak {peak / 2**30:.2f} GiB; "
+              f"stream priorities fg {fg_stream.priority}, tenants {prios} (least {least}, "
+              f"greatest {greatest}); fg losses max |diff| from isolated {diff:.3g} (isolated "
+              f"runs differ by {spread:.3g}); tenant losses " + "; ".join(
+                  f"{a} {ls[0]:.4f} -> {ls[-1]:.4f}" for a, ls in zip(BG_ARCHS, tenant_losses))
+              + f"; flash launches fg {fg_counts}, tenants {bg_counts}", flush=True)
+        if diff > spread:
+            fail(f"8b {name}: foreground losses differ from the isolated run's by {diff:.3g}, "
+                 f"more than the two isolated runs do ({spread:.3g}): a race between streams")
+        if rep.bg_steps != steps * inflight:
+            fail(f"8b {name}: bg_steps {rep.bg_steps} != {steps} x {inflight}")
+        if fg_stream.priority != want_fg or fg_stream == torch.cuda.default_stream() \
+                or any(p != least for p in prios):
+            fail(f"8b {name}: stream priorities fg {fg_stream.priority} (want {want_fg}), "
+                 f"tenants {prios} (want {least})")
+        _distinct_streams(f"8b {name}", [fg_stream] + [fn.mesh.stream for fn in raw])
+        if fg_counts != fg_want:
+            fail(f"8b {name}: foreground flash launches {fg_counts} != {fg_want}")
+        for k in fg_total:
+            fg_total[k] += fg_counts[k]
+            bg_total[k] += bg_counts[k]
+    shapes.check_swept("8b")
+    print(f"8b summary: {json.dumps(rows)}", flush=True)
+    return fg_total, bg_total, rows
+
+
+def phase_run_executable():
+    """Phase 8c: ``launch/multiplex_demo.py`` on the card (GPU mode: the
+    8 positions of VGG-16's plan all on the card), then
+    ``ClusterCoordinator.collocate(executable=True)`` on the same plan with
+    feedback off: each tenant launches its scheduled steps every iteration,
+    no 'fallback' event, and the calibrated ``predict()`` gives the
+    measured steps per iteration exactly."""
+    import torch
+
+    from repro_torch.configs.vgg16 import CONFIG as VCFG
+    from repro_torch.core.coordinator import ClusterCoordinator, Job
+    from repro_torch.core.costmodel import A100
+    from repro_torch.core.multiplex import BgTenant, Collocator, MultiplexConfig
+    from repro_torch.launch import multiplex_demo
+    from repro_torch.models.graph import build_vgg_graph
+    from repro_torch.train.step import bg_step_factory
+
+    _reset_counts()
+    stage = multiplex_demo.stand_in_stage
+    with _FlashShapes() as shapes, _IssuedStreams() as issued, _NoDeviceSync():
+        multiplex_demo.stand_in_stage = issued.stage(stage)
+        try:
+            col, res, pred, losses = multiplex_demo.main([])
+        finally:
+            multiplex_demo.stand_in_stage = stage
+    torch.cuda.synchronize()
+    issued.check("8c demo", col.cfg.use_priorities)
+    ls = [float(x) for x in losses]
+    if not (res.iterations > 0 and res.bg_steps_per_iter > 0 and ls and np.isfinite(ls).all()):
+        fail(f"8c demo: {res.row()}; {len(ls)} tenant losses, finite {np.isfinite(ls).all()}")
+    print(f"8c demo: {res.row()}; {len(ls)} tenant steps, losses finite", flush=True)
+
+    coord = ClusterCoordinator(8, A100)
+    coord.submit_foreground(Job("vgg16", "foreground", build_vgg_graph(VCFG, 32),
+                                amp_limit=1.5))
+    jobs = multiplex_demo.ROSTER
+    for job, prio, seed in jobs:
+        coord.submit_background(Job(job, "background", [], priority=prio,
+                                    step_fn_factory=bg_step_factory(
+                                        multiplex_demo.TENANT_ARCH, seq=multiplex_demo.TENANT_SEQ,
+                                        seed=seed, per_device_batch=multiplex_demo.TENANT_BATCH)))
+    mcfg = MultiplexConfig(max_inflight=2, collocate_same_device=True, use_feedback=False)
+    with shapes, _IssuedStreams() as issued, _NoDeviceSync():
+        res = coord.collocate(mcfg, executable=True, iterations=5,
+                              make_fg_stage_fn=issued.stage(multiplex_demo.stand_in_stage))
+    torch.cuda.synchronize()
+    issued.check("8c coordinator", mcfg.use_priorities)
+    counts = _counts()["flash"]
+    plan = coord.foreground().plan
+    model = Collocator(plan, mcfg, tenants=[BgTenant(j, p) for j, p, _ in jobs])
+    sched = model.schedule_tenants()
+    want = [sum(n for _, slot, n in sched if slot == i) for i in range(len(jobs))]
+    got = [t.bg_steps_per_iter for t in res.tenants]
+    fallback = [e.detail for e in coord.events if e.kind == "fallback"]
+    model.calibrate([res])
+    p = model.predict()
+    print(f"8c coordinator: {res.row()}", flush=True)
+    for t in res.tenants:
+        print(f"  {t.row()} (weight {t.weight:g}, deficit {t.deficit:.1f}, "
+              f"{t.bg_throughput:.1f} steps/s)")
+    print(f"  iterations {res.iterations}, steps per iteration {[n for _, n in res.iter_details]} "
+          f"(schedule {want}); fg iter {res.fg_iter_time * 1e3:.3f} ms (isolated "
+          f"{res.fg_iter_time_isolated * 1e3:.3f} ms); gap_inflation "
+          f"{model.interference.gap_inflation:.4f}, per stage "
+          f"{dict(model.interference.gap_inflation_stages)}; predicted slowdown "
+          f"{p.fg_slowdown:.4f} against measured {res.fg_slowdown:.4f}; predicted steps per "
+          f"iteration {p.bg_steps_per_iter} against measured {res.bg_steps_per_iter}; flash "
+          f"launches {counts}", flush=True)
+    if got != want or any(n != sum(want) for _, n in res.iter_details):
+        fail(f"8c: tenants launched {got} steps per iteration, the schedule says {want}")
+    if fallback:
+        fail(f"8c: the coordinator fell back: {fallback}")
+    if p.bg_steps_per_iter != res.bg_steps_per_iter or \
+            [t.bg_steps_per_iter for t in p.tenants] != got:
+        fail(f"8c: predict() gives {p.bg_steps_per_iter} steps per iteration, measured "
+             f"{res.bg_steps_per_iter}")
+    shapes.check_swept("8c")
+    return counts, res
+
+
+def phase_admission(cfg, smi, stats5, ttft5):
+    """Phase 8d: phase 5's trace once more, through
+    ``ContinuousScheduler(admission=ServingAdmission(...))`` with the
+    prefill and decode-step times phase 5 measured and a TTFT SLO of 1.5x
+    the prefill: every request gets its budget and no page leaks."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler, ServingAdmission
+    from repro_torch.serve.trace import materialize_requests
+
+    dev = torch.device("cuda")
+    params = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    eng = ContinuousBatchingEngine(cfg, params, lanes=4, n_pages=545, page_tokens=16,
+                                   lane_capacity=2176, device=dev)
+    del params
+    torch.cuda.empty_cache()
+    prefill = stats5.prefill_s / stats5.prefills
+    decode = stats5.decode_s / stats5.decode_steps
+    # one position for the prefill, one per decode lane: every position is the card
+    adm = ServingAdmission(1 + eng.lanes, 1, prefill_time=prefill, decode_step_time=decode,
+                           ttft_slo=1.5 * prefill)
+    trace = slice_trace(cfg.vocab_size)
+    sched = ContinuousScheduler(eng, admission=adm)
+    fa.launches.update(fwd=0, bwd=0)
+    rep = sched.run(materialize_requests(trace))
+    launches = fa.launches["fwd"]
+    want = {r["id"]: r["max_new"] for r in trace.requests}
+    got = {r.rid: len(r.tokens) for r in rep.completed}
+    print(f"8d admission on {smi}: prefill {prefill * 1e3:.2f} ms, decode step "
+          f"{decode * 1e3:.2f} ms (phase 5), TTFT SLO {1.5 * prefill * 1e3:.2f} ms (bound "
+          f"{adm.bound:.2f}x); admission_deferrals {rep.admission_deferrals} (phase 5 without "
+          f"admission: 0), page deferrals {rep.page_deferrals}; TTFT p50 "
+          f"{rep.ttft_percentile(50) * 1e3:.2f} ms p99 {rep.ttft_percentile(99) * 1e3:.2f} ms "
+          f"(phase 5: {ttft5[0] * 1e3:.2f} / {ttft5[1] * 1e3:.2f}); makespan "
+          f"{rep.makespan:.3f} s; last decision: "
+          f"{sched.last_decision.row() if sched.last_decision else None}; flash launches "
+          f"{launches}", flush=True)
+    if got != want:
+        fail(f"8d: token counts {got} != budgets {want}")
+    if eng.alloc.used_pages != 0:
+        fail(f"8d: {eng.alloc.used_pages} pages leaked")
+    if fa.launches["bwd"] or launches != eng.stats.prefills * cfg.num_layers:
+        fail(f"8d: kernel launches {launches} != prefills {eng.stats.prefills} x "
+             f"{cfg.num_layers} layers")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
 
 
 # 20 steps, as zamba2: the cosine schedule then warms up for 2 steps
@@ -1224,7 +1837,7 @@ def phase_slice(cfg, smi):
           f"tokens/s ({stats.decode_steps} steps, {stats.decode_tokens} tokens in "
           f"{stats.decode_s:.3f} s); kernel launches {launches}; "
           f"peak memory {peak / 2**30:.2f} GiB", flush=True)
-    return launches, eng
+    return launches, eng, rep
 
 
 TRAIN_MODEL_TOL = dict(loss=1e-2, grad=5e-2)  # relative loss; grads vs each leaf's max |g|
@@ -1603,7 +2216,9 @@ def main() -> None:
     flash["d80"], flash_bwd = phase_flash_bwd()
     flash["qwen2"], flash_bwd["qwen2"] = phase_flash_qwen2()
     phase_model(cfg)
-    serve_launches, eng = phase_slice(cfg, smi)
+    serve_launches, eng, rep5 = phase_slice(cfg, smi)
+    stats5 = dataclasses.replace(eng.stats)  # phase 6 resets the engine
+    ttft5 = (rep5.ttft_percentile(50), rep5.ttft_percentile(99))
     phase_profile(eng, cfg)
     del eng
     torch.cuda.empty_cache()
@@ -1625,13 +2240,23 @@ def main() -> None:
     del state
     torch.cuda.empty_cache()
     quick = phase_quickstart()
+    alone = phase_bg_tenants()
+    fg_mux, bg_mux, _ = phase_multiplex_train(smi)
+    bg_exec, _ = phase_run_executable()
+    serve_adm = phase_admission(cfg, smi, stats5, ttft5)
+    bg = {k: alone[k] + bg_mux[k] + bg_exec[k] for k in ("fwd", "bwd")}
     flash["launches_by_path"] = {"serve llama3-8b": serve_launches,
                                  "train zamba2-2.7b": counts["flash"]["fwd"],
                                  "train qwen2-1.5b": qwen["fwd"],
-                                 "quickstart llama3-8b (reduced)": quick["fwd"]}
+                                 "quickstart llama3-8b (reduced)": quick["fwd"],
+                                 "train qwen2-1.5b multiplexed (fg)": fg_mux["fwd"],
+                                 "bg tenants": bg["fwd"],
+                                 "serve llama3-8b with admission": serve_adm}
     flash_bwd["launches_by_path"] = {"train zamba2-2.7b": counts["flash"]["bwd"],
                                      "train qwen2-1.5b": qwen["bwd"],
-                                     "quickstart llama3-8b (reduced)": quick["bwd"]}
+                                     "quickstart llama3-8b (reduced)": quick["bwd"],
+                                     "train qwen2-1.5b multiplexed (fg)": fg_mux["bwd"],
+                                     "bg tenants": bg["bwd"]}
     for rec in (flash, flash_bwd):
         rec["launches"] = sum(rec["launches_by_path"].values())
     print(f"planning: {json.dumps(planning)}")

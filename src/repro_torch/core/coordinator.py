@@ -1,8 +1,11 @@
 """Cluster coordinator (paper §3.2): job registry, placement, elasticity.
 
-The port of ``repro/core/coordinator.py``.  Collocation runs on its
-simulation and prediction path; ``collocate(executable=True)`` waits for
-executable gap multiplexing (ROADMAP Queue 1, item 9).
+The port of ``repro/core/coordinator.py``.  ``collocate`` simulates
+collocation, or with ``executable=True`` measures it on real devices
+(``Collocator.run_executable``): in GPU mode
+(``MultiplexConfig.collocate_same_device``) every healthy position is one
+card, in submesh mode each is one of the host's cards, and too few of them
+falls back to the simulation, as in the reference.
 
 Manages all runtimes: places a new foreground job on the device subset its
 burst plan requests, registers background jobs per device, and handles
@@ -17,6 +20,9 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.costmodel import Hardware
 from repro_torch.core.multiplex import (
     AdmissionDecision,
@@ -31,6 +37,7 @@ from repro_torch.core.multiplex import (
 )
 from repro_torch.core.plan import BurstPlan
 from repro_torch.core.planner import plan as make_plan
+from repro_torch.launch.mesh import host_devices
 
 # paper §5: the fg slowdown the QoS/admission machinery must hold
 QOS_SLOWDOWN_BOUND = 1.33
@@ -318,19 +325,19 @@ class ClusterCoordinator:
                 )
 
     def _evict_stale_executables(self) -> int:
-        """Drop executable-cache entries whose submesh uses a device outside
-        the healthy set (healthy indices mapped positionally onto the
-        process's CUDA devices, ``range(torch.cuda.device_count())``).  In
-        ``virtual_devices`` mode the healthy indices themselves are the
-        device ids, so simulated 1024-device clusters get real eviction
-        semantics on a 1-device host.  No-op when the cache is empty."""
+        """Drop executable-cache entries whose slice uses a position outside
+        the healthy set.  In ``virtual_devices`` mode, and in GPU mode (the
+        last collocation's ``collocate_same_device``: every healthy position
+        is on the one card), the healthy indices themselves are the live
+        ids, so simulated 1024-device clusters get real eviction semantics
+        on a 1-device host.  Otherwise healthy indices map positionally onto
+        the process's CUDA devices (``range(torch.cuda.device_count())``).
+        No-op when the cache is empty."""
         if not self.exec_cache.entries:
             return 0
-        if self.virtual_devices:
+        if self.virtual_devices or self._last_mcfg.collocate_same_device:
             live = set(self.healthy)
         else:
-            import torch
-
             n_dev = torch.cuda.device_count()
             live = {i for i in self.healthy if i < n_dev}
         n = self.exec_cache.evict_stale(live)
@@ -359,24 +366,120 @@ class ClusterCoordinator:
         iterations: int = 3,
         calibrate: bool = False,
         admission_bound: Optional[float] = QOS_SLOWDOWN_BOUND,
+        device: DeviceLike = None,
     ):
         """Collocate background work into the foreground plan's gaps.
 
-        Runs the costless ``MultiplexSim`` and returns its ``SimResult``
-        (``fg_slowdown`` / ``bg_steps_per_iter`` / ``row()``), and records
-        ``mcfg`` as the config of the last collocation (``calibrate`` and
-        ``readmit`` use it).  ``executable=True`` — real steps on disjoint
-        device subsets through ``Collocator.run_executable``, after the
-        admission sweep — is not ported yet and raises (ROADMAP Queue 1,
-        item 9); its other arguments are the reference's and wait for it.
+        ``executable=True`` dispatches real steps onto the plan's device
+        slices (``Collocator.run_executable``), returning a measured
+        ``CollocationResult``.  In GPU mode (``mcfg.collocate_same_device``)
+        every healthy position is ``device`` (default: the card; ``"cpu"``
+        runs the same loop on the CPU), each tenant on its own stream.  In
+        submesh mode the positions are the host's devices of ``device``'s
+        type, and when there are fewer than the plan assumes it falls back
+        to the costless ``MultiplexSim`` (logged as a 'fallback'
+        ClusterEvent) and returns a ``SimResult`` — both expose
+        ``fg_slowdown`` / ``bg_steps_per_iter`` / ``row()``.
+
+        Every running background job becomes a tenant
+        (``background_tenants``), so several ``submit_background`` jobs
+        actually co-run inside the gaps, packed by priority; a job without
+        its own ``step_fn_factory`` uses ``make_bg_step_fn``.  With no
+        background jobs registered, ``make_bg_step_fn`` runs as a single
+        anonymous tenant.  Built bg steps go through the coordinator's
+        ``exec_cache`` — after a ``handle_failure``/``handle_join`` re-plan
+        with unchanged gap shapes the steps are reused.
+        ``calibrate=True`` refits ``self.interference`` from the measured
+        result so subsequent ``simulate_collocation`` calls track hardware.
+
+        Admission control runs *before anything is built*: the candidate
+        roster is swept through the calibrated ``Collocator.predict`` and
+        only the argmax-cluster-throughput prefix whose predicted fg
+        slowdown stays within ``admission_bound`` (paper §5: 1.33x) is
+        built and run — rejected tenants are reported on
+        ``CollocationResult.rejected_tenants`` and logged as an 'admission'
+        ClusterEvent, and never touch the executable cache.  With an
+        uncalibrated model (``gap_inflation`` 1.0) every tenant is
+        predicted harmless and admitted.  ``admission_bound=None`` disables
+        the sweep.
         """
         fg = self.foreground()
         assert fg is not None and fg.plan is not None
         self._last_mcfg = mcfg or MultiplexConfig()
         if executable:
-            raise NotImplementedError(
-                "collocate(executable=True): executable gap multiplexing is not "
-                "ported yet (ROADMAP Queue 1, item 9); executable=False simulates it")
+            tenants = self.background_tenants(make_bg_step_fn)
+            if make_fg_stage_fn is None or (
+                not tenants and make_bg_step_fn is None
+            ):
+                raise ValueError(
+                    "executable collocation needs make_fg_stage_fn and "
+                    "background work (make_bg_step_fn or submitted "
+                    "background jobs with step_fn_factory)"
+                )
+            # collocate onto the SURVIVING positions (the sorted healthy
+            # set): after a low-index failure the carving must not place
+            # work on the dead device, and the eviction semantics (entries
+            # touching a dead position are dropped) only hold if the dead
+            # position is actually excluded from new slices
+            healthy = sorted(self.healthy)
+            if self._last_mcfg.collocate_same_device:
+                dev = resolve_device(device)
+                if dev.type == "cuda" and dev.index is None:
+                    dev = torch.device("cuda", torch.cuda.current_device())
+                ids = healthy
+                survivors = [dev] * len(ids)
+            else:
+                devs = host_devices(device)
+                ids = [i for i in healthy if i < len(devs)]
+                survivors = [devs[i] for i in ids]
+            if len(survivors) >= fg.plan.num_gpus:
+                col = Collocator(fg.plan, mcfg or MultiplexConfig(),
+                                 monitor=self.monitor, tenants=tenants,
+                                 devices=survivors, device_ids=ids,
+                                 cache=self.exec_cache,
+                                 interference=self.interference)
+                rejected: tuple = ()
+                if admission_bound is not None and col.tenants:
+                    # the measured run re-derives per-stage QoS state from
+                    # wall-clock measurement; the admission sweep must
+                    # predict against that same reset state, not stale bans
+                    # the run is about to discard
+                    col.reset_measured_qos()
+                    decision = self.last_admission = col.admit(
+                        max_fg_slowdown=admission_bound
+                    )
+                    if decision.rejected:
+                        rejected = tuple(t.job for t in decision.rejected)
+                        self.events.append(ClusterEvent(
+                            self._clock(), "admission", decision.row()
+                        ))
+                    if decision.n_admitted == 0:
+                        # nothing admitted: return the fg-only prediction —
+                        # no tenant is ever built (iterations == 0 marks it
+                        # predicted, so calibrate() ignores it)
+                        res = col.predict(0)
+                        res.rejected_tenants = rejected
+                        return res
+                    if decision.rejected:
+                        col = Collocator(fg.plan, self._last_mcfg,
+                                         monitor=self.monitor,
+                                         tenants=decision.admitted,
+                                         devices=survivors, device_ids=ids,
+                                         cache=self.exec_cache,
+                                         interference=self.interference)
+                res = col.run_executable(
+                    make_fg_stage_fn, make_bg_step_fn, iterations=iterations
+                )
+                res.rejected_tenants = rejected
+                self.collocation_results.append(res)
+                if calibrate:
+                    self.interference = col.calibrate(self.collocation_results)
+                return res
+            self.events.append(ClusterEvent(
+                self._clock(), "fallback",
+                f"executable collocation wants {fg.plan.num_gpus} devices, "
+                f"process has {len(survivors)} healthy -> MultiplexSim",
+            ))
         return self.simulate_collocation(mcfg)
 
     def calibrate(self) -> InterferenceModel:

@@ -1,7 +1,9 @@
 """Foreground/background multiplexing (paper §5).
 
-The port of ``repro/core/multiplex.py``, its simulation and prediction
-path: pure Python, the reference's arithmetic in its order.
+The port of ``repro/core/multiplex.py``.  The simulation, prediction and
+scheduling are pure Python, the reference's arithmetic in its order; the
+executable path runs the reference's loop statement for statement on
+torch devices and CUDA streams.
 
 1. ``MultiplexSim`` — a discrete-event model of one accelerator cluster
    multiplexing a burst-parallel foreground job with background jobs.  It
@@ -15,10 +17,23 @@ path: pure Python, the reference's arithmetic in its order.
    what-ifs, coordinator policy decisions, and the Fig-11 ablation tests.
 
 2. ``Collocator`` — the scheduling, calibration, prediction and admission
-   of background tenants in the plan's gaps.  Its executable path
-   (``submeshes``, ``run_executable``, ``run_iteration``: real steps on the
-   devices the gaps leave idle) raises until the mesh carving (ROADMAP
-   Queue 1, item 11) and executable gap multiplexing (item 9) are ported.
+   of background tenants in the plan's gaps, and the executable path:
+   ``submeshes()`` carves the plan's positions into the foreground slice
+   and per-gap tenant slices (``repro_torch.launch.mesh``), and
+   ``run_executable()`` runs real foreground stages and tenant steps on
+   them, interleaved with dispatch pacing (bounded in-flight steps) and
+   the slowdown feedback loop driven by a QoSMonitor of *measured* stage
+   times.  Where the positions are distinct cards, a gap is a disjoint set
+   of cards (the reference's TPU submesh mode; the coordinator falls back
+   to ``MultiplexSim`` when there are too few).  On one card
+   (``MultiplexConfig.collocate_same_device``, the paper's GPU mode) every
+   position is the card: the foreground is issued on a stream of the
+   greatest priority (with ``use_priorities``) and each (chunk, tenant)
+   on its own stream of the least, so tenants overlap each other and the
+   foreground as disjoint submeshes do.  Every dispatch is followed by a
+   ``torch.cuda.Event`` recorded on its stream, and the loop waits on
+   those events alone: ``torch.cuda.synchronize()`` would wait for every
+   stream and time the background into the foreground stage.
 
 Multi-tenant gap scheduling (paper §5's cluster-throughput setting — several
 background jobs packed into one foreground job's gaps):
@@ -30,8 +45,8 @@ background jobs packed into one foreground job's gaps):
   highest-priority tenant — and ``run_executable`` interleaves every
   tenant's paced dispatch under the shared QoS loop, reporting per-tenant
   throughput as ``CollocationResult.tenants`` (``TenantResult`` rows).
-- ``ExecutableCache`` memoizes compiled bg step fns across re-plans, keyed
-  on (tenant signature, gap submesh device ids, submesh shape).  A
+- ``ExecutableCache`` memoizes built bg step fns across re-plans, keyed
+  on (tenant signature, the gap slice's position ids, its shape).  A
   coordinator-owned cache survives ``handle_failure``/``handle_join``
   re-plans, so a re-plan whose gap shape is unchanged reuses the jitted bg
   steps (and their training state) instead of recompiling — the dominant
@@ -74,10 +89,14 @@ anything compiles):
 from __future__ import annotations
 
 import math
+import time as _time
 from collections import OrderedDict, defaultdict
 from dataclasses import dataclass, field, replace as _dc_replace
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import torch
+
+from repro_torch._device import priority_stream
 from repro_torch.core.plan import BurstPlan, pack_ranges
 
 
@@ -402,25 +421,27 @@ class BgTenant:
 
 @dataclass
 class ExecutableCache:
-    """Compiled bg-step reuse across re-plans — a bounded LRU.
+    """Built bg-step reuse across re-plans — a bounded LRU.
 
-    Keyed on (tenant signature, gap submesh device ids, submesh shape): a
-    jitted step closes over device-committed state, so identity of the
-    *device subset* — not just its shape — is what makes reuse sound.  After
-    a ``handle_failure``/``handle_join`` re-plan whose gap ranges are
-    unchanged, the same key recurs and the jitted step (with its training
-    state) is reused instead of re-jitted — re-compilation is the dominant
-    cost of burst re-scaling.
+    Keyed on (tenant signature, the gap slice's position ids, its shape): a
+    built step closes over its training state on the slice's device, so
+    identity of the *positions* — not just the shape — is what makes reuse
+    sound.  On one card every position is the same device, so a key of
+    device ids would let different gap chunks share one tenant step and
+    its state; the position ids keep them apart as the reference's device
+    ids do.  After a ``handle_failure``/``handle_join`` re-plan whose gap
+    ranges are unchanged, the same key recurs and the step (with its
+    training state) is reused instead of rebuilt.
 
-    Two bounds keep the cache from holding dead jitted state alive across
+    Two bounds keep the cache from holding dead state alive across
     repeated re-plans:
 
     - ``max_entries`` caps the entry count; inserting beyond it evicts the
       least-recently-used entry (lookups refresh recency).
-    - ``evict_stale(live_device_ids)`` drops every entry whose submesh uses
-      a device outside the live set — after a device failure the jitted
-      steps (and their device-committed training state) on that subset are
-      dead and must be rebuilt even if the same gap shape later returns.
+    - ``evict_stale(live_ids)`` drops every entry whose slice uses a
+      position outside the live set — after a device failure the steps
+      (and their training state) on that subset are dead and must be
+      rebuilt even if the same gap shape later returns.
     """
 
     max_entries: int = 64
@@ -431,11 +452,8 @@ class ExecutableCache:
 
     @staticmethod
     def key(signature: str, mesh) -> tuple:
-        return (
-            signature,
-            tuple(d.id for d in mesh.devices.flat),
-            tuple(mesh.devices.shape),
-        )
+        """``mesh`` is a ``launch.mesh.DeviceSlice``."""
+        return (signature, tuple(mesh.ids), tuple(mesh.shape))
 
     def __len__(self) -> int:
         return len(self.entries)
@@ -586,19 +604,23 @@ class AdmissionDecision:
 class Collocator:
     """Dispatches background steps into plan gaps with pacing + feedback.
 
-    ``run_executable`` is the real path: it builds disjoint fg/bg submeshes
-    from the plan (``submeshes()``), compiles the caller's stage/step
+    ``run_executable`` is the real path: it carves fg/bg device slices
+    from the plan (``submeshes()``), builds the caller's stage/step
     factories onto them, and interleaves paced background dispatch with the
     foreground stages, measuring slowdown via the QoSMonitor.
     ``run_iteration`` is the lighter legacy harness: the caller supplies
-    already-jitted callables and only the dispatch loop runs here.
-    ``devices`` pins an explicit device subset (default: process devices).
+    ready callables and only the dispatch loop runs here.
+    ``devices`` pins an explicit device list, one entry per plan position
+    (default: in GPU mode, ``cfg.collocate_same_device``, the current card
+    once for each of the plan's positions; otherwise the process's cards).
+    ``device_ids`` names those positions (default: their indices); the
+    executable cache keys on them.
 
     ``tenants`` is a prioritized list of background jobs (``BgTenant``);
     each gap's free device ranges are packed among them largest-chunk-to-
     highest-priority (``schedule_tenants``).  ``cache`` (``ExecutableCache``)
-    memoizes compiled bg steps across collocators — pass the coordinator's
-    cache so re-plans with unchanged gap shapes reuse jitted steps.
+    memoizes built bg steps across collocators — pass the coordinator's
+    cache so re-plans with unchanged gap shapes reuse the steps.
     ``interference`` seeds the analytic model used by ``predict()``;
     ``calibrate()`` refits it from measured results.
     """
@@ -610,6 +632,7 @@ class Collocator:
     tenants: Sequence[BgTenant] = ()
     cache: Optional[ExecutableCache] = None
     interference: InterferenceModel = field(default_factory=InterferenceModel)
+    device_ids: Optional[Sequence[int]] = None
 
     def __post_init__(self):
         # priority order is fixed at construction: slot 0 = highest priority
@@ -905,21 +928,38 @@ class Collocator:
 
     # -- executable submesh path -------------------------------------------
 
+    def _device_list(self) -> list:
+        """One device per plan position (see the class docstring)."""
+        if self.devices is not None:
+            return list(self.devices)
+        from repro_torch.launch.mesh import host_devices
+
+        if self.cfg.collocate_same_device:
+            card = torch.device("cuda", torch.cuda.current_device())
+            return [card] * self.plan.num_gpus
+        return host_devices()
+
     def submeshes(self, *, fg_model: int = 1, bg_model: int = 1,
                   tenants: Optional[int] = None,
                   tenant_quanta: Optional[Sequence[int]] = None):
-        """Disjoint fg/bg submeshes for this plan (PlanSubmeshes).
+        """Disjoint fg/bg slices for this plan (PlanSubmeshes).
 
         ``tenants`` (default: this collocator's tenant count) splits each
-        gap's free ranges into that many per-tenant submeshes.
+        gap's free ranges into that many per-tenant slices.
         ``tenant_quanta`` (default: the roster's per-tenant quanta, when any
         tenant sets one) switches to the slot-aware per-tenant carving.
         What-if counts beyond the roster pad with placeholder slots exactly
         like the scheduler (quantum = ``bg_model``), so the carved chunks
         always match what ``schedule_tenants(n)`` packs."""
-        raise NotImplementedError(
-            "Collocator.submeshes: the mesh carving (launch/mesh) is not ported yet "
-            "(ROADMAP Queue 1, item 11)")
+        from repro_torch.launch.mesh import split_mesh_for_plan
+
+        n = tenants if tenants is not None else max(1, len(self.tenants))
+        if tenant_quanta is None and any(t.quantum for t in self.tenants[:n]):
+            tenant_quanta = self._roster_quanta(self._roster_for(n), bg_model)
+        return split_mesh_for_plan(self.plan, devices=self._device_list(),
+                                   ids=self.device_ids,
+                                   fg_model=fg_model, bg_model=bg_model,
+                                   tenants=n, tenant_quanta=tenant_quanta)
 
     # -- calibration + analytic prediction ---------------------------------
 
@@ -1191,22 +1231,393 @@ class Collocator:
             curve=tuple(curve),
         )
 
-    def run_executable(self, make_fg_stage_fn: Callable,
-                       make_bg_step_fn: Optional[Callable] = None, **kw) -> CollocationResult:
-        """Measured gap collocation on this process's devices (the
-        reference's executable path) is not ported yet: it waits for
-        executable gap multiplexing, ROADMAP Queue 1, item 9."""
-        raise NotImplementedError(
-            "Collocator.run_executable: executable gap multiplexing is not ported "
-            "yet (ROADMAP Queue 1, item 9); MultiplexSim and predict() model it")
+    def run_executable(
+        self,
+        make_fg_stage_fn: Callable,
+        make_bg_step_fn: Optional[Callable] = None,
+        *,
+        tenants: Optional[Sequence[BgTenant]] = None,
+        iterations: int = 3,
+        fg_model: int = 1,
+        bg_model: int = 1,
+        time_fn: Callable[[], float] = _time.perf_counter,
+    ) -> CollocationResult:
+        """Measure real gap collocation on this collocator's device list.
+
+        ``make_fg_stage_fn(stage, mesh)`` -> zero-arg callable running that
+        foreground stage on its slice (a ``DeviceSlice`` over the stage's
+        position prefix, carrying the foreground stream).  Background work
+        comes from the prioritized tenant list — ``tenants`` here, else
+        ``self.tenants``, else a single anonymous tenant wrapping
+        ``make_bg_step_fn`` — and each tenant's ``step_fn_factory(mesh)``
+        yields a zero-arg callable issuing one background step on its gap
+        slice and stream (its completion is waited on by the pacing loop).
+        Tenants pace independently on disjoint position chunks (per-tenant
+        in-flight bound); dispatch per stage is in priority order.  When
+        ``self.cache`` is set, built bg steps are looked up by (signature,
+        position ids, shape) before building — a re-plan whose gap shapes
+        are unchanged re-uses the steps.
+
+        Every stage call and bg step is issued inside
+        ``torch.cuda.stream(slice.stream)`` and followed by a
+        ``torch.cuda.Event`` recorded on that stream; the loop waits on
+        those events only (on the CPU, where slices have no stream, a call's
+        own result stands for it).
+
+        Runs ``iterations`` isolated iterations (recording per-stage
+        baselines), ``iterations`` collocated ones, plus one final settled
+        iteration after the feedback loop has banned harmful origins;
+        returns min-over-iterations times so build noise and the feedback
+        loop's learning phase don't pollute the steady state the QoS
+        mechanism is meant to deliver.  The isolated baseline is then
+        *re-measured* after the collocated phase and the slowdown computed
+        against the slower of the two baselines (paired drift control:
+        host-wide speed changes mid-measurement would otherwise read as
+        collocation slowdown).  ``CollocationResult.tenants`` carries
+        per-tenant throughput.
+        """
+        from repro_torch.launch.mesh import submesh_from_range
+
+        roster = list(tenants) if tenants is not None else list(self.tenants)
+        if not roster:
+            if make_bg_step_fn is None:
+                raise ValueError(
+                    "run_executable needs background work: pass tenants or "
+                    "make_bg_step_fn"
+                )
+            roster = [BgTenant("bg0", 0, make_bg_step_fn)]
+        roster.sort(key=lambda t: -t.priority)  # stable: slot 0 = highest
+        for t in roster:
+            if t.step_fn_factory is None:
+                raise ValueError(f"tenant {t.job!r} has no step_fn_factory")
+
+        devs = self._device_list()
+        # re-derive QoS state for this plan's ops from measurement so stale
+        # (possibly simulated-domain) baselines can't poison the feedback
+        self.reset_measured_qos()
+        n_slots = len(roster)
+        quanta = self._roster_quanta(roster, bg_model)
+        # always pass the roster's quanta explicitly: submeshes() must carve
+        # exactly the chunks _schedule_detail packs for THIS roster, even
+        # when it differs from self.tenants (an override roster)
+        split = self.submeshes(fg_model=fg_model, bg_model=bg_model,
+                               tenants=n_slots, tenant_quanta=quanta)
+        stages = self.plan.stages()
+        # one stream carries every foreground stage: of the greatest priority
+        # with use_priorities (a foreground left on the default stream would
+        # share the least priority with the tenants)
+        fg_stream = priority_stream(split.fg_mesh.device,
+                                    urgent=self.cfg.use_priorities)
+        mesh_cache: Dict[Tuple[int, int], object] = {
+            split.fg_range: _dc_replace(split.fg_mesh, stream=fg_stream)
+        }
+        fg_fns = []
+        for i, st in enumerate(stages):
+            rng = split.stage_fg_range[i]
+            if rng not in mesh_cache:
+                model = fg_model if st.gpus % fg_model == 0 else 1
+                mesh_cache[rng] = submesh_from_range(
+                    rng[0], rng[1], model=model, devices=devs,
+                    ids=self.device_ids, stream=fg_stream,
+                )
+            fg_fns.append(make_fg_stage_fn(st, mesh_cache[rng]))
+
+        # per-(stage, chunk position, tenant-slot) bg step fns, built through
+        # the executable cache so an unchanged gap slice reuses the built
+        # step.  Only the canonical owner of each position (slot i on chunk
+        # i) pre-builds; a fair-rotated (position, peer) combination builds
+        # lazily on first dispatch — a k-member equal-priority group costs k
+        # builds up front plus one per combination the rotation actually
+        # reaches, never k^2 steps (and k^2 device-resident state replicas)
+        # for assignments that may never occur.  A lazy build lands inside
+        # one measured iteration; the min-over-iterations steady state
+        # discards that sample.
+        hits0 = self.cache.hits if self.cache else 0
+        miss0 = self.cache.misses if self.cache else 0
+        # bg step fns are keyed by (device chunk, tenant slot) — NOT by
+        # (stage, position): rotation and deficit share-sizing re-carve the
+        # chunks per iteration, and the same chunk reappearing in another
+        # stage (or rotation round) must reuse the same built step.  Slices
+        # are keyed by (chunk, model width) so a rotated-in tenant whose
+        # quantum differs from the canonical owner's gets a slice shaped for
+        # ITS model axis over the same positions.  Each built step keeps the
+        # stream it was built on (its own, of the least priority), and the
+        # cache holds the pair, so a cache hit issues on that same stream.
+        bg_fns: Dict[Tuple[Tuple[int, int], int], Tuple[Callable, object]] = {}
+        bg_meshes: Dict[Tuple[int, int, int], object] = {}
+        slot_devices: Dict[int, int] = defaultdict(int)
+        lazy_builds: List[Tuple[Tuple[int, int], int]] = []
+
+        def build_bg_fn(chunk: Tuple[int, int],
+                        slot: int) -> Optional[Tuple[Callable, object]]:
+            fn = bg_fns.get((chunk, slot))
+            if fn is not None:
+                return fn
+            if slot >= len(roster):
+                return None
+            cs, ce = chunk
+            model = quanta[slot]
+            if (ce - cs) % model:
+                return None  # scheduler never emits this; belt-and-braces
+            mesh = bg_meshes.get((cs, ce, model))
+            if mesh is None:
+                mesh = submesh_from_range(cs, ce, model=model, devices=devs,
+                                          ids=self.device_ids)
+                bg_meshes[(cs, ce, model)] = mesh
+            tnt = roster[slot]
+
+            def build(t=tnt, m=mesh, combo=(chunk, slot)):
+                # only a REAL build marks the iteration as a build warm-up
+                # — a warm-cache hit costs nothing and must not make
+                # run_iter discard the iteration's QoS measurements
+                lazy_builds.append(combo)
+                own = _dc_replace(m, stream=priority_stream(m.device, urgent=False))
+                return t.step_fn_factory(own), own.stream
+
+            if self.cache is not None:
+                key = ExecutableCache.key(tnt.cache_signature, mesh)
+                fn = self.cache.get_or_build(key, build)
+            else:
+                fn = build()
+            bg_fns[(chunk, slot)] = fn
+            return fn
+
+        for si, slots in split.bg_tenants.items():
+            for pos, entry in enumerate(slots):
+                if pos >= n_slots or entry is None:
+                    continue
+                bg_meshes[(entry[0][0], entry[0][1], quanta[pos])] = entry[1]
+                build_bg_fn(entry[0], pos)  # canonical owner pre-builds
+
+        # warm-up outside the timed region (cache hits re-warm too: one
+        # step is cheap and keeps first-iteration timing honest)
+        for fn in fg_fns:
+            _block(_issue(fn, fg_stream))
+        for bf, bs in bg_fns.values():
+            _block(_issue(bf, bs))
+
+        def run_iter(collocate: bool):
+            rows = (
+                self._schedule_detail(n_slots, bg_model,
+                                      iteration=self._round, roster=roster)
+                if collocate else []
+            )
+            by_stage: Dict[int, List[Tuple[int, int, Tuple[int, int], int]]] = (
+                defaultdict(list))
+            for si, slot, pos, c, n, _t in rows:
+                by_stage[si].append((slot, pos, c, n))
+            # per-tenant pacing: each tenant's slice is its own chunk of
+            # positions on its own stream, so the in-flight bound
+            # (non-preemptive tail control) applies per tenant, not across
+            # them
+            inflight: Dict[int, List[Tuple[int, object]]] = {
+                s: [] for s in range(n_slots)
+            }
+            launched_by = [0] * n_slots
+            stage_dts = [0.0] * len(fg_fns)
+            builds_before = len(lazy_builds)
+            t_start = time_fn()
+            for si, fn in enumerate(fg_fns):
+                op = f"stage{si}"
+                for slot, pos, chunk, n_bg in sorted(by_stage.get(si, ())):
+                    built = build_bg_fn(chunk, slot)  # lazy for rotated combos
+                    if built is None:
+                        continue
+                    bf, bs = built
+                    q = inflight[slot]
+                    for _ in range(n_bg):
+                        while len(q) >= self.cfg.max_inflight:
+                            _block(q.pop(0)[1])  # launch pacing
+                        q.append((si, _issue(bf, bs)))
+                        launched_by[slot] += 1
+                # completed steps no longer interfere — drop them so a slow
+                # stage doesn't ban origins whose work already finished
+                outstanding = set()
+                for q in inflight.values():
+                    q[:] = [(o, f) for o, f in q if not _future_done(f)]
+                    outstanding.update(o for o, _ in q)
+                t0 = time_fn()
+                _block(_issue(fn, fg_stream))
+                dt = time_fn() - t0
+                stage_dts[si] = dt
+                compiled = len(lazy_builds) > builds_before
+                if not collocate:
+                    prev = self.monitor.baseline.get(op)
+                    self.monitor.record_baseline(
+                        op, dt if prev is None else min(prev, dt)
+                    )
+                elif not compiled:
+                    # an iteration that lazily built a rotated combo is a
+                    # warm-up sample: its stage times include the build +
+                    # state-replica setup, which must not feed the slowdown
+                    # feedback (it would ban every collocated stage and shut
+                    # collocation off for the rest of the run)
+                    self.monitor.record(op, dt, collocated=bool(outstanding))
+                    # non-preemptive bg tails harm *later* stages, not the
+                    # gap they were launched into — attribute the overrun to
+                    # the originating gap ops so the feedback loop converges
+                    if (self.cfg.use_feedback and outstanding
+                            and self.monitor.slowdown(op)
+                            > self.monitor.slowdown_threshold):
+                        self.monitor.banned.update(
+                            f"stage{o}" for o in outstanding
+                        )
+            for q in inflight.values():
+                for _, f in q:
+                    _block(f)
+            if collocate:
+                # fair sharing: book per-slot launches into the deficit
+                # counters and advance the rotation round
+                self.note_launched(launched_by, roster)
+            return (time_fn() - t_start, launched_by, rows, stage_dts,
+                    len(lazy_builds) > builds_before)
+
+        iso = [run_iter(False)[0] for _ in range(max(1, iterations))]
+        fg_iso = min(iso)
+        col: List[Tuple[float, int]] = []
+        col_by_tenant: List[List[int]] = []
+        col_bg_busy: List[float] = []
+        slot_stages_ran: Dict[int, set] = defaultdict(set)
+        col_stage_min: Dict[int, float] = {}
+
+        def col_iter() -> None:
+            t, launched_by, rows, stage_dts, compiled = run_iter(True)
+            col.append((t, sum(launched_by)))
+            col_by_tenant.append(launched_by)
+            # bg device-seconds and per-tenant device footprint come from
+            # the rows actually dispatched this iteration (not from every
+            # chunk a rotation *candidate* could have held)
+            col_bg_busy.append(sum(
+                n * bg_t * (ce - cs) for _si, _sl, _p, (cs, ce), n, bg_t in rows
+            ))
+            for si, slot, _pos, (cs, ce), _n, _t in rows:
+                slot_stages_ran[slot].add(si)
+                slot_devices[slot] = max(slot_devices[slot], ce - cs)
+                if not compiled:
+                    col_stage_min[si] = min(
+                        col_stage_min.get(si, float("inf")), stage_dts[si]
+                    )
+            # iteration-level watchdog: per-op feedback only bans ops whose
+            # own slowdown crosses the threshold, but many sub-threshold
+            # inflations can still break the iteration bound — ban every
+            # origin that collocated in an over-bound iteration.  Warm-up
+            # iterations (a rotated combo built lazily mid-iteration) are
+            # exempt: their time is build + state setup, not interference
+            if (self.cfg.use_feedback and rows and not compiled
+                    and t > self.monitor.slowdown_threshold * fg_iso):
+                self.monitor.banned.update(
+                    f"stage{s}" for s, _, _, _, _, _ in rows
+                )
+
+        for _ in range(max(1, iterations)):
+            col_iter()
+        # settled phase: keep iterating until the feedback loop stops
+        # learning (an iteration adds no new bans), so the measurement
+        # includes the converged steady state the QoS mechanism promises
+        # (bounded fg slowdown), not just the learning phase
+        for _ in range(len(fg_fns)):
+            before = set(self.monitor.banned)
+            col_iter()
+            if set(self.monitor.banned) == before:
+                break
+        # extra steady-state samples: the post-convergence min is the QoS
+        # claim under test, so give it more than one draw against host
+        # timing noise
+        for _ in range(2):
+            col_iter()
+        # drift control: re-measure the isolated baseline now that the
+        # collocated phase is done; min(col) is compared against the slower
+        # of the before/after baselines so a host that slowed down (or sped
+        # up) mid-run doesn't fake a slowdown the QoS loop never caused
+        iso_post = [run_iter(False)[0] for _ in range(max(1, iterations))]
+        fg_iso = max(fg_iso, min(iso_post))
+        fg_col = min(t for t, _ in col)
+        bg_steps = sum(n for _, n in col) / len(col)
+        # per-gap-stage measured slowdown: collocated per-stage min against
+        # the isolated per-stage baseline (per-stage calibration input).
+        # Raw ratios — calibrate() clamps to >= 1.0 when fitting.
+        stage_slowdowns = tuple(
+            (si, col_stage_min[si] / self.monitor.baseline[f"stage{si}"])
+            for si in sorted(col_stage_min)
+            if self.monitor.baseline.get(f"stage{si}", 0.0) > 0.0
+        )
+        # measured cluster throughput in plan-time units: planned fg busy
+        # over the slowdown-inflated iteration, plus the bg device-seconds
+        # of the rows actually dispatched (per-row step-time quantum x its
+        # own chunk width, averaged over the collocated iterations)
+        slowdown = fg_col / max(fg_iso, 1e-30)
+        fg_busy = sum(s.duration * s.gpus for s in stages)
+        bg_busy = sum(col_bg_busy) / len(col_bg_busy)
+        cluster = (fg_busy + bg_busy) / max(
+            self.plan.total_time * slowdown * self.plan.num_gpus, 1e-30
+        )
+        tenant_rows = tuple(
+            TenantResult(
+                job=t.job, priority=t.priority,
+                bg_steps_per_iter=(
+                    sum(row[slot] for row in col_by_tenant) / len(col_by_tenant)
+                ),
+                bg_throughput=(
+                    sum(row[slot] for row in col_by_tenant)
+                    / len(col_by_tenant) / max(fg_col, 1e-30)
+                ),
+                gap_stages=tuple(sorted(slot_stages_ran.get(slot, ()))),
+                devices=slot_devices.get(slot, 0),
+                weight=t.weight,
+                deficit=self._deficits[slot],
+                quantum=quanta[slot],
+                step_time=(self._last_step_t[slot]
+                           if slot < len(self._last_step_t)
+                           else self.bg_step_quantum),
+            )
+            for slot, t in enumerate(roster)
+        )
+        res = CollocationResult(
+            fg_iter_time=fg_col,
+            fg_iter_time_isolated=fg_iso,
+            fg_slowdown=slowdown,
+            bg_steps_per_iter=bg_steps,
+            bg_throughput=bg_steps / max(fg_col, 1e-30),
+            iterations=len(col),
+            banned_ops=tuple(sorted(self.monitor.banned)),
+            iter_details=tuple((t, n) for t, n in col),
+            tenants=tenant_rows,
+            cache_hits=(self.cache.hits - hits0) if self.cache else 0,
+            cache_misses=(self.cache.misses - miss0) if self.cache else 0,
+            stage_slowdowns=stage_slowdowns,
+            cluster_throughput=cluster,
+        )
+        res.jain_index = res.jain_fairness()
+        return res
 
     def run_iteration(self, fg_stage_fns: List[Callable], bg_step_fn: Callable,
                       time_fn: Callable[[], float]) -> Dict[str, float]:
-        """The reference's legacy dispatch harness; waits for executable
-        gap multiplexing (ROADMAP Queue 1, item 9)."""
-        raise NotImplementedError(
-            "Collocator.run_iteration: executable gap multiplexing is not ported "
-            "yet (ROADMAP Queue 1, item 9)")
+        """Execute one fg iteration, filling gaps with bg steps (real
+        dispatch, used by examples + small-scale tests).  The callables own
+        their streams, so each returns what ``_block`` waits on: the
+        ``torch.cuda.Event`` recorded after its work, a CPU tensor, or any
+        other object (counted as still outstanding)."""
+        sched = dict(self.schedule())
+        inflight: List = []
+        t_start = time_fn()
+        for si, fn in enumerate(fg_stage_fns):
+            op = f"stage{si}"
+            n_bg = sched.get(si, 0)
+            for _ in range(n_bg):
+                while len(inflight) >= self.cfg.max_inflight:
+                    inflight.pop(0)()  # block on oldest (pacing)
+                fut = bg_step_fn()
+                inflight.append(lambda f=fut: _block(f))
+            t0 = time_fn()
+            out = fn()
+            _block(out)
+            dt = time_fn() - t0
+            if op not in self.monitor.baseline:
+                self.monitor.record_baseline(op, dt)
+            self.monitor.record(op, dt, collocated=n_bg > 0)
+        for f in inflight:
+            f()
+        return {"iter_time": time_fn() - t_start}
 
 
 def _stage_densities(detail) -> Dict[int, float]:
@@ -1258,3 +1669,41 @@ def _fit_density_slope(measured, prior: float) -> float:
     if b0 <= 1e-9 or b1 <= 0.0:
         return 0.0
     return min(10.0, b1 / b0)
+
+
+def _issue(fn: Callable, stream):
+    """Call ``fn`` on ``stream`` and return what ``_block`` waits on: the
+    event recorded on the stream right after the call (CUDA), or the
+    call's own result (the CPU, where a slice has no stream)."""
+    with torch.cuda.stream(stream):  # no-op for None
+        out = fn()
+    if stream is None:
+        return out
+    done = torch.cuda.Event()
+    done.record(stream)
+    return done
+
+
+def _block(x):
+    """Wait for a dispatched result: an event is synchronised (that stream
+    alone, never the device), a CPU tensor is ready, and any other object is
+    returned as it is (``_future_done`` counts it as still outstanding).
+    A CUDA tensor without its event cannot be waited on here: the
+    caller's stream is unknown, and ``torch.cuda.synchronize()`` would time
+    every other stream's work into this one."""
+    if isinstance(x, torch.cuda.Event):
+        x.synchronize()
+    elif isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        raise ValueError(
+            f"_block: a {x.device} tensor without the torch.cuda.Event recorded on its "
+            "stream after the dispatch")
+    return x
+
+
+def _future_done(x) -> bool:
+    """True when a dispatched bg result has already completed (an event
+    that has been reached, a CPU tensor); unknown objects count as still
+    outstanding."""
+    if isinstance(x, torch.cuda.Event):
+        return bool(x.query())
+    return isinstance(x, torch.Tensor) and x.device.type == "cpu"

@@ -6,7 +6,8 @@ The port of ``repro/models/api.py``.  ``get_model(cfg)`` returns a
 and the ``mamba2`` hybrid family (training and decode; no ``prefill``, as
 in the reference) are ported; every other family raises.
 ``layer_graph(shape)`` is the model's burst-planner graph;
-``train_input_specs`` is one training batch as ``meta``-device tensors.
+``train_input_specs`` is one training batch as ``meta``-device tensors;
+``make_batch`` a random one.
 """
 from __future__ import annotations
 
@@ -88,3 +89,19 @@ def train_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     B, S = shape.global_batch, shape.seq_len
     spec = lambda: torch.empty((B, S), dtype=torch.long, device="meta")  # noqa: E731
     return {"tokens": spec(), "labels": spec()}
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int, generator: torch.Generator,
+               device: DeviceLike = None) -> dict:
+    """Concrete random batch at smoke scale: uniform token ids and
+    independent uniform labels, int64, from ``generator`` (which lives on
+    ``device``).  The reference draws the same distribution from a JAX
+    key; encoder-decoder and vision batches are not ported yet (ROADMAP
+    Queue 1, item 10)."""
+    if cfg.num_encoder_layers or cfg.frontend == "vision":
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder and vision batches are not ported yet "
+            "(ROADMAP Queue 1, item 10)")
+    draw = lambda: torch.randint(0, cfg.vocab_size, (batch, seq), generator=generator,  # noqa: E731
+                                 device=device)
+    return {"tokens": draw(), "labels": draw()}

@@ -97,8 +97,9 @@ def adamw(
         return {
             "m": tree_map(zeros, params),
             "v": tree_map(zeros, params),
-            "count": torch.zeros((), dtype=torch.int32,
-                                 device=tree_leaves(params)[0].device),
+            # on the host: the schedule reads it every update, and reading
+            # a device scalar would wait for the step's stream each time
+            "count": torch.zeros((), dtype=torch.int32),
         }
 
     @torch.no_grad()

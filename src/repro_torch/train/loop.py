@@ -7,10 +7,18 @@ failure (``RuntimeError``/``ValueError``/``FloatingPointError``, at most
 ``max_failures`` times) and straggler logging from EMA deadlines.
 
 The reference's mesh argument is gone: the state lives on ``device``
-(default: the card).  Background multiplexing, the coordinator, the
-heartbeat, the transport, the control loop, the lease, applied
-reconfiguration and continuous admission wait for their layers; setting
-any of them raises ``NotImplementedError`` naming the ROADMAP item.
+(default: the card).  Multiplexing (``TrainConfig.bg_step_fn``): once the
+foreground step is issued, ``multiplex.max_inflight`` background steps are
+dispatched while it runs, then the loop waits on the foreground loss.
+With background work the foreground's state, data and step live on a
+stream of their own, of the greatest priority when
+``multiplex.use_priorities`` (CUDA's default stream has the least), so
+``float(loss)`` waits for the foreground stream alone; each background
+step issues on its own stream (``train.step.bg_step_factory``).  The
+coordinator, the heartbeat, the transport, the control loop, the lease,
+applied reconfiguration and continuous admission wait for their layers;
+setting any of them raises ``NotImplementedError`` naming the ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -20,18 +28,19 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._device import DeviceLike, priority_stream, resolve_device
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.multiplex import MultiplexConfig
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.dist.faults import MitigationLog, StepTimer
 from repro_torch.models.api import get_model
+from repro_torch.models.layers import tree_leaves
 from repro_torch.optim.optimizer import make_optimizer
 from repro_torch.train.state import init_state
 from repro_torch.train.step import make_train_step
 
 _WAITING = {  # TrainConfig field -> the ROADMAP item it waits for
-    "bg_step_fn": "Queue 1, item 9 (executable gap multiplexing)",
     "coordinator": "Queue 1, item 12 (control plane)",
     "heartbeat": "Queue 1, item 12 (control plane)",
     "transport": "Queue 1, item 12 (control plane)",
@@ -52,8 +61,9 @@ class TrainConfig:
     log_every: int = 5
     max_failures: int = 3
     straggler_factor: float = 3.0
+    bg_step_fn: Optional[Callable] = None  # multiplexed background work
+    multiplex: MultiplexConfig = field(default_factory=MultiplexConfig)
     # not ported yet: each raises NotImplementedError when set (see _WAITING)
-    bg_step_fn: Optional[Callable] = None
     coordinator: Optional[Any] = None
     heartbeat: Optional[Any] = None
     transport: Optional[Any] = None
@@ -70,6 +80,7 @@ class TrainReport:
     losses: list = field(default_factory=list)
     step_times: list = field(default_factory=list)
     mitigations: MitigationLog = field(default_factory=MitigationLog)
+    bg_steps: int = 0
     state: Any = None  # the train state after the last step
 
 
@@ -97,47 +108,69 @@ def train(cfg: ModelConfig, shape: ShapeConfig, tc: TrainConfig,
         data.restore(meta.get("data", {"seed": tc.seed, "step": meta["step"]}))
         return state, meta["step"]
 
-    data = SyntheticLMData(cfg, shape.global_batch, shape.seq_len, seed=tc.seed,
-                           device=dev)
-    try:
-        if tc.ckpt_dir and ckpt_lib.latest_step(tc.ckpt_dir) is not None:
-            state, step = restore_latest()
-            report.restarts += 1
-        else:
-            state, step = fresh_state(), 0
-        failures = 0
-        while step < tc.steps:
-            try:
-                if fault_injector is not None:
-                    fault_injector(step)
-                batch = next(data)
-                t0 = time.perf_counter()
-                state, metrics = step_fn(state, batch)
-                loss = float(metrics["loss"])  # waits for the step
-                dt = time.perf_counter() - t0
-                timer.record(dt)
-                if timer.is_straggler_step(dt):
-                    report.mitigations.log("straggler", step=step, dt=dt)
-                report.losses.append(loss)
-                report.step_times.append(dt)
-                step += 1
-                report.steps_done += 1
-                if tc.ckpt_dir and step % tc.ckpt_every == 0:
-                    ckpt_lib.save(tc.ckpt_dir, state, step, keep=tc.keep,
-                                  extra_meta={"data": data.state()}, async_=False)
-            except (RuntimeError, ValueError, FloatingPointError) as e:
-                failures += 1
-                report.mitigations.log("failure", step=step, err=repr(e)[:200])
-                if failures > tc.max_failures:
-                    raise
-                # fail-stop: restart from the last checkpoint (or fresh if none)
-                if tc.ckpt_dir and ckpt_lib.latest_step(tc.ckpt_dir) is not None:
-                    state, step = restore_latest()
-                else:
-                    state, step = fresh_state(), 0
-                    data.restore({"seed": tc.seed, "step": 0})
+    # the foreground's own stream when background work shares the card
+    # (None on the CPU, and without background work: the current stream)
+    fg_stream = (priority_stream(dev, urgent=tc.multiplex.use_priorities)
+                 if tc.bg_step_fn is not None else None)
+    with torch.cuda.stream(fg_stream):  # no-op for None
+        # on fg_stream too: the state, and each batch's copy to the card,
+        # are ordered before the steps that read them
+        data = SyntheticLMData(cfg, shape.global_batch, shape.seq_len, seed=tc.seed,
+                               device=dev)
+        try:
+            if tc.ckpt_dir and ckpt_lib.latest_step(tc.ckpt_dir) is not None:
+                state, step = restore_latest()
                 report.restarts += 1
-    finally:
-        data.close()
+            else:
+                state, step = fresh_state(), 0
+            failures = 0
+            while step < tc.steps:
+                try:
+                    if fault_injector is not None:
+                        fault_injector(step)
+                    batch = next(data)
+                    t0 = time.perf_counter()
+                    state, metrics = step_fn(state, batch)
+                    # multiplexing: dispatch paced background steps while the
+                    # foreground step is in flight (asynchronous issue)
+                    if tc.bg_step_fn is not None:
+                        for _ in range(tc.multiplex.max_inflight):
+                            tc.bg_step_fn()
+                            report.bg_steps += 1
+                    loss = float(metrics["loss"])  # waits for the step's stream
+                    dt = time.perf_counter() - t0
+                    timer.record(dt)
+                    if timer.is_straggler_step(dt):
+                        report.mitigations.log("straggler", step=step, dt=dt)
+                    report.losses.append(loss)
+                    report.step_times.append(dt)
+                    step += 1
+                    report.steps_done += 1
+                    if tc.ckpt_dir and step % tc.ckpt_every == 0:
+                        ckpt_lib.save(tc.ckpt_dir, state, step, keep=tc.keep,
+                                      extra_meta={"data": data.state()}, async_=False)
+                except (RuntimeError, ValueError, FloatingPointError) as e:
+                    failures += 1
+                    report.mitigations.log("failure", step=step, err=repr(e)[:200])
+                    if failures > tc.max_failures:
+                        raise
+                    # fail-stop: restart from the last checkpoint (or fresh if none)
+                    if tc.ckpt_dir and ckpt_lib.latest_step(tc.ckpt_dir) is not None:
+                        state, step = restore_latest()
+                    else:
+                        state, step = fresh_state(), 0
+                        data.restore({"seed": tc.seed, "step": 0})
+                    report.restarts += 1
+        finally:
+            data.close()
+    if fg_stream is not None:
+        # the caller's stream sees the final state only after the last step,
+        # and the state's blocks, allocated on fg_stream, are not reused
+        # while work the caller queues on its own stream may still read them
+        caller = torch.cuda.current_stream(dev)
+        caller.wait_stream(fg_stream)
+        for t in tree_leaves(state):
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                t.record_stream(caller)
     report.state = state
     return report

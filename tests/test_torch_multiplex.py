@@ -5,8 +5,8 @@ reference's, on the CPU.
 admission on seeded tenant rosters, the coordinator's elasticity round
 trip and admission, and ``verify_plan`` on mutated plans.  All of it is
 pure Python in both packages, so every field must be equal (floats
-exactly).  The executable path raises in the port, naming its ROADMAP
-item.
+exactly).  The executable path is held against the reference in
+``tests/test_torch_collocation.py``.
 """
 import dataclasses
 import random
@@ -238,18 +238,33 @@ def test_coordinator_admission_and_churn():
 
 
 def test_executable_path_raises_with_its_roadmap_item():
+    """The executable path runs on 8 CPU positions (the reference's
+    results, field for field, are in ``tests/test_torch_collocation.py``);
+    only a step over more than one card still raises, naming item 11."""
+    import torch
+
+    from repro_torch.launch.mesh import submesh_from_range
+
     _, port_plan = _plans("vgg16@8")
-    col = mx.Collocator(port_plan, mx.MultiplexConfig())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        col.submeshes()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        col.run_executable(lambda stage, mesh: None, lambda mesh: None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        col.run_iteration([], lambda: None, lambda: 0.0)
+    cpu8 = [torch.device("cpu")] * 8
+    col = mx.Collocator(port_plan, mx.MultiplexConfig(), devices=cpu8)
+    split = col.submeshes()
+    assert split.fg_range == (0, 8) and split.bg
+    res = col.run_executable(lambda stage, mesh: (lambda: None),
+                             lambda mesh: (lambda: None), iterations=1)
+    assert res.iterations > 0 and [t.job for t in res.tenants] == ["bg0"]
+    assert col.run_iteration([lambda: None] * len(port_plan.stages()), lambda: None,
+                             lambda: 0.0) == {"iter_time": 0.0}
     c = coordinator.ClusterCoordinator(8, costmodel.A100)
     c.submit_foreground(coordinator.Job("fg", "foreground", graph.build_vgg_graph(VGG, 32)))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        c.collocate(executable=True, make_fg_stage_fn=lambda s, m: None)
+    got = c.collocate(mx.MultiplexConfig(collocate_same_device=True), executable=True,
+                      make_fg_stage_fn=lambda s, m: (lambda: None),
+                      make_bg_step_fn=lambda m: (lambda: None), iterations=1, device="cpu")
+    assert isinstance(got, mx.CollocationResult) and got.iterations > 0
+    two_cards = submesh_from_range(0, 2, devices=[torch.device("cuda", 0),
+                                                  torch.device("cuda", 1)])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        two_cards.device  # noqa: B018
 
 
 def test_coordinator_evicts_by_cuda_device_count(monkeypatch):

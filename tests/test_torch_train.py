@@ -246,7 +246,7 @@ def test_loop_loss_decreases_and_gives_up_after_max_failures():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("bg_step_fn", lambda: None), ("coordinator", object()), ("heartbeat", object()),
+    ("coordinator", object()), ("heartbeat", object()),
     ("transport", object()), ("control_loop", object()), ("lease", object()),
     ("apply_reconfig", True), ("admit_every", 5)])
 def test_loop_refuses_unported_options(field, value):
