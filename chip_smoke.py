@@ -149,14 +149,52 @@ the flash kernels at the background tenants' shapes):
      ``ContinuousScheduler(admission=ServingAdmission(...))`` with phase
      5's prefill and decode-step times and a TTFT SLO of 1.5x the prefill:
      every request gets its budget, no page leaks; ``admission_deferrals``.
+Slice 6, the MoE family, the logit softcap, Adafactor and recurrent
+serving (after 8d; weights of the served models drawn straight into bf16
+on the card, ``ModelAPI.init(..., dtype=)``):
+  9a. softcap — the capped flash kernels, forward and backward, both
+     routes, against autograd through ``flash_attention_plain(softcap=)``:
+     caps 30 and 5, S in {1, 64, 129, 1000, 2048}, causal / window 96 /
+     non-causal with Sq != Skv, heads 48/8 and 32/4, every d_head, both
+     dtypes (``TOL`` for the forward, ``FLASH_BWD_TOL`` for o, dq, dk, dv);
+     then forward and backward times at grok-1's shape (1 x 4096, 48/8
+     heads of 128, causal, cap 30) beside the same kernels without the cap,
+     the plain version and the bound (no PyTorch call computes softcap
+     attention); two backward calls bit-identical.
+  9b. moe model — qwen3-moe-30b-a3b at full width cut to 4 layers: a
+     1000-token prefill through the flash kernel (32 over 4 heads of 128)
+     against the plain attention path (``MODEL_RTOL``, same argmax; 4
+     forward launches).
+  9c. moe slice — qwen3-moe-30b-a3b at full width and depth (48 layers,
+     30.53 B params) serves phase 5's trace on 4 lanes of 2176 tokens and
+     545 16-token pages: token counts equal budgets, no page leaks, one
+     forward launch per prefill and layer, tokens in the vocabulary, peak
+     memory below 79 GiB; device time by kernel over a 2048-token prefill
+     and 8 decode ticks of 4 lanes; then ``ServingEngine.generate`` on 4 x
+     512 prompts and 32 new tokens (finite prefill logits, token counts).
+  9d. grok — grok-1-314b at full width cut to 4 layers (softcap 30): the
+     9b check through the capped kernel, then ``ServingEngine.generate`` on
+     2 x 256 prompts and 16 new tokens.
+  9e. recurrent serving — rwkv6-1.6b and zamba2-2.7b at full width and
+     depth through ``ServingEngine``: 4 x 256 prompts fed token by token,
+     32 new tokens; the last prefill logits against ``forward`` (the
+     chunked WKV-6 / SSD kernels and flash at d=80, which must launch).
+  9f. big train — qwen3-moe-30b-a3b (AdamW) and qwen2-72b (Adafactor) at
+     full width cut to 2 layers, 20 steps of 1 x 4096 through
+     ``train.loop.train``: finite, falling losses, flash launches per step
+     and layer; one profiled step each, which must run
+     ``flash_fwd_sm90<128>`` and both ``flash_bwd_*_sm90``; ``moe_aux``
+     finite (and zero for the dense model).
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
 true, "device": {...}}``; the line before it is the kernels' JSON record
 (six kernels: flash forward and backward, WKV-6 forward and backward, SSD
 forward and backward; the flash records carry their times at the
-qwen2-1.5b shape under ``qwen2`` and their launches by path, the
-multiplexed foreground and the background tenants among them); the line
+qwen2-1.5b shape under ``qwen2``, at grok-1's shape with the cap under
+``softcap`` (with ``capless_ms``), their launches by path, the
+multiplexed foreground, the background tenants and the MoE paths among
+them, and under ``checked_launches`` those of the 9a sweep); the line
 before that is ``card: ...``, and before it ``planning: {...}`` (the
 measured launch overhead and kind ratios).  Imports ``torch``, ``numpy``
 and ``repro_torch`` only.
@@ -164,6 +202,7 @@ and ``repro_torch`` only.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -778,14 +817,17 @@ def _attn_grads(fn, q, k, v, do, causal, window):
     return [o.detach(), *torch.autograd.grad(o, leaves, do)]
 
 
-def _flash_times(sl, seed):
+def _flash_times(sl, seed, softcap=0.0):
     """Forward and backward times of the flash kernels at shape ``sl``
-    (bf16, causal, window ``sl["window"]``) beside the plain version,
-    ``scaled_dot_product_attention`` (autograd through it for the
-    backward) and the card's bound; fails unless two backward calls give
-    bit-identical dq, dk, dv and the output and gradients agree with
-    autograd through ``flash_attention_plain`` (``FLASH_BWD_TOL``).  Returns ((fwd record, bwd record), the
-    determinism flags, the backward's max abs err against SDPA's)."""
+    (bf16, causal, window ``sl["window"]``, logit cap ``softcap``) beside
+    the plain version, ``scaled_dot_product_attention`` (autograd through
+    it for the backward; with a cap, which no PyTorch call computes, the
+    same kernels without the cap instead) and the card's bound; fails
+    unless two backward calls give bit-identical dq, dk, dv and the output
+    and gradients agree with autograd through ``flash_attention_plain``
+    (``FLASH_BWD_TOL``).  Returns ((fwd record, bwd record), the
+    determinism flags, the backward's max abs err against SDPA's, or None
+    with a cap)."""
     import torch
     import torch.nn.functional as F
 
@@ -795,32 +837,44 @@ def _flash_times(sl, seed):
     q, k, v = _inputs(B, S, S, H, KV, d, "bfloat16", seed=seed)
     do = torch.randn(q.shape, device="cuda").to(q.dtype)
     gqa = dict(enable_gqa=True) if H != KV else {}
+    cap = dict(softcap=softcap)
     with torch.no_grad():
-        fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=W))
+        fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=W, **cap))
         plain_fwd_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
-                                                                 window=W), reps=3)
-        lib_fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, **gqa))
+                                                                 window=W, **cap), reps=3)
+        if softcap:
+            lib_fwd_ms = None
+            capless_fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=W))
+        else:
+            lib_fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                **gqa))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    o = fa.flash_attention(*leaves, causal=True, window=W)
+    o = fa.flash_attention(*leaves, causal=True, window=W, **cap)
     bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
     again = torch.autograd.grad(o, leaves, do, retain_graph=True)
     got = [o.detach(), *torch.autograd.grad(o, leaves, do)]
     same = [torch.equal(a, b) for a, b in zip(again, got[1:])]
-    print(f"flash backward determinism at B={B} S={S} H={H} KV={KV} d={d}: two calls give "
-          f"bit-identical dq, dk, dv: {same}", flush=True)
+    print(f"flash backward determinism at B={B} S={S} H={H} KV={KV} d={d} softcap={softcap}: "
+          f"two calls give bit-identical dq, dk, dv: {same}", flush=True)
     if not all(same):
         fail("flash backward is not deterministic: two calls differ")
     del o, again
-    lt = [t.transpose(1, 2) for t in leaves]  # (B, heads, S, d) views
-    o = F.scaled_dot_product_attention(*lt, is_causal=True, **gqa)
-    dot = do.transpose(1, 2)
-    lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
-    lib = torch.autograd.grad(o, leaves, dot)
-    lib_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], lib))
-    del o, lib
+    lib_err = lib_bwd_ms = None
+    if softcap:
+        o = fa.flash_attention(*leaves, causal=True, window=W)
+        capless_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+        del o
+    else:
+        lt = [t.transpose(1, 2) for t in leaves]  # (B, heads, S, d) views
+        o = F.scaled_dot_product_attention(*lt, is_causal=True, **gqa)
+        dot = do.transpose(1, 2)
+        lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
+        lib = torch.autograd.grad(o, leaves, dot)
+        lib_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], lib))
+        del o, lib
     torch.cuda.empty_cache()
-    o = fa.flash_attention_plain(*leaves, causal=True, window=W)
+    o = fa.flash_attention_plain(*leaves, causal=True, window=W, **cap)
     plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
                             reps=3, warmup=1)
     want = [o.detach(), *torch.autograd.grad(o, leaves, do)]
@@ -828,10 +882,12 @@ def _flash_times(sl, seed):
     # the timed kernels against the plain version on the same inputs, as the
     # sweep of phase 3d holds them
     worst, used = {"bfloat16": 0.0}, {"bfloat16": 0.0}
-    _check_close(f"timed shape B={B} S={S} H={H} KV={KV} d={d} window={W} bfloat16",
+    _check_close(f"timed shape B={B} S={S} H={H} KV={KV} d={d} window={W} softcap={softcap} "
+                 "bfloat16",
                  ["o", "dq", "dk", "dv"], got, want, FLASH_BWD_TOL["bfloat16"], worst, used,
                  {"bfloat16": ""}, "bfloat16", rel_to_max=True)
-    print(f"flash forward and backward at B={B} S={S} H={H} KV={KV} d={d} match autograd "
+    print(f"flash forward and backward at B={B} S={S} H={H} KV={KV} d={d} softcap={softcap} "
+          "match autograd "
           f"through flash_attention_plain: max abs err {worst['bfloat16']:.3g}, largest "
           f"share of an element's tolerance {used['bfloat16']:.3g} (bf16 tol (max|plain| + "
           f"|plain|), tol {FLASH_BWD_TOL['bfloat16']})", flush=True)
@@ -850,18 +906,25 @@ def _flash_times(sl, seed):
             ("flash_attention_bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, bwd_bytes, bwd_ops)):
         t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["bfloat16"]
         bound_by = "operations" if t_o >= t_b else "bytes"
-        print(f"{name} B={B} S={S} H={H} KV={KV} d={d} bf16 causal: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   timed_shape_max_abs_err=worst["bfloat16"],
+                   timed_shape_tol_share=used["bfloat16"],
+                   bound_ms=max(t_b, t_o) * 1e3, bound_by=bound_by, shape=dict(sl))
+        if softcap:  # no library call; the capless kernel beside it, same bound
+            rec.update(softcap=softcap,
+                       capless_ms=capless_fwd_ms if name.endswith("fwd") else capless_bwd_ms)
+            beside = f"same kernel without the cap {rec['capless_ms']:.4f} ms, library none"
+        else:
+            beside = f"sdpa {lib_ms:.4f} ms"
+        print(f"{name} B={B} S={S} H={H} KV={KV} d={d} bf16 causal softcap={softcap}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {beside}, bound "
               f"{max(t_b, t_o) * 1e3:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB); {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
-        records.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            timed_shape_max_abs_err=worst["bfloat16"],
-                            timed_shape_tol_share=used["bfloat16"],
-                            bound_ms=max(t_b, t_o) * 1e3, bound_by=bound_by, shape=dict(sl),
-                            **_rate(f"{name} (B={B} S={S} H={H} KV={KV} d={d})", ops, ms,
-                                    max(t_b, t_o) * 1e3)))
-    print(f"flash backward vs sdpa backward at B={B} S={S} H={H} KV={KV} d={d}: max abs err "
-          f"{lib_err:.3g}", flush=True)
+        records.append(dict(**rec, **_rate(f"{name} (B={B} S={S} H={H} KV={KV} d={d} "
+                                           f"softcap={softcap})", ops, ms, max(t_b, t_o) * 1e3)))
+    if lib_err is not None:
+        print(f"flash backward vs sdpa backward at B={B} S={S} H={H} KV={KV} d={d}: max abs "
+              f"err {lib_err:.3g}", flush=True)
     return records, same, lib_err
 
 
@@ -911,7 +974,7 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
     B, S, H, KV, d, W = (sl[x] for x in ("B", "S", "H", "KV", "d", "window"))
     q, k, v = _inputs(B, S, S, H, KV, d, "bfloat16", seed=77)
     with torch.no_grad():
-        o, lse = fa._forward(q, k, v, True, W, want_lse=True)
+        o, lse = fa._forward(q, k, v, True, W, 0.0, want_lse=True)
         want_o, want_lse = fa.flash_attention_plain(q, k, v, causal=True, window=W,
                                                     return_lse=True)
     torch.cuda.synchronize()
@@ -1083,10 +1146,10 @@ class _FlashShapes:
 
         self.fa, self.orig = fa, fa._forward
 
-        def recording(q, k, v, causal, window, want_lse):
+        def recording(q, k, v, causal, window, softcap, want_lse):
             self.seen.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
                            q.shape[3], str(q.dtype).split(".")[-1], bool(causal), int(window)))
-            return self.orig(q, k, v, causal, window, want_lse)
+            return self.orig(q, k, v, causal, window, softcap, want_lse)
 
         fa._forward = recording
         return self
@@ -1733,22 +1796,51 @@ def phase_qwen_profile(state):
     data.close()
     rows = _profile(f"qwen2 train step {n['batch']} x {n['seq']}", lambda: step(state, batch),
                     top=14)
-    ran = {k: v for k, v in rows.items() if "flash_" in k}
-    print("  flash kernels in the step: " + "; ".join(
-        f"{k[:70]} x{c} {ms:.2f} ms" for k, (c, ms) in sorted(ran.items(), key=lambda x: -x[1][1])))
-    fwd128 = [k for k in ran if "flash_fwd_sm90" in k and "128" in k]
-    missing = [name for name in FLASH_SM90[1:] if not any(name in k for k in ran)]
-    if not fwd128 or missing:
-        fail(f"the qwen2 step ran no flash_fwd_sm90<128> ({fwd128}) or misses {missing}")
-    if any("f32" in k or "flash_bwd_dq<" in k or "flash_bwd_dkdv<" in k for k in ran):
-        fail(f"the qwen2 step ran an fp32 flash kernel: {sorted(ran)}")
+    _require_flash_sm90("qwen2", rows)
+
+
+def _prefill_kernel_vs_plain(cfg4, api, params, label):
+    """A 1000-token prefill through the flash kernel and through
+    ``flash_attention_plain`` (with the config's softcap) on the same
+    weights: logits within ``MODEL_RTOL`` of the largest, the same argmax,
+    one forward launch per layer and none for the plain path."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    tokens = torch.as_tensor(
+        np.random.default_rng(11).integers(0, cfg4.vocab_size, (1, 1000)), device=dev)
+    fa.launches.update(fwd=0, bwd=0)
+    via_kernel, _ = api.prefill(params, tokens, 1008)
+    if fa.launches != {"fwd": cfg4.num_layers, "bwd": 0}:
+        fail(f"{label}: 4-layer prefill launched the kernel {fa.launches} times, "
+             f"not {cfg4.num_layers} forward")
+    kernel_attention = ops.attention
+    ops.attention = lambda q, k, v, *, causal=True, window=0, softcap=0.0: (
+        fa.flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap))
+    fa.launches.update(fwd=0, bwd=0)
+    try:
+        via_plain, _ = api.prefill(params, tokens, 1008)
+    finally:
+        ops.attention = kernel_attention
+    if fa.launches != {"fwd": 0, "bwd": 0}:
+        fail(f"{label}: the plain-attention prefill launched the kernel")
+    a, b = via_kernel.float(), via_plain.float()
+    diff, scale = float((a - b).abs().max()), float(b.abs().max())
+    same = int(a.argmax()) == int(b.argmax())
+    print(f"model: {label}, 1000-token prefill logits kernel vs plain: "
+          f"max abs diff {diff:.4g} (bound {MODEL_RTOL} x max|logit| = "
+          f"{MODEL_RTOL * scale:.4g}); argmax {int(a.argmax())} vs {int(b.argmax())}",
+          flush=True)
+    if not (torch.isfinite(a).all() and diff <= MODEL_RTOL * scale and same):
+        fail(f"{label}: in-model kernel and plain prefill disagree")
 
 
 def phase_model(cfg):
     import torch
 
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.models.api import get_model
     from repro_torch.serve.engine import serving_params
 
@@ -1756,33 +1848,8 @@ def phase_model(cfg):
     api = get_model(cfg4)
     dev = torch.device("cuda")
     params = serving_params(api, api.init(torch.Generator(device=dev).manual_seed(1), dev), dev)
-    tokens = torch.as_tensor(
-        np.random.default_rng(11).integers(0, cfg.vocab_size, (1, 1000)), device=dev)
-    fa.launches.update(fwd=0, bwd=0)
-    via_kernel, _ = api.prefill(params, tokens, 1008)
-    if fa.launches != {"fwd": cfg4.num_layers, "bwd": 0}:
-        fail(f"4-layer prefill launched the kernel {fa.launches} times, "
-             f"not {cfg4.num_layers} forward")
-    kernel_attention = ops.attention
-    ops.attention = lambda q, k, v, *, causal=True, window=0, softcap=0.0: (
-        fa.flash_attention_plain(q, k, v, causal=causal, window=window))
-    fa.launches.update(fwd=0, bwd=0)
-    try:
-        via_plain, _ = api.prefill(params, tokens, 1008)
-    finally:
-        ops.attention = kernel_attention
-    if fa.launches != {"fwd": 0, "bwd": 0}:
-        fail("the plain-attention prefill launched the kernel")
-    a, b = via_kernel.float(), via_plain.float()
-    diff, scale = float((a - b).abs().max()), float(b.abs().max())
-    same = int(a.argmax()) == int(b.argmax())
-    print(f"model: llama3-8b x4 layers, 1000-token prefill logits kernel vs plain: "
-          f"max abs diff {diff:.4g} (bound {MODEL_RTOL} x max|logit| = "
-          f"{MODEL_RTOL * scale:.4g}); argmax {int(a.argmax())} vs {int(b.argmax())}",
-          flush=True)
-    if not (torch.isfinite(a).all() and diff <= MODEL_RTOL * scale and same):
-        fail("in-model kernel and plain prefill disagree")
-    del params, via_kernel, via_plain
+    _prefill_kernel_vs_plain(cfg4, api, params, "llama3-8b x4 layers")
+    del params
     torch.cuda.empty_cache()
 
 
@@ -1798,7 +1865,8 @@ def phase_slice(cfg, smi):
     dev = torch.device("cuda")
     api = get_model(cfg)
     t0 = time.perf_counter()
-    params = api.init(torch.Generator(device=dev).manual_seed(0), dev)
+    # drawn straight into the serving dtype: no fp32 copy of the model
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev, dtype=cfg.dtype)
     eng = ContinuousBatchingEngine(cfg, params, lanes=4, n_pages=545, page_tokens=16,
                                    lane_capacity=2176, device=dev)
     del params
@@ -1827,6 +1895,8 @@ def phase_slice(cfg, smi):
     if not vocab_ok:
         fail("generated token outside the vocabulary")
     peak = torch.cuda.max_memory_allocated()
+    if peak >= PEAK_LIMIT:
+        fail(f"peak memory {peak / 2**30:.2f} GiB is not below {PEAK_LIMIT / 2**30:.0f} GiB")
     prefill_ms = stats.prefill_s / stats.prefills * 1e3
     print(f"slice on {smi}: {len(rep.completed)} requests, prompts "
           f"{sorted(r.prompt_len for r in reqs)}, {rep.tokens_out()} tokens out; "
@@ -1840,6 +1910,7 @@ def phase_slice(cfg, smi):
     return launches, eng, rep
 
 
+PEAK_LIMIT = 79 * 2**30  # serving: weights, KV pool and activations below 79 GiB
 TRAIN_MODEL_TOL = dict(loss=1e-2, grad=5e-2)  # relative loss; grads vs each leaf's max |g|
 RWKV_TRAIN = dict(steps=8, batch=4, seq=4096)
 
@@ -2200,6 +2271,322 @@ def phase_profile(eng, cfg):
     _profile("decode 8 ticks x 4 lanes", lambda: [eng.step() for _ in range(8)])
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: the MoE family, softcap, Adafactor, recurrent serving (9a-9f)
+# ---------------------------------------------------------------------------
+
+SOFTCAP_SWEEP = dict(
+    cap=[30.0, 5.0],  # grok-1's 30; 5 saturates tanh on the larger scores
+    S=[1, 64, 129, 1000, 2048],
+    # (causal, window, Skv - Sq): causal, a window, non-causal with Sq != Skv
+    mask=[(True, 0, 0), (True, 96, 0), (False, 0, 63)],
+    heads=[(48, 8), (32, 4)],  # grok-1's 48/8 and qwen3-moe's 32/4
+    d=[32, 64, 80, 128],
+    dtype=["float32", "bfloat16"],
+)
+GROK_FLASH = dict(B=1, S=4096, H=48, KV=8, d=128, window=0)  # grok-1 at 1 x 4096
+
+
+def phase_softcap(sweep=SOFTCAP_SWEEP):
+    """Phase 9a: the capped flash kernels, forward and backward, both
+    routes, against autograd through ``flash_attention_plain`` with the
+    same cap (``FLASH_BWD_TOL``; the forward also at ``TOL``), then their
+    times at grok-1's attention shape beside the capless kernels, the plain
+    version and the bound (the capless operation count)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    names = ["o", "dq", "dk", "dv"]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    used = {"float32": 0.0, "bfloat16": 0.0}
+    where = {"float32": "", "bfloat16": ""}
+    fwd_worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    _reset_counts()
+    for cap, S, (causal, window, extra), (h, kv), d, dtype in itertools.product(*sweep.values()):
+        q, k, v = _inputs(1, S, S + extra, h, kv, d, dtype, seed=900 + n)
+        do = torch.randn(q.shape, device="cuda").to(q.dtype)
+        got, want = ([t.detach().requires_grad_() for t in (q, k, v)] for _ in range(2))
+        o = fa.flash_attention(*got, causal=causal, window=window, softcap=cap)
+        ow = fa.flash_attention_plain(*want, causal=causal, window=window, softcap=cap)
+        got = [o.detach(), *torch.autograd.grad(o, got, do)]
+        want = [ow.detach(), *torch.autograd.grad(ow, want, do)]
+        torch.cuda.synchronize()
+        case = (f"softcap={cap} B=1 H={h} KV={kv} d={d} Sq={S} Skv={S + extra} causal={causal} "
+                f"window={window} {dtype}")
+        err = (got[0].float() - want[0].float()).abs()
+        tol = TOL[dtype]
+        if not bool((err <= tol + tol * want[0].float().abs()).all()):
+            fail(f"capped flash forward != plain at {case}: max abs err {float(err.max()):.3g}")
+        fwd_worst[dtype] = max(fwd_worst[dtype], float(err.max()))
+        _check_close(case, names, got, want, FLASH_BWD_TOL[dtype], worst, used, where, dtype,
+                     rel_to_max=dtype == "bfloat16")
+        n += 1
+    launched = _counts()["flash"]
+    if launched != {"fwd": n, "bwd": n}:
+        fail(f"the softcap sweep launched the kernels {launched} times, not {n} each way")
+    print(f"kernels: capped flash forward and backward match autograd through "
+          f"flash_attention_plain(softcap=...) on {n} cases (caps {sweep['cap']}, S "
+          f"{sweep['S']}, causal / window 96 / non-causal Sq != Skv, heads {sweep['heads']}, "
+          f"d {sweep['d']}, both routes); forward max abs err fp32 {fwd_worst['float32']:.3g} "
+          f"bf16 {fwd_worst['bfloat16']:.3g} (tol {TOL}); o, dq, dk, dv max abs err fp32 "
+          f"{worst['float32']:.3g} bf16 {worst['bfloat16']:.3g}; largest share of an "
+          f"element's tolerance fp32 {used['float32']:.3g} ({where['float32']}), bf16 "
+          f"{used['bfloat16']:.3g} ({where['bfloat16']})", flush=True)
+    torch.cuda.empty_cache()
+    (fwd, bwd), same, _ = _flash_times(GROK_FLASH, seed=91, softcap=30.0)
+    fwd.update(max_abs_err_fp32=fwd_worst["float32"], max_abs_err_bf16=fwd_worst["bfloat16"],
+               cases=n, library_ms=None)
+    bwd.update(max_abs_err_fp32=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
+               tol_share_fp32=used["float32"], tol_share_bf16=used["bfloat16"], cases=n,
+               deterministic=all(same), library_ms=None)
+    return fwd, bwd, n
+
+
+def _direct_params(cfg, seed):
+    """A model's parameters drawn straight into its serving dtype on the
+    card (norm scales and the MoE router fp32): no fp32 copy exists."""
+    import torch
+
+    from repro_torch.models.api import get_model
+
+    api = get_model(cfg)
+    dev = torch.device("cuda")
+    return api, api.init(torch.Generator(device=dev).manual_seed(seed), dev, dtype=cfg.dtype)
+
+
+def phase_moe_model():
+    """Phase 9b: qwen3-moe-30b-a3b at full width cut to 4 layers: a
+    1000-token prefill through the flash kernel (32 query heads over 4 KV
+    heads of 128) against the plain attention path."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg4 = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), num_layers=4)
+    api, params = _direct_params(cfg4, seed=1)
+    _prefill_kernel_vs_plain(cfg4, api, params, "qwen3-moe-30b-a3b x4 layers (128 experts, "
+                             "top 8)")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _generate_check(cfg, params, batch, prompt_len, new_tokens, label, smi):
+    """``ServingEngine.generate`` on ``batch`` seeded prompts: token counts
+    right and in the vocabulary, and the prefill's logits finite.  Returns
+    the flash forward launches of the generate call."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve.engine import ServingEngine
+
+    prompts = np.random.default_rng(21).integers(0, cfg.vocab_size, (batch, prompt_len))
+    eng = ServingEngine(cfg, params, batch=batch, capacity=prompt_len + new_tokens,
+                        device="cuda")
+    fa.launches.update(fwd=0, bwd=0)
+    out = eng.generate(prompts, new_tokens)
+    launches = fa.launches["fwd"]
+    st = eng.stats
+    eng.reset()
+    logits = eng.prefill(prompts)
+    ok = bool(torch.isfinite(logits).all())
+    print(f"{label} ServingEngine.generate on {smi}: {batch} x {prompt_len} prompts, "
+          f"{new_tokens} new tokens -> {out.shape}; prefill {st.prefill_s * 1e3:.2f} ms "
+          f"({st.prefill_s / batch * 1e3:.2f} ms/request); decode {st.tokens_per_s:.2f} "
+          f"tokens/s ({st.decode_steps} steps in {st.decode_s:.3f} s); prefill logits finite: "
+          f"{ok}; flash launches {launches}", flush=True)
+    if out.shape != (batch, new_tokens) or not ((0 <= out) & (out < cfg.vocab_size)).all():
+        fail(f"{label}: generate gave {out.shape} tokens or tokens outside the vocabulary")
+    if not ok:
+        fail(f"{label}: non-finite prefill logits")
+    return launches
+
+
+def phase_moe_slice(smi):
+    """Phase 9c: qwen3-moe-30b-a3b at full width and depth (48 layers,
+    30.53 B params, bf16 drawn on the card) serves phase 5's trace through
+    ``ContinuousBatchingEngine`` + ``ContinuousScheduler``, profiles a
+    2048-token prefill and 8 decode ticks of 4 lanes, then
+    ``ServingEngine.generate`` on 4 x 512 prompts and 32 new tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    launches, eng, rep = phase_slice(cfg, smi)
+    phase_profile(eng, cfg)  # where a prefill's and a decode tick's time goes
+    params = eng.params
+    del eng, rep
+    torch.cuda.empty_cache()
+    launches += _generate_check(cfg, params, 4, 512, 32, "qwen3-moe-30b-a3b", smi)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"qwen3-moe-30b-a3b serving peak memory {peak / 2**30:.2f} GiB", flush=True)
+    if peak >= PEAK_LIMIT:
+        fail(f"qwen3-moe peak memory {peak / 2**30:.2f} GiB is not below 79 GiB")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_grok(smi):
+    """Phase 9d: grok-1-314b at full width cut to 4 layers (8 experts of
+    d_ff 32768, top 2; 48 query heads over 8 KV heads of 128, logit softcap
+    30): a 1000-token prefill through the capped flash kernel against the
+    plain path, then ``ServingEngine.generate`` on 2 x 256 prompts and 16
+    new tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg4 = dataclasses.replace(get_config("grok-1-314b"), num_layers=4)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    api, params = _direct_params(cfg4, seed=2)
+    torch.cuda.synchronize()
+    print(f"grok-1-314b x4 layers: {cfg4.n_params() / 1e9:.2f} B params in {cfg4.dtype}, "
+          f"drawn in {time.perf_counter() - t0:.1f} s; softcap {cfg4.attn_logit_softcap}",
+          flush=True)
+    _prefill_kernel_vs_plain(cfg4, api, params, "grok-1-314b x4 layers (softcap 30)")
+    launches = _generate_check(cfg4, params, 2, 256, 16, "grok-1-314b x4 layers", smi)
+    print(f"grok-1-314b x4 layers peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_recurrent_serving(smi):
+    """Phase 9e: rwkv6-1.6b and zamba2-2.7b at full width and depth through
+    ``ServingEngine``: 4 x 256 prompts fed token by token through
+    ``decode_step``, then 32 new tokens; the token-by-token prefill's last
+    logits against ``forward`` (the chunked WKV-6 / SSD kernels and flash
+    at d=80) on the same prompts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServingEngine
+
+    out = {}
+    for arch in ("rwkv6-1.6b", "zamba2-2.7b"):
+        cfg = get_config(arch)
+        api, params = _direct_params(cfg, seed=3)
+        prompts = np.random.default_rng(22).integers(0, cfg.vocab_size, (4, 256))
+        eng = ServingEngine(cfg, params, batch=4, capacity=256 + 32, device="cuda")
+        prefill, seen = eng.prefill, {}
+        eng.prefill = lambda p: seen.setdefault("last", prefill(p))  # generate's own prefill
+        toks = eng.generate(prompts, 32)
+        del eng.prefill  # the wrapper refers to the engine: no cycle to outlive the phase
+        st = eng.stats
+        last = seen["last"].float()
+        _reset_counts()
+        with torch.no_grad():
+            want = api.forward(params, torch.as_tensor(prompts, device="cuda"))[:, -1].float()
+        counts = {"wkv6": _wkv_counts(), **_counts()}
+        diff, scale = float((last - want).abs().max()), float(want.abs().max())
+        same = bool((last.argmax(-1) == want.argmax(-1)).all())
+        print(f"{arch} served on {smi}: 4 x 256 prompts token by token, 32 new tokens -> "
+              f"{toks.shape}; prefill {st.prefill_s / 4 * 1e3:.2f} ms/request "
+              f"({st.prefill_s:.3f} s for the batch); decode {st.tokens_per_s:.2f} tokens/s; "
+              f"last prefill logits vs forward: max abs diff {diff:.4g} (bound {MODEL_RTOL} x "
+              f"max|logit| = {MODEL_RTOL * scale:.4g}), argmax same {same}; forward launches "
+              f"{counts}", flush=True)
+        if toks.shape != (4, 32) or not (bool(torch.isfinite(last).all())
+                                         and diff <= MODEL_RTOL * scale and same):
+            fail(f"{arch}: token-by-token prefill disagrees with forward")
+        ran = (counts["wkv6"]["fwd"] == cfg.num_layers if arch.startswith("rwkv6") else
+               counts["ssd"]["fwd"] == cfg.num_layers and counts["flash"]["fwd"] > 0)
+        if not ran:
+            fail(f"{arch}: forward launched {counts}, not its kernels")
+        out[arch] = dict(prefill_ms_per_request=st.prefill_s / 4 * 1e3,
+                         decode_tokens_per_s=st.tokens_per_s)
+        del api, params, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+# 20 steps, as phases 5c and 5q: the cosine schedule then warms up for 2
+# steps (at 6 it has none, and qwen2-72b's Adafactor losses rose and fell
+# back, 12.44 -> 15.67 -> 12.92, without ending below the first)
+BIG_TRAIN = dict(steps=20, batch=1, seq=4096, layers=2)
+
+
+def phase_big_train(smi):
+    """Phase 9f: qwen3-moe-30b-a3b (AdamW) and qwen2-72b (Adafactor) at full
+    width cut to 2 layers train 20 steps at 1 x 4096 through
+    ``train.loop.train``: every loss finite, the last below the first; then
+    one profiled step each, which must run ``flash_fwd_sm90<128>`` and both
+    ``flash_bwd_*_sm90``, and whose ``moe_aux`` is finite."""
+    import torch
+
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.train.step import make_train_step
+
+    n = BIG_TRAIN
+    shape = dataclasses.replace(TRAIN_4K, seq_len=n["seq"], global_batch=n["batch"],
+                                name="smoke")
+    launches = {}
+    gc.collect()  # qwen2-72b's state takes 66 GiB: nothing of earlier phases may linger
+    torch.cuda.empty_cache()
+    for arch in ("qwen3-moe-30b-a3b", "qwen2-72b"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=n["layers"])
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        rep = train(cfg, shape, TrainConfig(steps=n["steps"], seed=0, max_failures=0),
+                    device="cuda")
+        counts = _counts()["flash"]
+        peak = torch.cuda.max_memory_allocated()
+        losses = rep.losses
+        step_s = float(np.median(rep.step_times))
+        print(f"train {arch} x{cfg.num_layers} layers on {smi}: {cfg.optimizer}, "
+              f"{cfg.n_params() / 1e9:.2f} B params; {n['steps']} steps of {n['batch']} x "
+              f"{n['seq']}; losses {[round(x, 4) for x in losses]}; median step "
+              f"{step_s * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB; flash launches "
+              f"{counts}", flush=True)
+        if rep.steps_done != n["steps"] or rep.restarts:
+            fail(f"{arch}: {rep.steps_done} steps done, {rep.restarts} restarts")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"{arch}: losses not finite and falling: {losses}")
+        if counts != {"fwd": 2 * n["steps"] * cfg.num_layers, "bwd": n["steps"] * cfg.num_layers}:
+            fail(f"{arch}: flash launches {counts}")
+        launches[arch] = counts
+        step = make_train_step(get_model(cfg), make_optimizer(cfg, total_steps=n["steps"]))
+        data = SyntheticLMData(cfg, n["batch"], n["seq"], seed=0, start_step=n["steps"],
+                               device="cuda")
+        batch = next(data)
+        data.close()
+        res = {}
+        rows = _profile(f"{arch} x{cfg.num_layers} train step {n['batch']} x {n['seq']}",
+                        lambda: res.update(m=step(rep.state, batch)[1]), top=10)
+        _require_flash_sm90(arch, rows)
+        aux = float(res["m"]["moe_aux"])
+        print(f"  {arch} moe_aux {aux:.6g}", flush=True)
+        if not np.isfinite(aux) or (cfg.block_type == "moe") != (aux > 0):
+            fail(f"{arch}: moe_aux {aux}")
+        del rep, res, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _require_flash_sm90(label, rows):
+    """Fails unless a profiled step ran the ``wgmma`` flash forward at
+    d=128 and both backward kernels (and no fp32 FMA flash kernel)."""
+    ran = {k: v for k, v in rows.items() if "flash_" in k}
+    print("  flash kernels in the step: " + "; ".join(
+        f"{k[:70]} x{c} {ms:.2f} ms" for k, (c, ms) in sorted(ran.items(), key=lambda x: -x[1][1])))
+    fwd128 = [k for k in ran if "flash_fwd_sm90" in k and "128" in k]
+    missing = [name for name in FLASH_SM90[1:] if not any(name in k for k in ran)]
+    if not fwd128 or missing:
+        fail(f"the {label} step ran no flash_fwd_sm90<128> ({fwd128}) or misses {missing}")
+    if any("f32" in k or "flash_bwd_dq<" in k or "flash_bwd_dkdv<" in k for k in ran):
+        fail(f"the {label} step ran an fp32 flash kernel: {sorted(ran)}")
+
+
 def main() -> None:
     name, smi = phase_device()
 
@@ -2244,6 +2631,12 @@ def main() -> None:
     fg_mux, bg_mux, _ = phase_multiplex_train(smi)
     bg_exec, _ = phase_run_executable()
     serve_adm = phase_admission(cfg, smi, stats5, ttft5)
+    flash["softcap"], flash_bwd["softcap"], sweep_n = phase_softcap()
+    phase_moe_model()
+    serve_moe = phase_moe_slice(smi)
+    serve_grok = phase_grok(smi)
+    phase_recurrent_serving(smi)
+    big = phase_big_train(smi)
     bg = {k: alone[k] + bg_mux[k] + bg_exec[k] for k in ("fwd", "bwd")}
     flash["launches_by_path"] = {"serve llama3-8b": serve_launches,
                                  "train zamba2-2.7b": counts["flash"]["fwd"],
@@ -2251,14 +2644,25 @@ def main() -> None:
                                  "quickstart llama3-8b (reduced)": quick["fwd"],
                                  "train qwen2-1.5b multiplexed (fg)": fg_mux["fwd"],
                                  "bg tenants": bg["fwd"],
-                                 "serve llama3-8b with admission": serve_adm}
+                                 "serve llama3-8b with admission": serve_adm,
+                                 "serve qwen3-moe-30b-a3b": serve_moe,
+                                 "serve grok-1-314b (4 layers)": serve_grok,
+                                 "train qwen3-moe-30b-a3b (2 layers)":
+                                     big["qwen3-moe-30b-a3b"]["fwd"],
+                                 "train qwen2-72b (2 layers)": big["qwen2-72b"]["fwd"]}
     flash_bwd["launches_by_path"] = {"train zamba2-2.7b": counts["flash"]["bwd"],
                                      "train qwen2-1.5b": qwen["bwd"],
                                      "quickstart llama3-8b (reduced)": quick["bwd"],
                                      "train qwen2-1.5b multiplexed (fg)": fg_mux["bwd"],
-                                     "bg tenants": bg["bwd"]}
+                                     "bg tenants": bg["bwd"],
+                                     "train qwen3-moe-30b-a3b (2 layers)":
+                                         big["qwen3-moe-30b-a3b"]["bwd"],
+                                     "train qwen2-72b (2 layers)": big["qwen2-72b"]["bwd"]}
     for rec in (flash, flash_bwd):
         rec["launches"] = sum(rec["launches_by_path"].values())
+        # launches made to hold the capped kernels against the plain version
+        # (phase 9a), outside every main path, so not in ``launches``
+        rec["checked_launches"] = {"9a softcap sweep": sweep_n}
     print(f"planning: {json.dumps(planning)}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": [flash, flash_bwd, wkv_fwd, wkv_bwd, ssd_fwd, ssd_bwd]}))

@@ -1,6 +1,6 @@
 // Flash attention for Hopper (sm_90a), forward and backward: blocked
 // online-softmax attention, causal or not, optional sliding window, GQA by
-// indexing.  d in {32, 64, 80, 128}.
+// indexing, optional logit softcap.  d in {32, 64, 80, 128}.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::_flash_kernel
 // (wrapper flash_attention, pallas_call at :132).  Same function: fp32 m/l
@@ -68,6 +68,19 @@
 // masked entry gives exp(-1e30 - LSE) = 0, and a tile fully masked for a
 // row that has seen no key yet (a window) adds exp(0) terms that the first
 // live tile wipes (alpha = 0).
+//
+// Logit softcap (grok-1's attn_logit_softcap; the reference's
+// models/attention.py, the Pallas kernel has none): each scaled score
+// s = (q / sqrt(d)) . k becomes s' = cap tanh(s / cap) before the causal or
+// window mask (tanh of the mask value would unmask the key), and the row LSE
+// is that of s'.  The backward multiplies dS by ds'/ds = 1 - tanh^2(s / cap):
+// dS = P (dP - D) (1 - tanh^2); D = rowsum(dO ⊙ O) = rowsum(P ⊙ dP) still
+// holds.  The cap is a compile-time branch (template parameter SC) of every
+// kernel, so a kernel without it is the same code as before.  With a cap the
+// forward cannot fold the scale into the exponent (m in the raw scores'
+// scale, c = scale log2 e): the scores are capped, so m is in their scale
+// and c = log2 e.  bf16 takes tanh.approx.f32 (one special-function op,
+// relative error about 2^-11, against a 2e-2 tolerance); fp32 takes tanhf.
 //
 // TMA needs 16-byte-aligned bases and strides; the tensor maps are encoded
 // on every call (cuTensorMapEncodeTiled, reached through
@@ -395,6 +408,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// tanh on the special-function unit (relative error about 2^-11)
+__device__ __forceinline__ float tanh_fast(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Shared-memory columns of a tile: 64-column swizzle blocks.
 template <int D>
 constexpr int padded_cols() {
@@ -414,11 +434,14 @@ struct Fwd {
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * T_BYTES + 64;
 };
 
-template <int D>
+// SC: the softcap; then scale_log2 = log2 e and the scores are capped to
+// cap tanh(S cap_in) (cap_in = scale / cap) before the mask.
+template <int D, bool SC = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-               float* __restrict__ lse, const Geom g, float scale_log2) {
+               float* __restrict__ lse, const Geom g, float scale_log2, float cap,
+               float cap_in) {
   using C = Fwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Qs = align_1024(smem_raw);
@@ -524,6 +547,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     // NEG_INF on an edge tile; m and l move on; alpha rescales O.
     auto softmax = [&](float* s, int t, float* alpha) {
       const int n0 = begin + t * C::BN;
+      if constexpr (SC) {  // cap first: the mask replaces the capped score
+#pragma unroll
+        for (int i = 0; i < C::BN / 2; ++i) s[i] = cap * tanh_fast(s[i] * cap_in);
+      }
       const bool edge = !all_live(g, rw, 64, n0, C::BN);
       if (edge) {
 #pragma unroll
@@ -652,11 +679,11 @@ constexpr int FBM = 16;  // query rows per CTA (4 warps x 4 rows)
 constexpr int FBN = 32;  // keys per tile (one per lane)
 constexpr int FROWS = FBM / 4;
 
-template <int D>
+template <int D, bool SC = false>
 __global__ void __launch_bounds__(128)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, Geom g, float scale) {
+              float* __restrict__ lse, Geom g, float scale, float cap) {
   __shared__ float Qs[FBM][D];
   __shared__ float Ks[FBN][D + 1];
   __shared__ float Vs[FBN][D];
@@ -710,7 +737,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       float s = 0.f;
 #pragma unroll 8
       for (int c = 0; c < D; ++c) s = fmaf(Qs[lr][c], Ks[lane][c], s);
-      s = live(g, row, col) ? s * scale : NEG_INF;
+      if constexpr (SC) s = cap * tanhf(s * scale / cap);
+      else s *= scale;
+      if (!live(g, row, col)) s = NEG_INF;
 
       float mc = s;
 #pragma unroll
@@ -799,13 +828,16 @@ constexpr int bwd_smem_bytes() {  // four (BT, D + 1) tiles, two (BT, BT + 1), t
 
 // S = Q K^T and dP = dO V^T for rows ty + 16 ii and keys tx + 16 jj, then
 // P = exp2(S scale_log2 - lse2) on live entries (0 elsewhere) and
-// dS = P (dP - D); P (when wanted) and dS go to shared memory.
-template <int D>
+// dS = P (dP - D); P (when wanted) and dS go to shared memory.  With the
+// softcap (SC), t = tanh(S scale / cap), P = exp2(cap t log2 e - lse2) and
+// dS = P (dP - D) (1 - t^2).
+template <int D, bool SC>
 __device__ __forceinline__ void p_and_ds(float (*Qs)[D + 1], float (*dOs)[D + 1],
                                          float (*Ks)[D + 1], float (*Vs)[D + 1],
                                          const float* lse2, const float* Dr,
                                          float (*Ps)[BT + 1], float (*dSs)[BT + 1],
-                                         const Geom& g, int q0, int k0, float scale_log2) {
+                                         const Geom& g, int q0, int k0, float scale_log2,
+                                         float cap) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   float s[4][4] = {}, dp[4][4] = {};
 #pragma unroll 4
@@ -832,9 +864,16 @@ __device__ __forceinline__ void p_and_ds(float (*Qs)[D + 1], float (*dOs)[D + 1]
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int j = tx + 16 * jj;
-      const float p = live(g, q0 + i, k0 + j) ? exp2f(s[ii][jj] * scale_log2 - lse2[i]) : 0.f;
-      if (Ps) Ps[i][j] = p;
-      dSs[i][j] = p * (dp[ii][jj] - Dr[i]);
+      if constexpr (SC) {
+        const float t = tanhf(s[ii][jj] * scale_log2 * LN2 / cap);
+        const float p = live(g, q0 + i, k0 + j) ? exp2f(cap * t * LOG2E - lse2[i]) : 0.f;
+        if (Ps) Ps[i][j] = p;
+        dSs[i][j] = p * (dp[ii][jj] - Dr[i]) * (1.f - t * t);
+      } else {
+        const float p = live(g, q0 + i, k0 + j) ? exp2f(s[ii][jj] * scale_log2 - lse2[i]) : 0.f;
+        if (Ps) Ps[i][j] = p;
+        dSs[i][j] = p * (dp[ii][jj] - Dr[i]);
+      }
     }
   }
 }
@@ -849,12 +888,12 @@ __device__ __forceinline__ void load_rows_stats(float* lse2, float* Dr, const fl
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SC = false>
 __global__ void __launch_bounds__(BTHREADS)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dO, const float* __restrict__ lse,
                const float* __restrict__ Dd, T* __restrict__ dk, T* __restrict__ dv, Geom g,
-               float scale) {
+               float scale, float cap) {
   extern __shared__ __align__(16) float bsm[];
   using Tile = float[D + 1];
   using Sq_t = float[BT + 1];
@@ -889,7 +928,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       load_tile<T, D>(dOs, dO + b * g.q_sb + h * g.q_sh, g.q_ss, q0, g.Sq);
       load_rows_stats(lse2, Dr, lse, Dd, bh, q0, g.Sq);
       __syncthreads();
-      p_and_ds<D>(Qs, dOs, Ks, Vs, lse2, Dr, Ps, dSs, g, q0, k0, scale_log2);
+      p_and_ds<D, SC>(Qs, dOs, Ks, Vs, lse2, Dr, Ps, dSs, g, q0, k0, scale_log2, cap);
       __syncthreads();
       // dV += P^T dO, dK += dS^T Q: keys tx + 16 jj, columns ty + 16 cc
       for (int i = 0; i < BT; ++i) {
@@ -927,11 +966,12 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SC = false>
 __global__ void __launch_bounds__(BTHREADS)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ dO, const float* __restrict__ lse,
-             const float* __restrict__ Dd, T* __restrict__ dq, Geom g, float scale) {
+             const float* __restrict__ Dd, T* __restrict__ dq, Geom g, float scale,
+             float cap) {
   extern __shared__ __align__(16) float bsm[];
   using Tile = float[D + 1];
   using Sq_t = float[BT + 1];
@@ -962,7 +1002,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     load_tile<T, D>(Ks, k + b * g.k_sb + kvh * g.k_sh, g.k_ss, k0, g.Skv);
     load_tile<T, D>(Vs, v + b * g.k_sb + kvh * g.k_sh, g.k_ss, k0, g.Skv);
     __syncthreads();
-    p_and_ds<D>(Qs, dOs, Ks, Vs, lse2, Dr, nullptr, dSs, g, q0, k0, scale_log2);
+    p_and_ds<D, SC>(Qs, dOs, Ks, Vs, lse2, Dr, nullptr, dSs, g, q0, k0, scale_log2, cap);
     __syncthreads();
     // dQ += dS K: rows tx + 16 ii, columns ty + 16 cc
     for (int j = 0; j < BT; ++j) {
@@ -1009,13 +1049,13 @@ struct Bwd {
   static constexpr int SMEM_DQ = 1024 + 2 * Q2_BYTES + STAGES_DQ * 2 * K2_BYTES + 64;
 };
 
-template <int D>
+template <int D, bool SC = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse, const float* __restrict__ Dd,
                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, const Geom g,
-                    float scale) {
+                    float scale, float cap) {
   using C = Bwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Ks = align_1024(smem_raw);
@@ -1158,13 +1198,33 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constan
       const float* ls = lse2s + st * C::BQ;
       const float* Dr = Ds + st * C::BQ;
       const bool edge = !all_live(g, qq0, C::BQ, kw, 64);
+      if constexpr (SC) {
+        // P^T = exp2(cap t log2 e - lse2), t = tanh(S^T scale / cap), goes to
+        // the A fragments; s keeps P^T (1 - t^2) for dS^T
+        const float cap_in = scale / cap, cap_l2 = cap * LOG2E;
 #pragma unroll
-      for (int i = 0; i < C::BQ / 2; ++i) {
-        const int qc = 8 * (i / 4) + 2 * t4 + (i & 1);
-        s[i] = ex2(s[i] * scale_log2 - ls[qc]);
-        if (edge && !live(g, qq0 + qc, (i >> 1) & 1 ? kr1 : kr0)) s[i] = 0.f;
+        for (int i = 0; i < C::BQ / 2; i += 2) {
+          float p2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qc = 8 * ((i + e) / 4) + 2 * t4 + e;
+            const float t = tanh_fast(s[i + e] * cap_in);
+            float p = ex2(t * cap_l2 - ls[qc]);
+            if (edge && !live(g, qq0 + qc, ((i + e) >> 1) & 1 ? kr1 : kr0)) p = 0.f;
+            p2[e] = p;
+            s[i + e] = p * (1.f - t * t);
+          }
+          pa[i / 8][(i % 8) / 2] = pack_bf16(p2[0], p2[1]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < C::BQ / 2; ++i) {
+          const int qc = 8 * (i / 4) + 2 * t4 + (i & 1);
+          s[i] = ex2(s[i] * scale_log2 - ls[qc]);
+          if (edge && !live(g, qq0 + qc, (i >> 1) & 1 ? kr1 : kr0)) s[i] = 0.f;
+        }
+        to_a_frags<C::BQ>(s, pa);
       }
-      to_a_frags<C::BQ>(s, pa);
       // dV += P^T dO (dO read MN-major: rows down the tile), while dS^T is formed
       wgmma_fence();
 #pragma unroll
@@ -1210,13 +1270,13 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constan
   }
 }
 
-template <int D>
+template <int D, bool SC = false>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                   const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dO,
                   const float* __restrict__ lse, float* __restrict__ Dd,
-                  __nv_bfloat16* __restrict__ dq, const Geom g, float scale) {
+                  __nv_bfloat16* __restrict__ dq, const Geom g, float scale, float cap) {
   using C = Bwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Qs = align_1024(smem_raw);
@@ -1366,11 +1426,22 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       wgmma_wait<1>();  // S is in; dP may still run
       fence_regs<C::BK2 / 2>(s);
       const bool edge = !all_live(g, rw, 64, n0, C::BK2);
+      if constexpr (SC) {  // s = P (1 - t^2), t = tanh(S scale / cap)
+        const float cap_in = scale / cap, cap_l2 = cap * LOG2E;
 #pragma unroll
-      for (int i = 0; i < C::BK2 / 2; ++i) {
-        const int r = (i >> 1) & 1;
-        s[i] = ex2(s[i] * scale_log2 - lse2[r]);
-        if (edge && !live(g, r ? r1 : r0, n0 + 8 * (i / 4) + 2 * t4 + (i & 1))) s[i] = 0.f;
+        for (int i = 0; i < C::BK2 / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          const float t = tanh_fast(s[i] * cap_in);
+          s[i] = ex2(t * cap_l2 - lse2[r]) * (1.f - t * t);
+          if (edge && !live(g, r ? r1 : r0, n0 + 8 * (i / 4) + 2 * t4 + (i & 1))) s[i] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < C::BK2 / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          s[i] = ex2(s[i] * scale_log2 - lse2[r]);
+          if (edge && !live(g, r ? r1 : r0, n0 + 8 * (i / 4) + 2 * t4 + (i & 1))) s[i] = 0.f;
+        }
       }
       wgmma_wait<0>();  // dP is in
       fence_regs<C::BK2 / 2>(dp);
@@ -1491,9 +1562,9 @@ int allow_smem(int bytes) {
   return static_cast<int>(e);
 }
 
-template <int D>
+template <int D, bool SC>
 int launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
-               int B, const Geom& g, cudaStream_t stream) {
+               int B, const Geom& g, float cap, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   if (dtype == 1) {
     using C = Fwd<D>;
@@ -1501,16 +1572,17 @@ int launch_fwd(int dtype, const void* q, const void* k, const void* v, void* o, 
     int e = fail_at("tensor map q", make_map(&tq, q, D, g.H, g.Sq, B, g.q_sb, g.q_ss, g.q_sh, C::BM));
     if (!e) e = fail_at("tensor map k", make_map(&tk, k, D, g.KV, g.Skv, B, g.k_sb, g.k_ss, g.k_sh, C::BN));
     if (!e) e = fail_at("tensor map v", make_map(&tv, v, D, g.KV, g.Skv, B, g.v_sb, g.v_ss, g.v_sh, C::BN));
-    if (!e) e = fail_at("shared-memory attribute", allow_smem<flash_fwd_sm90<D>>(C::SMEM));
+    if (!e) e = fail_at("shared-memory attribute", allow_smem<flash_fwd_sm90<D, SC>>(C::SMEM));
     if (e) return e;
     dim3 grid((g.Sq + C::BM - 1) / C::BM, B * g.H);
-    flash_fwd_sm90<D><<<grid, THREADS, C::SMEM, stream>>>(
-        tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, g, scale * LOG2E);
+    flash_fwd_sm90<D, SC><<<grid, THREADS, C::SMEM, stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, g, SC ? LOG2E : scale * LOG2E, cap,
+        SC ? scale / cap : 0.f);
   } else {
     dim3 grid((g.Sq + FBM - 1) / FBM, B * g.H);
-    flash_fwd_f32<D><<<grid, 128, 0, stream>>>(
+    flash_fwd_f32<D, SC><<<grid, 128, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, g, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, g, scale, cap);
   }
   return fail_at("forward launch", static_cast<int>(cudaGetLastError()));
 }
@@ -1524,14 +1596,14 @@ int launch_bwd_dot(const void* o, const void* dO, float* Dd, int B, const Geom& 
   return fail_at("rowsum(dO O) launch", static_cast<int>(cudaGetLastError()));
 }
 
-template <int D>
+template <int D, bool SC>
 int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o, const void* dO,
                    const float* lse, void* dq, void* dk, void* dv, float* Dd, int B,
-                   const Geom& g, cudaStream_t stream) {
+                   const Geom& g, float cap, cudaStream_t stream) {
   using T = float;
   constexpr int smem = bwd_smem_bytes<D>();
-  int e = fail_at("shared-memory attribute", allow_smem<flash_bwd_dkdv<T, D>>(smem));
-  if (!e) e = fail_at("shared-memory attribute", allow_smem<flash_bwd_dq<T, D>>(smem));
+  int e = fail_at("shared-memory attribute", allow_smem<flash_bwd_dkdv<T, D, SC>>(smem));
+  if (!e) e = fail_at("shared-memory attribute", allow_smem<flash_bwd_dq<T, D, SC>>(smem));
   if (!e) e = launch_bwd_dot<T>(o, dO, Dd, B, g, D, stream);
   if (e) return e;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
@@ -1539,19 +1611,19 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o, c
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dOt = static_cast<const T*>(dO);
-  flash_bwd_dkdv<T, D><<<dim3((g.Skv + BT - 1) / BT, B * g.KV), BTHREADS, smem, stream>>>(
-      qt, kt, vt, dOt, lse, Dd, static_cast<T*>(dk), static_cast<T*>(dv), g, scale);
+  flash_bwd_dkdv<T, D, SC><<<dim3((g.Skv + BT - 1) / BT, B * g.KV), BTHREADS, smem, stream>>>(
+      qt, kt, vt, dOt, lse, Dd, static_cast<T*>(dk), static_cast<T*>(dv), g, scale, cap);
   e = fail_at("dk/dv launch", static_cast<int>(cudaGetLastError()));
   if (e) return e;
-  flash_bwd_dq<T, D><<<dim3((g.Sq + BT - 1) / BT, B * g.H), BTHREADS, smem, stream>>>(
-      qt, kt, vt, dOt, lse, Dd, static_cast<T*>(dq), g, scale);
+  flash_bwd_dq<T, D, SC><<<dim3((g.Sq + BT - 1) / BT, B * g.H), BTHREADS, smem, stream>>>(
+      qt, kt, vt, dOt, lse, Dd, static_cast<T*>(dq), g, scale, cap);
   return fail_at("dq launch", static_cast<int>(cudaGetLastError()));
 }
 
-template <int D>
+template <int D, bool SC>
 int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o, const void* dO,
                     const float* lse, void* dq, void* dk, void* dv, float* Dd, int B,
-                    const Geom& g, cudaStream_t stream) {
+                    const Geom& g, float cap, cudaStream_t stream) {
   using C = Bwd<D>;
   // q and dO in 64-row boxes for the dK/dV kernel and 128-row boxes for the
   // dQ kernel; k and v the other way round
@@ -1564,22 +1636,22 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o, 
   if (!e) e = fail_at("tensor map dO", make_map(&do128, dO, D, g.H, g.Sq, B, g.q_sb, g.q_ss, g.q_sh, C::BQ2));
   if (!e) e = fail_at("tensor map k", make_map(&k64, k, D, g.KV, g.Skv, B, g.k_sb, g.k_ss, g.k_sh, C::BK2));
   if (!e) e = fail_at("tensor map v", make_map(&v64, v, D, g.KV, g.Skv, B, g.v_sb, g.v_ss, g.v_sh, C::BK2));
-  if (!e) e = fail_at("shared-memory attribute", allow_smem<flash_bwd_dkdv_sm90<D>>(C::SMEM_DKDV));
-  if (!e) e = fail_at("shared-memory attribute", allow_smem<flash_bwd_dq_sm90<D>>(C::SMEM_DQ));
+  if (!e) e = fail_at("shared-memory attribute", allow_smem<flash_bwd_dkdv_sm90<D, SC>>(C::SMEM_DKDV));
+  if (!e) e = fail_at("shared-memory attribute", allow_smem<flash_bwd_dq_sm90<D, SC>>(C::SMEM_DQ));
   if (e) return e;
   // the dQ kernel first: it also writes D = rowsum(dO ⊙ O), which the dK/dV
   // kernel reads
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  flash_bwd_dq_sm90<D><<<dim3((g.Sq + C::BQ2 - 1) / C::BQ2, B * g.H), THREADS, C::SMEM_DQ,
-                         stream>>>(q128, k64, v64, do128, static_cast<const __nv_bfloat16*>(o),
-                                   static_cast<const __nv_bfloat16*>(dO), lse, Dd,
-                                   static_cast<__nv_bfloat16*>(dq), g, scale);
+  flash_bwd_dq_sm90<D, SC><<<dim3((g.Sq + C::BQ2 - 1) / C::BQ2, B * g.H), THREADS, C::SMEM_DQ,
+                             stream>>>(q128, k64, v64, do128, static_cast<const __nv_bfloat16*>(o),
+                                       static_cast<const __nv_bfloat16*>(dO), lse, Dd,
+                                       static_cast<__nv_bfloat16*>(dq), g, scale, cap);
   e = fail_at("dq launch", static_cast<int>(cudaGetLastError()));
   if (e) return e;
-  flash_bwd_dkdv_sm90<D><<<dim3((g.Skv + C::BK - 1) / C::BK, B * g.KV), THREADS,
-                           C::SMEM_DKDV, stream>>>(
+  flash_bwd_dkdv_sm90<D, SC><<<dim3((g.Skv + C::BK - 1) / C::BK, B * g.KV), THREADS,
+                               C::SMEM_DKDV, stream>>>(
       q64, k128, v128, do64, lse, Dd, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), g, scale);
+      static_cast<__nv_bfloat16*>(dv), g, scale, cap);
   return fail_at("dk/dv launch", static_cast<int>(cudaGetLastError()));
 }
 
@@ -1588,37 +1660,44 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* o, 
 // The step at which the last failing call stopped ("" if none failed).
 extern "C" const char* flash_attention_error_site() { return g_error_site; }
 
-// lse may be NULL (not wanted): fp32 (B, H, Sq) when given.
+// lse may be NULL (not wanted): fp32 (B, H, Sq) when given.  softcap > 0
+// caps the scores (0: none).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B,
     int Sq, int Skv, int H, int KV, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, int causal, int window, void* stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || (dtype != 0 && dtype != 1))
+    long long o_ss, long long o_sh, int causal, int window, float softcap, void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || (dtype != 0 && dtype != 1) ||
+      !(softcap >= 0.f))
     return fail_at("arguments", static_cast<int>(cudaErrorInvalidValue));
   cudaGetLastError();  // report this call's errors only, not an earlier caller's
   if (int e = fail_at("device of q", bind_device(q))) return e;
   Geom g{Sq,   Skv,  H,    KV,   q_sb, q_ss, q_sh,   k_sb,  k_ss,
          k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLASH_FWD(DD) \
+  (softcap > 0.f ? launch_fwd<DD, true>(dtype, q, k, v, o, lse, B, g, softcap, s) \
+                 : launch_fwd<DD, false>(dtype, q, k, v, o, lse, B, g, 0.f, s))
   switch (D) {
-    case 32: return launch_fwd<32>(dtype, q, k, v, o, lse, B, g, s);
-    case 64: return launch_fwd<64>(dtype, q, k, v, o, lse, B, g, s);
-    case 80: return launch_fwd<80>(dtype, q, k, v, o, lse, B, g, s);
-    case 128: return launch_fwd<128>(dtype, q, k, v, o, lse, B, g, s);
+    case 32: return FLASH_FWD(32);
+    case 64: return FLASH_FWD(64);
+    case 80: return FLASH_FWD(80);
+    case 128: return FLASH_FWD(128);
   }
+#undef FLASH_FWD
   return fail_at("arguments", static_cast<int>(cudaErrorInvalidValue));
 }
 
 // Every tensor contiguous: q, o, dO, dq (B, Sq, H, D); k, v, dk, dv
 // (B, Skv, KV, D); lse from the forward and the scratch Dd fp32 (B, H, Sq).
-// dq, dk, dv are written (not accumulated) in the inputs' dtype.
+// dq, dk, dv are written (not accumulated) in the inputs' dtype.  softcap is
+// the forward's (0: none).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dO,
     const float* lse, void* dq, void* dk, void* dv, float* Dd, int dtype, int B, int Sq,
-    int Skv, int H, int KV, int D, int causal, int window, void* stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0)
+    int Skv, int H, int KV, int D, int causal, int window, float softcap, void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV != 0 || !(softcap >= 0.f))
     return fail_at("arguments", static_cast<int>(cudaErrorInvalidValue));
   cudaGetLastError();  // report this call's errors only, not an earlier caller's
   if (int e = fail_at("device of q", bind_device(q))) return e;
@@ -1626,7 +1705,9 @@ extern "C" int flash_attention_bwd(
   Geom g{Sq, Skv, H, KV, Sq * qs, qs, D, Skv * ks, ks, D,
          Skv * ks, ks, D, Sq * qs, qs, D, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_BWD(F, DD) F<DD>(q, k, v, o, dO, lse, dq, dk, dv, Dd, B, g, s)
+#define FLASH_BWD(F, DD)                                                    \
+  (softcap > 0.f ? F<DD, true>(q, k, v, o, dO, lse, dq, dk, dv, Dd, B, g, softcap, s) \
+                 : F<DD, false>(q, k, v, o, dO, lse, dq, dk, dv, Dd, B, g, 0.f, s))
   if (dtype == 0) {
     switch (D) {
       case 32: return FLASH_BWD(launch_bwd_f32, 32);

@@ -8,7 +8,11 @@ causal or not, optional sliding window (``k > q - window``), GQA by
 indexing (query head h reads kv head ``h // (H // KV)``), fp32 m/l
 statistics and accumulator, the finite ``NEG_INF`` and the ``l == 0 -> 1``
 guard.  Any ``Sq, Skv >= 1`` works; the Pallas block-multiple assert does
-not carry over.
+not carry over.  An optional logit softcap (grok-1's 30.0; the Pallas
+kernel has none, the reference's ``models/attention.py`` applies it)
+replaces each scaled score ``s = (q / sqrt(d)) . k`` by
+``cap * tanh(s / cap)`` before the causal/window mask: a compile-time
+branch of each kernel, so the kernels without a cap are unchanged.
 
 On an H100 the kernels are bound by tensor-core FLOPs (989 TFLOP/s bf16)
 at prefill and training shapes.  bf16 runs every product on ``wgmma``
@@ -17,7 +21,9 @@ warpgroup, S/P/m/l and the accumulators in registers; fp32 runs on plain
 FMAs (see the header of the ``.cu`` source for the design).
 
 The backward (the TPU kernel has none) recomputes ``P = exp(S - LSE)``
-from the row log-sum-exp the forward writes, and gives dq, dk and dv
+from the row log-sum-exp the forward writes (of the capped scores, with a
+cap, and then ``dS = P (dP - rowsum(dO O)) (1 - tanh^2(s / cap))``), and
+gives dq, dk and dv
 (summed over each GQA group in a fixed order, so bit-identical from run
 to run); autograd through ``flash_attention_plain`` is its plain
 version.
@@ -45,13 +51,15 @@ launches = {"fwd": 0, "bwd": 0}  # kernel launches through ``flash_attention``
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          return_lse: bool = False):
+                          softcap: float = 0.0, return_lse: bool = False):
     """The kernel's algorithm in plain PyTorch: kv tiles of ``BLOCK_K``
     folded into fp32 running max/sum/accumulator, masked with the finite
     ``NEG_INF``, ``l == 0 -> 1`` at the end.  Ragged ``Skv`` is a short
-    last tile.  With ``return_lse`` also the rows' log-sum-exp of the
-    scaled scores, fp32 ``(B, H, Sq)`` (+inf where a row saw no key), as
-    the kernel writes it for the backward."""
+    last tile.  ``softcap > 0`` caps each scaled score to
+    ``softcap * tanh(s / softcap)`` before the mask.  With ``return_lse``
+    also the rows' log-sum-exp of the (capped) scaled scores, fp32
+    ``(B, H, Sq)`` (+inf where a row saw no key), as the kernel writes it
+    for the backward."""
     B, Sq, H, d = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -65,6 +73,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         kt = k[:, k0:k0 + BLOCK_K].to(f32)
         vt = v[:, k0:k0 + BLOCK_K].to(f32)
         s = torch.einsum("bsngh,btnh->bngst", qg, kt)
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
         k_pos = torch.arange(k0, k0 + kt.shape[1], device=q.device)[None, :]
         ok = torch.ones((Sq, kt.shape[1]), dtype=torch.bool, device=q.device)
         if causal:
@@ -89,10 +99,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _check(q, k, v, causal, window, softcap) -> None:
-    if softcap:
-        raise NotImplementedError(
-            "flash_attention has no logit softcap (the Pallas kernel has "
-            "none); softcap in the kernel is queued with the grok-1 port")
+    if not softcap >= 0:
+        raise ValueError(f"softcap must be >= 0 (0: none), got {softcap}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, heads, d)")
     B, Sq, H, d = q.shape
@@ -132,7 +140,7 @@ def _check_kernel(q, k, v) -> None:
                          f"not {q.shape[0] * q.shape[2]}")
 
 
-def _forward(q, k, v, causal, window, want_lse):
+def _forward(q, k, v, causal, window, softcap, want_lse):
     """Launch the forward kernel -> ``(o, lse or None)``."""
     B, Sq, H, d = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -144,7 +152,7 @@ def _forward(q, k, v, causal, window, want_lse):
     err = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], B, Sq, Skv, H,
-        KV, d, *strides, int(bool(causal)), int(window), stream)
+        KV, d, *strides, int(bool(causal)), int(window), float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: {_error(err)}")
     launches["fwd"] += 1
@@ -154,13 +162,13 @@ def _forward(q, k, v, causal, window, want_lse):
 class FlashAttentionFunction(torch.autograd.Function):
     """The CUDA kernels under autograd: ``forward`` launches the forward
     kernel with the row LSE, ``backward`` the backward kernels (a
-    ``rowsum(dO * O)`` pre-pass, then dk/dv and dq)."""
+    ``rowsum(dO * O)`` pre-pass, then dk/dv and dq), with the same cap."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o, lse = _forward(q, k, v, causal, window, want_lse=True)
+    def forward(ctx, q, k, v, causal, window, softcap=0.0):
+        o, lse = _forward(q, k, v, causal, window, softcap, want_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return o
 
     @staticmethod
@@ -178,28 +186,28 @@ class FlashAttentionFunction(torch.autograd.Function):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rowdot.data_ptr(),
             _DTYPE_CODE[q.dtype], B, Sq, Skv, H, KV, d, int(bool(ctx.causal)),
-            int(ctx.window), stream)
+            int(ctx.window), float(ctx.softcap), stream)
         if err != 0:
             raise RuntimeError(f"flash_attention backward kernel launch failed: {_error(err)}")
         launches["bwd"] += 1
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
-    """Attention.  CUDA tensors launch the kernels on the current stream (no
-    synchronisation): through ``FlashAttentionFunction`` when grad mode is
-    on and an input requires grad, else the forward alone.  CPU tensors
-    take the plain version."""
+    """Attention, with an optional logit softcap (0: none).  CUDA tensors
+    launch the kernels on the current stream (no synchronisation): through
+    ``FlashAttentionFunction`` when grad mode is on and an input requires
+    grad, else the forward alone.  CPU tensors take the plain version."""
     _check(q, k, v, causal, window, softcap)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check_kernel(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFunction.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, want_lse=False)[0]
+        return FlashAttentionFunction.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap, want_lse=False)[0]
 
 
 _fns = None
@@ -218,11 +226,11 @@ def _lib():
         from repro_torch.kernels import _build
 
         lib = _build.load("flash_attention")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.flash_attention_fwd.restype = i
-        lib.flash_attention_fwd.argtypes = [p] * 5 + [i] * 7 + [ll] * 12 + [i] * 2 + [p]
+        lib.flash_attention_fwd.argtypes = [p] * 5 + [i] * 7 + [ll] * 12 + [i] * 2 + [f, p]
         lib.flash_attention_bwd.restype = i
-        lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [p]
+        lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [f, p]
         lib.flash_attention_error_site.restype = ctypes.c_char_p
         lib.flash_attention_error_site.argtypes = []
         _fns = lib

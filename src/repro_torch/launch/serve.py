@@ -4,11 +4,15 @@
   python -m repro_torch.launch.serve --arch llama3-8b --continuous [--qps 20]
 
 Mirrors ``repro/launch/serve.py``: the arch's ``reduced()`` config with
-random weights from a seeded ``torch.Generator``.  Default mode runs the
-fixed-batch engine: batched prefill + greedy decode.  ``--continuous``
-serves a generated Poisson request trace through the paged
-continuous-batching engine and reports per-request latency percentiles.
-Runs on the card; ``--device cpu`` runs on the CPU.
+random weights from a seeded ``torch.Generator``, drawn straight into the
+serving dtype.  Default mode runs the fixed-batch engine: batched prefill
++ greedy decode, for every decoder-only family (``attn_mlp``, ``moe``;
+``rwkv6`` and ``mamba2`` feed the prompt token by token).
+``--continuous`` serves a generated Poisson request trace through the
+paged continuous-batching engine and reports per-request latency
+percentiles; as in the reference, it takes the KV-cache families
+(``attn_mlp``, ``moe``) and refuses the others.  Runs on the card;
+``--device cpu`` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ def _setup(args):
     cfg = get_config(args.arch).reduced()
     api = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)
-    return cfg, api.init(gen, device), device
+    return cfg, api.init(gen, device, dtype=cfg.dtype), device
 
 
 def _run_fixed(args):

@@ -9,7 +9,8 @@ FULL config (``TRAIN_4K`` on 256 devices, ``--amp-limit``), what
 production would run, then the arch's ``reduced()`` config trained by
 ``train.loop.train`` on the skewed-unigram synthetic data, with
 checkpoint/restart when ``--ckpt-dir`` is given.  Trains the ``attn_mlp``,
-``rwkv6`` and ``mamba2`` families.  Runs on the card; ``--device cpu``
+``moe``, ``rwkv6`` and ``mamba2`` families, with the config's optimizer
+(AdamW, or Adafactor for qwen2-72b and grok-1).  Runs on the card; ``--device cpu``
 runs on the CPU.  The full config is trained by calling ``train()``
 directly (as ``chip_smoke.py`` does).
 

@@ -2,9 +2,11 @@
 
 The port of ``repro/models/api.py``.  ``get_model(cfg)`` returns a
 ``ModelAPI`` whose members are plain functions of (params, inputs).  The
-``attn_mlp`` family (training, prefill and decode), the ``rwkv6`` family
-and the ``mamba2`` hybrid family (training and decode; no ``prefill``, as
-in the reference) are ported; every other family raises.
+``attn_mlp`` and ``moe`` families (training, prefill and decode), the
+``rwkv6`` family and the ``mamba2`` hybrid family (training and decode; no
+``prefill``, as in the reference) are ported; the encoder-decoder family
+and the vision frontend raise.  ``init(generator, device, dtype)`` draws
+the parameters (straight into a serving dtype when ``dtype`` is given).
 ``layer_graph(shape)`` is the model's burst-planner graph;
 ``train_input_specs`` is one training batch as ``meta``-device tensors;
 ``make_batch`` a random one.
@@ -34,8 +36,9 @@ class ModelAPI:
     prefill: Optional[Callable] = None
     loss: Optional[Callable] = None  # (params, batch) -> (loss, metrics)
 
-    def init(self, generator: torch.Generator, device: DeviceLike = None):
-        return init_params(self.schema, generator, device)
+    def init(self, generator: torch.Generator, device: DeviceLike = None,
+             dtype: Optional[str] = None):
+        return init_params(self.schema, generator, device, dtype)
 
     def layer_graph(self, shape: ShapeConfig):
         return build_lm_graph(self.cfg, shape)
@@ -43,7 +46,7 @@ class ModelAPI:
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.block_type in ("attn_mlp", "moe") and not cfg.num_encoder_layers:
-        # the transformer itself names what is not ported yet (MoE, vision)
+        # the transformer itself names what is not ported yet (vision)
         return ModelAPI(
             cfg=cfg,
             schema=transformer.lm_schema(cfg),
@@ -73,7 +76,8 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         )
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.block_type!r} is not ported yet "
-        "(ROADMAP Queue 1, item 10); the port runs attn_mlp, rwkv6 and mamba2 models")
+        "(ROADMAP Queue 1, item 10); the port runs attn_mlp, moe, rwkv6 and mamba2 "
+        "models")
 
 
 def train_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:

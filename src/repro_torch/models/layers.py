@@ -71,28 +71,68 @@ def _fan_in(shape: tuple) -> int:
     return int(max(1, math.prod(shape[:-1])))
 
 
+_WIDTH_AXES = ("embed", "embed_out", "vocab")  # the weight matrices' model-width axes
+
+
+def keeps_fp32(spec: ParamSpec) -> bool:
+    """Whether a serving copy keeps this leaf in fp32, as the reference
+    reads it (it holds fp32 parameters and casts the matrices at each use):
+    every leaf with no model-width axis (norm scales, biases, RWKV's bonus,
+    Mamba-2's ``dt_bias``/``A_log``/gate norm), every leaf with a 'norm'
+    axis (RWKV's decay LoRA), and the MoE router (last axis 'expert'),
+    which routes in fp32.  The rest are the weight matrices, which every
+    family reads in the compute dtype."""
+    return ("norm" in spec.axes or spec.axes[-1] == "expert"
+            or not any(a in _WIDTH_AXES for a in spec.axes))
+
+
+def _std(spec: ParamSpec) -> float:
+    if spec.init in ("embed", "small_normal"):
+        return spec.scale if spec.scale is not None else 0.02
+    return spec.scale if spec.scale is not None else 1.0 / math.sqrt(_fan_in(spec.shape))
+
+
+_INIT_CHUNK = 1 << 26  # elements drawn in fp32 at a time by a direct init
+
+
 def init_leaf(spec: ParamSpec, generator: torch.Generator,
-              device: torch.device) -> torch.Tensor:
-    dt = as_dtype(spec.dtype)
+              device: torch.device, dtype=None) -> torch.Tensor:
+    """One leaf: zeros, ones, or a normal draw of the reference's std.
+    With ``dtype`` the leaf is made in that dtype and a normal draw is
+    written chunk by chunk (at most ``_INIT_CHUNK`` elements, a slice of
+    the stacked layers axis or less, in fp32 at a time), so no fp32 copy of
+    the whole leaf exists."""
+    dt = as_dtype(spec.dtype if dtype is None else dtype)
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dt, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dt, device=device)
-    if spec.init in ("embed", "small_normal"):
-        std = spec.scale if spec.scale is not None else 0.02
-    else:
-        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(_fan_in(spec.shape))
-    x = torch.randn(spec.shape, generator=generator, device=device,
-                    dtype=torch.float32)
-    return (x * std).to(dt)
+    std = _std(spec)
+    if dtype is None:
+        x = torch.randn(spec.shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (x * std).to(dt)
+    out = torch.empty(spec.shape, dtype=dt, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), _INIT_CHUNK):
+        n = min(_INIT_CHUNK, flat.numel() - i)
+        x = torch.randn((n,), generator=generator, device=device, dtype=torch.float32)
+        flat[i:i + n] = x.mul_(std)
+    return out
 
 
 def init_params(schema: Any, generator: torch.Generator,
-                device: DeviceLike = None) -> Any:
+                device: DeviceLike = None, dtype=None) -> Any:
     """Random parameters for ``schema`` on ``device`` (default: the card).
-    ``generator`` must live on that device."""
+    ``generator`` must live on that device.  With ``dtype`` (a serving
+    dtype) every weight matrix is drawn straight into it and the
+    ``keeps_fp32`` leaves in fp32: the tree ``serve.engine.serving_params``
+    makes, without an fp32 copy of the model ever existing."""
     dev = resolve_device(device)
-    return tree_map(lambda s: init_leaf(s, generator, dev), schema)
+    if dtype is None:
+        return tree_map(lambda s: init_leaf(s, generator, dev), schema)
+    return tree_map(lambda s: init_leaf(
+        s, generator, dev, torch.float32 if keeps_fp32(s) else dtype), schema)
 
 
 def zeros(schema: Any, device: torch.device) -> Any:

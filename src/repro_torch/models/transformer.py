@@ -1,7 +1,8 @@
-"""Decoder-only LM stack (the ``attn_mlp`` family), in PyTorch.
+"""Decoder-only LM stack (dense and MoE variants), in PyTorch.
 
-The port of ``repro/models/transformer.py`` for dense models (llama3-8b,
-qwen2, minicpm, ...).  Parameters are the reference's tree: nested dicts
+The port of ``repro/models/transformer.py``: the ``attn_mlp`` family
+(llama3-8b, qwen2, minicpm, ...) and the ``moe`` family (qwen3-moe,
+grok-1), whose blocks replace the MLP by ``models/moe.moe_apply``.  Parameters are the reference's tree: nested dicts
 with every per-layer leaf stacked on a leading ``layers`` axis; the
 reference's ``lax.scan`` over layers is a Python loop over that axis.
 
@@ -16,14 +17,15 @@ The training stack (``hidden_states``) rematerialises each layer as
 ``_maybe_remat``).
 
 ``decode_step`` writes the new KV entries into ``cache`` in place and
-returns the same tensors.  MoE blocks and the vision frontend are not
-ported yet (ROADMAP Queue 1, item 10).
+returns the same tensors.  The vision frontend is not ported yet (ROADMAP
+Queue 1, item 10).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.moe import moe_apply, moe_schema
 from repro_torch.models.layers import (
     ParamSpec,
     apply_rope,
@@ -44,16 +46,13 @@ from repro_torch.models.layers import (
 
 
 def _check_supported(cfg) -> None:
-    if cfg.block_type == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP Queue 1, item 10)")
     if cfg.frontend == "vision":
         raise NotImplementedError(
             f"{cfg.name}: the vision frontend is not ported yet "
             "(ROADMAP Queue 1, item 10)")
-    if cfg.block_type != "attn_mlp":
+    if cfg.block_type not in ("attn_mlp", "moe"):
         raise NotImplementedError(f"{cfg.name}: block_type {cfg.block_type!r} "
-                                  "is not a decoder-only attn_mlp model")
+                                  "is not a decoder-only attn_mlp or moe model")
 
 
 # ---------------------------------------------------------------------------
@@ -64,12 +63,16 @@ def _check_supported(cfg) -> None:
 def block_schema(cfg) -> dict:
     _check_supported(cfg)
     D = cfg.d_model
-    return {
+    s = {
         "ln1": ParamSpec((D,), ("norm",), init="zeros"),
         "ln2": ParamSpec((D,), ("norm",), init="zeros"),
         "attn": attention_schema(cfg),
-        "mlp": mlp_schema(cfg),
     }
+    if cfg.block_type == "moe":
+        s["moe"] = moe_schema(cfg)
+    else:
+        s["mlp"] = mlp_schema(cfg)
+    return s
 
 
 def lm_schema(cfg) -> dict:
@@ -94,8 +97,16 @@ def layer_params(params: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _ffn(p: dict, x: torch.Tensor, cfg) -> tuple:
+    """The block's MLP or MoE -> (out, MoE aux loss or None)."""
+    if cfg.block_type == "moe":
+        return moe_apply(p["moe"], x, cfg)
+    return mlp_apply(p["mlp"], x), None
+
+
 def decoder_block(p: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> tuple:
-    """Full-sequence (train/prefill) block. Returns (h, (k, v))."""
+    """Full-sequence (train/prefill) block. Returns (h, (k, v), aux): aux
+    is the MoE load-balancing loss, None for a dense block."""
     a_in = rms_norm(h, p["ln1"], cfg.norm_eps)
     q, k, v = qkv_project(p["attn"], a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -105,7 +116,8 @@ def decoder_block(p: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> tup
     )
     h = h + out_project(p["attn"], attn_out)
     m_in = rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + mlp_apply(p["mlp"], m_in), (k, v)
+    out, aux = _ffn(p, m_in, cfg)
+    return h + out, (k, v), aux
 
 
 def decoder_block_decode(p: dict, h: torch.Tensor, k_cache: torch.Tensor,
@@ -138,7 +150,7 @@ def decoder_block_decode(p: dict, h: torch.Tensor, k_cache: torch.Tensor,
     )
     h = h + out_project(p["attn"], attn_out)
     m_in = rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + mlp_apply(p["mlp"], m_in), k_cache, v_cache
+    return h + _ffn(p, m_in, cfg)[0], k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -166,30 +178,35 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device).expand(B, S)
 
 
-def _block_h(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
-    return decoder_block(lp, h, positions, cfg)[0]
+def _block_h(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> tuple:
+    h, _, aux = decoder_block(lp, h, positions, cfg)
+    return h, aux
 
 
-def hidden_states(params: dict, tokens, cfg) -> torch.Tensor:
+def hidden_states(params: dict, tokens, cfg) -> tuple:
+    """Embed and run the layer stack -> (h, the layers' mean MoE aux loss,
+    an fp32 zero for a dense model)."""
     _check_supported(cfg)
     h = embed_tokens(params, tokens, cfg)
     B, S, _ = h.shape
     positions = _positions(B, S, h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in unstack(params["layers"], cfg.num_layers):
-        h = remat(cfg, _block_h, lp, h, positions, cfg)
-    return h
+        h, a = remat(cfg, _block_h, lp, h, positions, cfg)
+        if a is not None:
+            aux = aux + a
+    return h, aux / cfg.num_layers
 
 
 def forward(params: dict, tokens, cfg) -> torch.Tensor:
-    return unembed(params, hidden_states(params, tokens, cfg), cfg)
+    return unembed(params, hidden_states(params, tokens, cfg)[0], cfg)
 
 
 def loss_fn(params: dict, batch: dict, cfg) -> tuple:
     """batch: tokens (B,S), labels (B,S) (-1 = masked).  Masked
-    cross-entropy plus ``0.01 * aux``; ``aux`` (the MoE load-balancing
-    loss) is an fp32 zero until MoE is ported.  Returns (loss, metrics)."""
-    h = hidden_states(params, batch["tokens"], cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    cross-entropy plus ``0.01 * aux``, the layers' mean MoE load-balancing
+    loss (zero for a dense model).  Returns (loss, metrics)."""
+    h, aux = hidden_states(params, batch["tokens"], cfg)
     logits = unembed(params, h, cfg)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = (labels >= 0).float()
@@ -208,7 +225,7 @@ def prefill(params: dict, tokens, cfg, cache_capacity: int) -> tuple:
     positions = _positions(B, S, h.device)
     cache = zeros(cache_schema(cfg, B, cache_capacity), h.device)
     for i in range(cfg.num_layers):
-        h, (k, v) = decoder_block(layer_params(params, i), h, positions, cfg)
+        h, (k, v), _ = decoder_block(layer_params(params, i), h, positions, cfg)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     logits = unembed(params, h[:, -1:], cfg)[:, 0]

@@ -1,16 +1,17 @@
 """Optimizers + LR schedules, in PyTorch.
 
 The port of ``repro/optim/optimizer.py``: the WSD, cosine and constant
-schedules, ``global_norm``/``clip_by_global_norm`` and AdamW with
-decoupled weight decay on leaves with ``ndim >= 2``.  Parameters and state
-are nested dicts of tensors in the reference's layout (``{"m", "v",
-"count"}``), so checkpoints carry over both ways.
+schedules, ``global_norm``/``clip_by_global_norm``, AdamW with decoupled
+weight decay on leaves with ``ndim >= 2``, and Adafactor (qwen2-72b,
+grok-1) with factored second moments over the last two dims.  Parameters
+and state are nested dicts of tensors in the reference's layout (AdamW's
+``{"m", "v", "count"}``, Adafactor's ``{"stats", "count"}``), so
+checkpoints carry over both ways.
 
-Unlike the reference's pure ``update``, ``adamw``'s ``update`` writes the
-new moments and parameters in place (under ``no_grad``) and returns the
-same tensors: at rwkv6-1.6b's 1.6 B fp32 parameters a functional update
-would hold a second copy of parameters and moments, 19 GB.  Adafactor
-(qwen2-72b, grok-1) is not ported yet.
+Unlike the reference's pure ``update``, both ``update``s write the new
+state and parameters in place (under ``no_grad``) and return the same
+tensors: at rwkv6-1.6b's 1.6 B fp32 parameters a functional update would
+hold a second copy of parameters and moments, 19 GB.
 """
 from __future__ import annotations
 
@@ -135,13 +136,106 @@ def adamw(
     return Optimizer(init, update, state_schema)
 
 
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moments over the trailing two dims)
+# ---------------------------------------------------------------------------
+
+
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2
+
+
+def _param_stats(params, stats) -> list:
+    """(param, its stats dict) pairs in ``tree_leaves``' order: a stats
+    tree is the parameter tree with a dict of moments at each leaf."""
+    if isinstance(params, dict):
+        return [pair for k in sorted(params) for pair in _param_stats(params[k], stats[k])]
+    return [(params, stats)]
+
+
+def adafactor(
+    lr: Callable,
+    decay: float = 0.8,
+    eps: float = 1.0e-30,
+    clip_threshold: float = 1.0,
+    max_grad_norm: float = 1.0,
+) -> Optimizer:
+    """Adafactor [arXiv:1804.04235] as the reference has it: no first
+    moment; for a leaf whose last two dims are both >= 2 the second moment
+    is factored into row (``vr``) and column (``vc``) means, else a full
+    ``v``; ``beta = 1 - count^-decay``; the update clipped to RMS
+    ``clip_threshold`` per leaf, after global-norm clipping of the
+    gradients; no weight decay."""
+
+    def init(params):
+        def st(p):
+            if _factored(p.shape):
+                return {
+                    "vr": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
+                                      device=p.device),
+                }
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+
+        # the count on the host, as adamw's
+        return {"stats": tree_map(st, params), "count": torch.zeros((), dtype=torch.int32)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        count = state["count"] + 1
+        cf = float(count)
+        beta = 1.0 - cf ** (-decay)
+        lr_t = lr(cf)
+
+        def upd(g, st, p):
+            g = g.float()
+            g2 = torch.square(g) + eps
+            if _factored(p.shape):
+                vr, vc = st["vr"], st["vc"]
+                vr.mul_(beta).add_(g2.mean(dim=-1), alpha=1 - beta)
+                vc.mul_(beta).add_(g2.mean(dim=-2), alpha=1 - beta)
+                rfac = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+                u = g / (torch.sqrt(rfac)[..., None] * torch.sqrt(vc)[..., None, :] + eps)
+            else:
+                v = st["v"]
+                v.mul_(beta).add_(g2, alpha=1 - beta)
+                u = g / (torch.sqrt(v) + eps)
+            # update clipping (RMS <= clip_threshold)
+            rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            p.copy_(p.float() - lr_t * u)
+
+        for g, (p, st) in zip(tree_leaves(grads), _param_stats(params, state["stats"])):
+            upd(g, st, p)
+        return params, {"stats": state["stats"], "count": count}
+
+    def state_schema(schema):
+        def st(s):
+            if _factored(s.shape):
+                return {
+                    "vr": ParamSpec(s.shape[:-1], s.axes[:-1], init="zeros", dtype="float32"),
+                    "vc": ParamSpec(s.shape[:-2] + s.shape[-1:], s.axes[:-2] + s.axes[-1:],
+                                    init="zeros", dtype="float32"),
+                }
+            return {"v": ParamSpec(s.shape, s.axes, init="zeros", dtype="float32")}
+
+        return {
+            "stats": tree_map(st, schema),
+            "count": ParamSpec((), (), init="zeros", dtype="int32"),
+        }
+
+    return Optimizer(init, update, state_schema)
+
+
 def make_optimizer(cfg, total_steps: int = 10_000) -> Optimizer:
-    if cfg.optimizer == "adafactor":
-        raise NotImplementedError(
-            f"{cfg.name}: adafactor is not ported yet (ROADMAP Queue 1, item 5)")
+    """The schedule (WSD for minicpm, else cosine), then the config's
+    optimizer (``adafactor`` or AdamW), as the reference picks them."""
     if cfg.name.startswith("minicpm"):
         sched = wsd_schedule(1e-3 * 0.3, warmup=int(0.01 * total_steps),
                              stable=int(0.79 * total_steps), decay=int(0.2 * total_steps))
     else:
         sched = cosine_schedule(3e-4, warmup=min(2000, total_steps // 10), total=total_steps)
+    if cfg.optimizer == "adafactor":
+        return adafactor(sched)
     return adamw(sched)

@@ -3,7 +3,10 @@
 The port of ``repro/serve/engine.py``.  ``ServingEngine`` is the
 fixed-batch engine: requests are grouped into one batch; finished
 sequences are masked to EOS (output and fed-back token) while the batch
-keeps stepping.
+keeps stepping.  It serves every decoder-only family: ``attn_mlp`` and
+``moe`` through their fused prefill, ``rwkv6`` and ``mamba2`` (which have
+none) by feeding the prompt through ``decode_step`` one token at a time,
+as the reference does.
 
 ``ContinuousBatchingEngine`` serves a request *stream*: a paged KV pool
 (``serve/kvcache.py``) replaces the contiguous per-batch cache, each batch
@@ -14,8 +17,11 @@ carvings (the reference's ``submeshes``) waits for the multi-device layer.
 
 Both engines take ``device`` (default: the card; they raise when there is
 none) and cast the weights to ``cfg.dtype`` once at construction — the
-reference casts them at every use, with the same numbers — keeping norm
-scales in fp32 as the reference's ``rms_norm`` reads them.  The engines
+reference casts them at every use, with the same numbers — keeping the
+leaves the reference reads in fp32 (norm scales, biases, the recurrent
+families' decay parameters, the MoE router) in fp32 (``layers.keeps_fp32``).  Weights drawn by ``ModelAPI.init(..., dtype=
+cfg.dtype)`` are already in that form, and the cast leaves them as they
+are.  The engines
 synchronise the device where the reference called ``block_until_ready``,
 so ``prefill_s``/``decode_s`` time finished work.
 """
@@ -30,7 +36,7 @@ import torch
 
 from repro_torch._device import DeviceLike, as_dtype, resolve_device, sync
 from repro_torch.models.api import ModelAPI, get_model
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import keeps_fp32, tree_map
 from repro_torch.serve.kvcache import (
     SCRATCH_PAGE,
     PageAllocator,
@@ -63,24 +69,21 @@ class ServeStats:
 
 
 def serving_params(api: ModelAPI, params: dict, device: torch.device) -> dict:
-    """``params`` on ``device``, every weight in ``cfg.dtype`` and every
-    norm scale (logical axis 'norm') in fp32."""
+    """``params`` on ``device``, every weight matrix in ``cfg.dtype`` and
+    the ``keeps_fp32`` leaves (norm scales, biases, decay parameters, the
+    MoE router) in fp32.  A leaf already so placed and typed is returned as
+    it is (no copy)."""
     dt = as_dtype(api.cfg.dtype)
 
     def prep(x, spec):
-        keep = spec.axes[-1] == "norm"
-        return x.to(device=device, dtype=torch.float32 if keep else dt)
+        return x.to(device=device, dtype=torch.float32 if keeps_fp32(spec) else dt)
 
     return tree_map(prep, params, api.schema)
 
 
-def _serving_api(cfg) -> ModelAPI:
-    api = get_model(cfg)
-    if api.prefill is None:
-        raise NotImplementedError(
-            f"{cfg.name}: serving the {cfg.block_type!r} family is not ported yet "
-            "(ROADMAP Queue 1, item 8)")
-    return api
+# the families whose prompt runs through one fused prefill; the others
+# feed it token by token through decode_step (the reference's test)
+FUSED_PREFILL = ("attn_mlp", "moe")
 
 
 class ServingEngine:
@@ -88,7 +91,7 @@ class ServingEngine:
                  device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.api = _serving_api(cfg)
+        self.api = get_model(cfg)
         self.params = serving_params(self.api, params, self.device)
         self.batch = batch
         self.capacity = capacity
@@ -105,14 +108,24 @@ class ServingEngine:
         return torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
 
     def prefill(self, prompts: np.ndarray) -> torch.Tensor:
-        """prompts: (batch, prompt_len) int32 -> last-position logits."""
+        """prompts: (batch, prompt_len) int32 -> last-position logits.  A
+        family with a fused prefill runs it; the others feed the prompt
+        through ``decode_step`` one token at a time (the cache-building
+        path shared with decode)."""
         t0 = time.perf_counter()
         B, P = prompts.shape
         if B != self.batch:
             raise ValueError(f"got {B} prompts for a batch of {self.batch}")
-        last_logits, self._cache = self.api.prefill(self.params, self._ids(prompts),
-                                                    self.capacity)
-        self._len = P
+        if self.api.prefill is not None and self.cfg.block_type in FUSED_PREFILL:
+            last_logits, self._cache = self.api.prefill(self.params, self._ids(prompts),
+                                                        self.capacity)
+            self._len = P
+        else:
+            ids = self._ids(prompts)
+            for i in range(P):
+                last_logits, self._cache = self.api.decode_step(
+                    self.params, ids[:, i:i + 1], self._cache, self._len)
+                self._len += 1
         sync(self.device)
         self.stats.prefill_s += time.perf_counter() - t0
         self.stats.prefills += 1
@@ -174,13 +187,13 @@ class ContinuousBatchingEngine:
     def __init__(self, cfg, params, *, lanes: int, n_pages: int,
                  page_tokens: int = 16, lane_capacity: int = 128,
                  debug_checks: bool = False, device: DeviceLike = None):
-        if cfg.block_type not in ("attn_mlp", "moe"):
+        if cfg.block_type not in FUSED_PREFILL:
             raise ValueError(
                 f"paged serving needs a KV-cache family, got {cfg.block_type}"
             )
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.api = _serving_api(cfg)
+        self.api = get_model(cfg)
         self.lanes = lanes
         self.page_tokens = page_tokens
         self.max_pages = -(-lane_capacity // page_tokens)

@@ -10,6 +10,8 @@ backward kernel's plain version) against ``jax.grad`` of the reference's
 ``full_attention``; and the model-level paths against
 ``repro.models.attention``.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -99,8 +101,10 @@ def test_ops_attention_on_cpu_takes_plain_path_without_launch():
 
 def test_wrapper_rejects_what_the_kernel_cannot_take():
     (_, _, _), (tq, tk, tv) = _both(_qkv(1, 8, 8, 4, 2, 32, 2), "float32")
-    with pytest.raises(NotImplementedError, match="softcap"):
-        fa.flash_attention(tq, tk, tv, softcap=30.0)
+    with pytest.raises(ValueError, match="softcap"):  # a cap is > 0, or 0 for none
+        fa.flash_attention(tq, tk, tv, softcap=-1.0)
+    torch.testing.assert_close(fa.flash_attention(tq, tk, tv, softcap=30.0),
+                               fa.flash_attention_plain(tq, tk, tv, softcap=30.0))
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention(tq[:, :, :3], tk, tv)
     with pytest.raises(ValueError, match="shape"):
@@ -180,6 +184,85 @@ def test_plain_gradients_match_jax_grad(H, KV, d, causal, window, S, dtype):
         else:
             atol = rtol = GRAD_TOL[dtype]
         np.testing.assert_allclose(g.float().numpy(), w, atol=atol, rtol=rtol)
+
+
+# softcap: the reference's models/attention paths are the oracle (the Pallas
+# kernel has none)
+@pytest.mark.parametrize("oracle", ["full", "blocked"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV,causal,window,cap", [
+    (4, 4, True, 0, 30.0), (4, 2, True, 96, 30.0), (8, 1, True, 0, 5.0),
+    (4, 2, False, 0, 5.0), (6, 2, True, 40, 2.0)])
+def test_plain_softcap_matches_reference(H, KV, causal, window, cap, dtype, oracle):
+    """``flash_attention_plain(softcap=...)`` against the reference's
+    ``full_attention`` and ``blocked_attention`` with the same cap:
+    causal, window, GQA, non-causal; S = 256 spans two kv tiles."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(2, 256, 256, H, KV, 64, H + KV), dtype)
+    jq, tq = jq * 3, tq * 3  # scores of a few units: the cap bends them
+    if oracle == "full":
+        ref = functools.partial(ref_attn.full_attention, causal=causal, window=window,
+                                softcap=cap)
+    else:
+        ref = functools.partial(ref_attn.blocked_attention, causal=causal, window=window,
+                                softcap=cap, block_q=128)
+    want = jax.jit(ref)(jq, jk, jv)
+    got = fa.flash_attention_plain(tq, tk, tv, causal=causal, window=window, softcap=cap)
+    assert got.dtype == tq.dtype
+    _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,KV,d,causal,window,S,cap", [
+    (4, 2, 64, True, 0, 64, 30.0), (8, 1, 32, True, 24, 100, 5.0),
+    (4, 4, 80, False, 0, 50, 5.0), (2, 2, 128, True, 0, 129, 30.0)])
+def test_plain_softcap_gradients_match_jax_grad(H, KV, d, causal, window, S, cap, dtype):
+    """dq, dk, dv through the capped ``flash_attention_plain`` (the capped
+    backward kernels' plain version) against ``jax.grad`` of the
+    reference's ``full_attention`` with the same cap, at ``GRAD_TOL``."""
+    arrs = _qkv(2, S, S, H, KV, d, H * d + S + 1)
+    arrs = (3 * arrs[0],) + arrs[1:]
+    proj = np.random.default_rng(3).standard_normal((2, S, H, d)).astype(np.float32)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrs, dtype)
+    jproj = jnp.asarray(proj).astype(jnp.dtype(dtype))
+
+    def jloss(q, k, v):
+        o = ref_attn.full_attention(q, k, v, causal=causal, window=window, softcap=cap)
+        return jnp.sum((o * jproj).astype(jnp.float32))
+
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(jq, jk, jv)
+    leaves = [t.requires_grad_() for t in (tq, tk, tv)]
+    o = fa.flash_attention_plain(*leaves, causal=causal, window=window, softcap=cap)
+    got = torch.autograd.grad((o * torch.from_numpy(proj).to(o.dtype)).float().sum(), leaves)
+    for g, w in zip(got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        if dtype == "bfloat16":
+            atol, rtol = GRAD_TOL[dtype] * float(np.abs(w).max()), 0.0
+        else:
+            atol = rtol = GRAD_TOL[dtype]
+        np.testing.assert_allclose(g.float().numpy(), w, atol=atol, rtol=rtol)
+
+
+def test_softcap_masks_after_the_cap():
+    """A small cap, where masking first would leak: tanh of the mask value
+    is -cap, so a key masked before the cap would keep a weight of
+    exp(-cap - m).  Row 0 of causal attention sees key 0 alone, so its
+    output is v[0]; the window's rows see only their window.  The plain
+    version and its LSE against the reference's ``full_attention``."""
+    cap = 0.5
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 40, 40, 4, 2, 32, 7), "float32")
+    out, lse = fa.flash_attention_plain(tq, tk, tv, causal=True, softcap=cap,
+                                        return_lse=True)
+    torch.testing.assert_close(out[:, 0], tv[:, 0].repeat_interleave(2, dim=1))
+    ref = jax.jit(ref_attn.full_attention, static_argnames=("causal", "window", "softcap"))
+    _close(out, ref(jq, jk, jv, causal=True, softcap=cap), TOL["float32"])
+    # the row LSE is that of the capped scores: row 0 has one live key
+    s0 = cap * torch.tanh((tq[:, 0] * tk[:, 0].repeat_interleave(2, dim=1)).sum(-1)
+                          / np.sqrt(32) / cap)
+    torch.testing.assert_close(lse[:, :, 0], s0)
+    win = fa.flash_attention_plain(tq, tk, tv, causal=True, window=3, softcap=cap)
+    _close(win, ref(jq, jk, jv, causal=True, window=3, softcap=cap), TOL["float32"])
+    leak = fa.flash_attention_plain(tq, tk, tv, causal=False, softcap=cap)
+    assert not torch.allclose(leak[:, 0], out[:, 0], atol=1e-3)
 
 
 def _jax_lse(jq, jk, causal, window):

@@ -1,6 +1,7 @@
 """The port's optimizer (``repro_torch.optim.optimizer``) against the
-reference's: five AdamW updates on the same gradients (fp32, 1e-6), the
-schedules at a list of steps, global-norm clipping and ``make_optimizer``.
+reference's: five AdamW updates and five Adafactor updates on the same
+gradients (fp32, 1e-6), the schedules at a list of steps, global-norm
+clipping, the state schemas and ``make_optimizer``.
 """
 import jax
 import jax.numpy as jnp
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from repro.optim import optimizer as ref_opt
+from repro_torch.checkpoint.ckpt import flatten
 from repro_torch.optim import optimizer as opt
 from repro_torch.configs import get_config
 from test_torch_bridge import port_config, small_config
@@ -118,7 +120,58 @@ def test_make_optimizer_schedule(arch):
 
 
 def test_adafactor_waits():
-    cfg = get_config("qwen2-72b")
-    assert cfg.optimizer == "adafactor"
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        opt.make_optimizer(cfg)
+    """Adafactor no longer waits: ``make_optimizer`` routes the configs
+    that ask for it (qwen2-72b, grok-1) to the port's adafactor, whose
+    state is the reference's ``{"stats", "count"}``."""
+    for arch in ("qwen2-72b", "grok-1-314b"):
+        cfg = get_config(arch)
+        assert cfg.optimizer == "adafactor"
+        o = opt.make_optimizer(cfg)
+        tree = _torch(_tree(0))
+        assert sorted(o.init(tree)) == ["count", "stats"]
+
+
+@pytest.mark.parametrize("grad_scale", [0.01, 10.0])  # below / above the clip norm of 1
+def test_adafactor_five_updates(grad_scale):
+    """Five Adafactor updates against the reference's on factored (the
+    (6, 5) and stacked (2, 4, 3) leaves), unfactored (1-d, and a dim of 1)
+    and scalar leaves: parameters and every moment at 1e-6."""
+    sched_args = dict(peak_lr=1e-2, warmup=2, total=10)
+    ref = ref_opt.adafactor(ref_opt.cosine_schedule(**sched_args))
+    port = opt.adafactor(opt.cosine_schedule(**sched_args))
+
+    def tree(seed, scale=1.0):
+        t = _tree(seed, scale)
+        rng = np.random.default_rng(seed + 100)
+        t["thin"] = (scale * rng.standard_normal((1, 6))).astype(np.float32)
+        t["scalar"] = np.array(scale * rng.standard_normal(), np.float32)
+        return t
+
+    jp, tp = _jax(tree(0)), _torch(tree(0))
+    jstate, tstate = ref.init(jp), port.init(tp)
+    assert sorted(flatten(tstate["stats"])) == sorted(
+        "/".join(k.key for k in kp)
+        for kp, _ in jax.tree_util.tree_flatten_with_path(jstate["stats"])[0])
+    for i in range(5):
+        g = tree(10 + i, grad_scale)
+        jp, jstate = ref.update(_jax(g), jstate, jp)
+        tp, tstate = port.update(_torch(g), tstate, tp)
+        _close(tp, jp)
+        _close(tstate["stats"], jstate["stats"])
+        assert int(tstate["count"]) == int(jstate["count"]) == i + 1
+
+
+def test_adafactor_state_schema_matches_reference():
+    from repro.models import get_model as ref_get_model
+    from repro.models.layers import is_spec as ref_is_spec
+    from repro_torch.models import get_model
+
+    for arch in ("qwen2-72b", "grok-1-314b"):
+        cfg = small_config(arch)
+        want = ref_opt.make_optimizer(cfg).state_schema(ref_get_model(cfg).schema)
+        want = {"/".join(k.key for k in kp): (s.shape, s.dtype) for kp, s in
+                jax.tree_util.tree_flatten_with_path(want, is_leaf=ref_is_spec)[0]}
+        pcfg = port_config(cfg)
+        got = opt.make_optimizer(pcfg).state_schema(get_model(pcfg).schema)
+        assert {k: (s.shape, s.dtype) for k, s in flatten(got).items()} == want
+        assert any(k.endswith("/vr") for k in want) and any(k.endswith("/v") for k in want)

@@ -4,7 +4,12 @@ Paged gather/scatter against the reference helpers, the allocator's
 invariants, greedy tokens of the port's continuous engine equal to the
 reference engine's over ``benchmarks/traces/requests_smoke.json`` (fp32,
 reduced llama3-8b, bridged weights), and the port's continuous engine equal
-to its fixed-batch engine, as the reference asserts of itself.
+to its fixed-batch engine, as the reference asserts of itself.  Every
+decoder-only family through ``ServingEngine``: greedy tokens equal to the
+reference engine's for reduced rwkv6-1.6b and zamba2-2.7b (prompts fed
+token by token) and qwen3-moe-30b-a3b and grok-1-314b (fused prefill);
+the continuous engine's for the MoE configs over the smoke trace; and the
+serving CLI for each family.
 """
 import os
 
@@ -16,6 +21,7 @@ import torch
 
 from repro.serve import kvcache as ref_kv
 from repro.serve.engine import ContinuousBatchingEngine as RefContinuous
+from repro.serve.engine import ServingEngine as RefServing
 from repro.serve.scheduler import ContinuousScheduler as RefScheduler
 from repro.serve.trace import load_requests as ref_load_requests
 from repro.models import get_model as ref_get_model
@@ -179,3 +185,58 @@ def test_continuous_engine_refuses_families_without_a_kv_cache(arch):
     with pytest.raises(ValueError, match="paged serving needs a KV-cache family") as got:
         ContinuousBatchingEngine(port_config(cfg), {}, lanes=1, n_pages=4, device="cpu")
     assert str(got.value) == str(want.value)
+
+
+SERVED = ["rwkv6-1.6b", "zamba2-2.7b", "qwen3-moe-30b-a3b", "grok-1-314b"]
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_serving_engine_greedy_tokens_match_reference(arch):
+    """``ServingEngine.generate`` against the reference's on the same
+    prompts and bridged weights (fp32): the recurrent families feed the
+    prompt through ``decode_step`` token by token, the MoE ones run their
+    fused prefill, as in the reference."""
+    cfg = small_config(arch)
+    jparams, tparams = bridged(cfg)
+    prompts = np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 7), dtype=np.int32)
+    want = RefServing(cfg, jparams, batch=2, capacity=16).generate(prompts, 5)
+    eng = ServingEngine(port_config(cfg), tparams, batch=2, capacity=16, device="cpu")
+    got = eng.generate(prompts, 5)
+    np.testing.assert_array_equal(got, want)
+    assert eng.stats.prefills == 1 and eng.stats.decode_steps == 4
+    assert (eng.api.prefill is None) == (arch in ("rwkv6-1.6b", "zamba2-2.7b"))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])
+def test_continuous_greedy_tokens_match_reference_engine_moe(arch, monkeypatch):
+    """The MoE family through both continuous engines over the smoke trace.
+    An expert's capacity depends on the tokens of the call, so a decode
+    tick's tokens depend on which lanes are live: both schedulers run on
+    the same fixed-step clock (each engine operation lasts 1 ms), so both
+    engines see the same lanes at every tick."""
+    import itertools
+    import types
+
+    from repro.serve import scheduler as ref_sched_mod
+    from repro_torch.serve import scheduler as sched_mod
+
+    for mod in (ref_sched_mod, sched_mod):
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+            perf_counter=itertools.count(0.0, 1e-3).__next__))
+    cfg = small_config(arch)
+    jparams, tparams = bridged(cfg)
+    kw = dict(lanes=4, n_pages=25, page_tokens=4, lane_capacity=24)
+    want = RefScheduler(RefContinuous(cfg, jparams, **kw)).run(ref_load_requests(SMOKE_TRACE))
+    eng = ContinuousBatchingEngine(port_config(cfg), tparams, debug_checks=True,
+                                   device="cpu", **kw)
+    got = ContinuousScheduler(eng).run(load_requests(SMOKE_TRACE))
+    assert len(got.completed) == 24 and eng.alloc.used_pages == 0
+    assert _by_rid(got) == _by_rid(want)
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_launch_serve_runs_every_family_on_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", arch, "--device", "cpu", "--new-tokens", "4"])
+    assert "generated (4, 4) tokens on cpu" in capsys.readouterr().out

@@ -271,7 +271,8 @@ def test_step_timer_and_log():
 
 def test_attn_mlp_training_and_rwkv_serving_wait():
     """attn_mlp trains since its loss_fn was ported (a family without a
-    loss is still refused); rwkv6 serving through ServingEngine waits."""
+    loss is still refused); rwkv6 serving through ServingEngine no longer
+    waits: without a fused prefill it feeds the prompt token by token."""
     from repro_torch.serve.engine import ServingEngine
 
     llama = port_config(small_config("llama3-8b"))
@@ -280,8 +281,11 @@ def test_attn_mlp_training_and_rwkv_serving_wait():
     make_train_step(api, make_optimizer(llama))
     with pytest.raises(NotImplementedError, match="loss_fn"):
         make_train_step(dataclasses.replace(api, loss=None), make_optimizer(llama))
-    with pytest.raises(NotImplementedError, match="serving"):
-        ServingEngine(port_config(_cfg()), {}, batch=1, capacity=8, device="cpu")
+    cfg = port_config(_cfg())
+    _, params = bridged(_cfg())
+    eng = ServingEngine(cfg, params, batch=1, capacity=8, device="cpu")
+    assert eng.api.prefill is None
+    assert eng.generate(np.zeros((1, 3), np.int32), 2).shape == (1, 2)
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
