@@ -159,8 +159,9 @@ on the card, ``ModelAPI.init(..., dtype=)``):
      dtypes (``TOL`` for the forward, ``FLASH_BWD_TOL`` for o, dq, dk, dv);
      then forward and backward times at grok-1's shape (1 x 4096, 48/8
      heads of 128, causal, cap 30) beside the same kernels without the cap,
-     the plain version and the bound (no PyTorch call computes softcap
-     attention); two backward calls bit-identical.
+     the plain version, the bound and the library call (``flex_attention``
+     compiled with the tanh score_mod and a causal block mask); two
+     backward calls bit-identical.
   9b. moe model — qwen3-moe-30b-a3b at full width cut to 4 layers: a
      1000-token prefill through the flash kernel (32 over 4 heads of 128)
      against the plain attention path (``MODEL_RTOL``, same argmax; 4
@@ -184,7 +185,9 @@ on the card, ``ModelAPI.init(..., dtype=)``):
      ``train.loop.train``: finite, falling losses, flash launches per step
      and layer; one profiled step each, which must run
      ``flash_fwd_sm90<128>`` and both ``flash_bwd_*_sm90``; ``moe_aux``
-     finite (and zero for the dense model).
+     finite (and zero for the dense model); then two Adafactor updates of
+     qwen2-72b's largest leaves at full width against an fp64 plain update
+     (``ADAFACTOR_TOL``).
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
@@ -205,6 +208,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -817,17 +821,38 @@ def _attn_grads(fn, q, k, v, do, causal, window):
     return [o.detach(), *torch.autograd.grad(o, leaves, do)]
 
 
+def _flex_softcap(S, softcap):
+    """PyTorch's own capped causal attention: ``flex_attention`` compiled
+    with the ``softcap * tanh(score / softcap)`` score_mod on the scaled
+    scores and a causal block mask, GQA by ``enable_gqa``; (B, heads, S, d)
+    in and out.  Timed beside the capped kernels as their library call;
+    the port never calls it.  Inductor and Triton cache under ``build/``."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    mask = create_block_mask(lambda b, h, q_idx, kv_idx: q_idx >= kv_idx, None, None, S, S,
+                             device="cuda")
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda q, k, v: flex(q, k, v, score_mod=score_mod, block_mask=mask, enable_gqa=True)
+
+
 def _flash_times(sl, seed, softcap=0.0):
     """Forward and backward times of the flash kernels at shape ``sl``
     (bf16, causal, window ``sl["window"]``, logit cap ``softcap``) beside
-    the plain version, ``scaled_dot_product_attention`` (autograd through
-    it for the backward; with a cap, which no PyTorch call computes, the
-    same kernels without the cap instead) and the card's bound; fails
-    unless two backward calls give bit-identical dq, dk, dv and the output
-    and gradients agree with autograd through ``flash_attention_plain``
-    (``FLASH_BWD_TOL``).  Returns ((fwd record, bwd record), the
-    determinism flags, the backward's max abs err against SDPA's, or None
-    with a cap)."""
+    the plain version, the library call (``scaled_dot_product_attention``;
+    with a cap, ``flex_attention`` with the tanh score_mod, and the same
+    kernels without the cap too; autograd through it for the backward) and
+    the card's bound; fails unless two backward calls give bit-identical
+    dq, dk, dv and the output and gradients agree with autograd through
+    ``flash_attention_plain`` (``FLASH_BWD_TOL``).  Returns ((fwd record,
+    bwd record), the determinism flags, the backward's max abs err against
+    the library's)."""
     import torch
     import torch.nn.functional as F
 
@@ -836,19 +861,25 @@ def _flash_times(sl, seed, softcap=0.0):
     B, S, H, KV, d, W = (sl[x] for x in ("B", "S", "H", "KV", "d", "window"))
     q, k, v = _inputs(B, S, S, H, KV, d, "bfloat16", seed=seed)
     do = torch.randn(q.shape, device="cuda").to(q.dtype)
-    gqa = dict(enable_gqa=True) if H != KV else {}
     cap = dict(softcap=softcap)
+    if softcap:
+        if W:
+            fail("the capped library call is causal only, without a window")
+        library, lib_call = "flex_attention", _flex_softcap(S, softcap)
+    else:
+        gqa = dict(enable_gqa=True) if H != KV else {}
+        library = "sdpa"
+
+        def lib_call(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, **gqa)
     with torch.no_grad():
         fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=W, **cap))
         plain_fwd_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
                                                                  window=W, **cap), reps=3)
         if softcap:
-            lib_fwd_ms = None
             capless_fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=W))
-        else:
-            lib_fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-                **gqa))
+        lib_fwd_ms = _time_ms(lambda: lib_call(q.transpose(1, 2), k.transpose(1, 2),
+                                               v.transpose(1, 2)))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     o = fa.flash_attention(*leaves, causal=True, window=W, **cap)
     bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
@@ -860,19 +891,18 @@ def _flash_times(sl, seed, softcap=0.0):
     if not all(same):
         fail("flash backward is not deterministic: two calls differ")
     del o, again
-    lib_err = lib_bwd_ms = None
     if softcap:
         o = fa.flash_attention(*leaves, causal=True, window=W)
         capless_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
         del o
-    else:
-        lt = [t.transpose(1, 2) for t in leaves]  # (B, heads, S, d) views
-        o = F.scaled_dot_product_attention(*lt, is_causal=True, **gqa)
-        dot = do.transpose(1, 2)
-        lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
-        lib = torch.autograd.grad(o, leaves, dot)
-        lib_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], lib))
-        del o, lib
+    lt = [t.transpose(1, 2) for t in leaves]  # (B, heads, S, d) views
+    o = lib_call(*lt)
+    dot = do.transpose(1, 2)
+    lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
+    lib = [o.detach().transpose(1, 2), *torch.autograd.grad(o, leaves, dot)]
+    lib_fwd_err = float((got[0].float() - lib[0].float()).abs().max())
+    lib_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], lib[1:]))
+    del o, lib, lt
     torch.cuda.empty_cache()
     o = fa.flash_attention_plain(*leaves, causal=True, window=W, **cap)
     plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
@@ -906,25 +936,23 @@ def _flash_times(sl, seed, softcap=0.0):
             ("flash_attention_bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, bwd_bytes, bwd_ops)):
         t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["bfloat16"]
         bound_by = "operations" if t_o >= t_b else "bytes"
-        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=library,
                    timed_shape_max_abs_err=worst["bfloat16"],
                    timed_shape_tol_share=used["bfloat16"],
                    bound_ms=max(t_b, t_o) * 1e3, bound_by=bound_by, shape=dict(sl))
-        if softcap:  # no library call; the capless kernel beside it, same bound
+        beside = f"{library} {lib_ms:.4f} ms"
+        if softcap:  # the capless kernel beside it too, same bound
             rec.update(softcap=softcap,
                        capless_ms=capless_fwd_ms if name.endswith("fwd") else capless_bwd_ms)
-            beside = f"same kernel without the cap {rec['capless_ms']:.4f} ms, library none"
-        else:
-            beside = f"sdpa {lib_ms:.4f} ms"
+            beside += f", same kernel without the cap {rec['capless_ms']:.4f} ms"
         print(f"{name} B={B} S={S} H={H} KV={KV} d={d} bf16 causal softcap={softcap}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {beside}, bound "
               f"{max(t_b, t_o) * 1e3:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB); {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
         records.append(dict(**rec, **_rate(f"{name} (B={B} S={S} H={H} KV={KV} d={d} "
                                            f"softcap={softcap})", ops, ms, max(t_b, t_o) * 1e3)))
-    if lib_err is not None:
-        print(f"flash backward vs sdpa backward at B={B} S={S} H={H} KV={KV} d={d}: max abs "
-              f"err {lib_err:.3g}", flush=True)
+    print(f"flash vs {library} at B={B} S={S} H={H} KV={KV} d={d} softcap={softcap}: forward "
+          f"max abs err {lib_fwd_err:.3g}, backward {lib_err:.3g}", flush=True)
     return records, same, lib_err
 
 
@@ -2292,7 +2320,8 @@ def phase_softcap(sweep=SOFTCAP_SWEEP):
     routes, against autograd through ``flash_attention_plain`` with the
     same cap (``FLASH_BWD_TOL``; the forward also at ``TOL``), then their
     times at grok-1's attention shape beside the capless kernels, the plain
-    version and the bound (the capless operation count)."""
+    version, ``flex_attention`` with the cap and the bound (the capless
+    operation count)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2335,12 +2364,12 @@ def phase_softcap(sweep=SOFTCAP_SWEEP):
           f"element's tolerance fp32 {used['float32']:.3g} ({where['float32']}), bf16 "
           f"{used['bfloat16']:.3g} ({where['bfloat16']})", flush=True)
     torch.cuda.empty_cache()
-    (fwd, bwd), same, _ = _flash_times(GROK_FLASH, seed=91, softcap=30.0)
+    (fwd, bwd), same, lib_err = _flash_times(GROK_FLASH, seed=91, softcap=30.0)
     fwd.update(max_abs_err_fp32=fwd_worst["float32"], max_abs_err_bf16=fwd_worst["bfloat16"],
-               cases=n, library_ms=None)
+               cases=n)
     bwd.update(max_abs_err_fp32=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
                tol_share_fp32=used["float32"], tol_share_bf16=used["bfloat16"], cases=n,
-               deterministic=all(same), library_ms=None)
+               deterministic=all(same), vs_flex_attention_max_abs_err=lib_err)
     return fwd, bwd, n
 
 
@@ -2516,7 +2545,8 @@ def phase_big_train(smi):
     width cut to 2 layers train 20 steps at 1 x 4096 through
     ``train.loop.train``: every loss finite, the last below the first; then
     one profiled step each, which must run ``flash_fwd_sm90<128>`` and both
-    ``flash_bwd_*_sm90``, and whose ``moe_aux`` is finite."""
+    ``flash_bwd_*_sm90``, and whose ``moe_aux`` is finite; then
+    ``_adafactor_full_width`` at qwen2-72b's widths."""
     import torch
 
     from repro_torch.configs import TRAIN_4K, get_config
@@ -2570,7 +2600,111 @@ def phase_big_train(smi):
         del rep, res, step
         gc.collect()
         torch.cuda.empty_cache()
+    _adafactor_full_width(cfg, smi)
     return launches
+
+
+ADAFACTOR_LEAVES = ("embed", "layers/attn/wq", "layers/mlp/wu", "final_norm")
+ADAFACTOR_TOL = 1e-5  # fp32 update against fp64, relative (see _adafactor_full_width)
+
+
+def _adafactor_plain64(grads, stats, params, count, lr, decay=0.8, eps=1e-30, clip=1.0,
+                       max_norm=1.0):
+    """The reference's Adafactor update (``src/repro/optim/optimizer.py``
+    ``adafactor``: global-norm clipping, ``beta = 1 - count^-decay``,
+    factored ``vr``/``vc`` over the last two dims, per-leaf RMS clipping)
+    written out in fp64 on dicts of tensors; updates ``stats`` and
+    ``params`` in place and returns each leaf's largest |step|."""
+    import torch
+
+    norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in grads.values())))
+    scale = min(1.0, max_norm / (norm + 1e-9))
+    beta = 1.0 - count ** (-decay)
+    steps = {}
+    for k, g in grads.items():
+        g = g.double().mul_(scale)
+        g2 = g * g + eps
+        st = stats[k]
+        if "vr" in st:
+            st["vr"] = beta * st["vr"] + (1 - beta) * g2.mean(-1)
+            st["vc"] = beta * st["vc"] + (1 - beta) * g2.mean(-2)
+            del g2
+            rfac = st["vr"] / st["vr"].mean(-1, keepdim=True).clamp(min=eps)
+            u = g.div_(rfac.sqrt()[..., None] * st["vc"].sqrt()[..., None, :] + eps)
+        else:
+            st["v"] = beta * st["v"] + (1 - beta) * g2
+            del g2
+            u = g.div_(st["v"].sqrt() + eps)
+        rms = math.sqrt(float(torch.linalg.vector_norm(u)) ** 2 / u.numel() + eps)
+        u.mul_(lr / max(1.0, rms / clip))
+        steps[k] = float(u.abs().max())
+        params[k].sub_(u)
+        del u, g
+    return steps
+
+
+def _adafactor_full_width(cfg, smi):
+    """One check of the port's ``adafactor`` at full width: two updates
+    (count 1, where ``beta`` is 0, then count 2 with gradients three times
+    larger, so the per-leaf RMS clip acts) of ``cfg``'s largest factored
+    leaves (the embedding, ``wq`` factored over heads x d_head, ``w_up``)
+    and an unfactored norm, at their shapes, held against
+    ``_adafactor_plain64`` on the same gradients (a seeded normal with
+    per-row and per-column scales, so the factored statistics differ from
+    row to row; global-norm clipping active).  Fails unless after each
+    update every ``vr``/``vc``/``v`` is within ``ADAFACTOR_TOL`` of the fp64
+    value, relative to that value, and every parameter within
+    ``ADAFACTOR_TOL`` of the leaf's largest fp64 step."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.optimizer import adafactor, constant_schedule
+
+    lr = 1e-2  # a step comparable to the weights, so the check sees it above fp32 rounding
+    specs = flatten(get_model(cfg).schema)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(std)
+
+    def grad(shape, mult):
+        g = normal(shape, 1e-3 * mult)
+        if len(shape) >= 2:
+            g.mul_(normal(shape[:-1], 0.5).exp_()[..., None]).mul_(normal(shape[-1:], 0.5).exp_())
+        return g
+
+    params = {k: normal(specs[k].shape, 0.02) for k in ADAFACTOR_LEAVES}
+    opt = adafactor(constant_schedule(lr))
+    state = opt.init(params)
+    p64 = {k: p.double() for k, p in params.items()}
+    s64 = {k: {n: t.double() for n, t in st.items()} for k, st in state["stats"].items()}
+    worst = {"param": 0.0, "stats": 0.0}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for count, mult in ((1, 1.0), (2, 3.0)):
+        grads = {k: grad(specs[k].shape, mult) for k in ADAFACTOR_LEAVES}
+        params, state = opt.update(grads, state, params)
+        steps = _adafactor_plain64(grads, s64, p64, count, lr)
+        del grads
+        for k in ADAFACTOR_LEAVES:
+            err = float((params[k].double() - p64[k]).abs().max()) / steps[k]
+            st = max(float(((state["stats"][k][n].double() - t).abs() / t).max())
+                     for n, t in s64[k].items())
+            worst["param"], worst["stats"] = max(worst["param"], err), max(worst["stats"], st)
+            if not (err <= ADAFACTOR_TOL and st <= ADAFACTOR_TOL):
+                fail(f"adafactor update {count} of {k} {tuple(specs[k].shape)}: parameter err "
+                     f"{err:.3g} of the largest step, statistics rel err {st:.3g} against "
+                     f"fp64 (tol {ADAFACTOR_TOL})")
+    torch.cuda.synchronize()
+    print(f"adafactor at full width ({cfg.name}) on {smi}: two updates of "
+          f"{', '.join(f'{k} {tuple(specs[k].shape)}' for k in ADAFACTOR_LEAVES)} match an fp64 "
+          f"plain update: parameters within {worst['param']:.3g} of the largest step, "
+          f"vr/vc/v within {worst['stats']:.3g} relative (tol {ADAFACTOR_TOL}); "
+          f"{time.perf_counter() - t0:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del params, state, p64, s64
+    torch.cuda.empty_cache()
 
 
 def _require_flash_sm90(label, rows):

@@ -92,26 +92,21 @@ def _std(spec: ParamSpec) -> float:
     return spec.scale if spec.scale is not None else 1.0 / math.sqrt(_fan_in(spec.shape))
 
 
-_INIT_CHUNK = 1 << 26  # elements drawn in fp32 at a time by a direct init
+_INIT_CHUNK = 1 << 26  # elements drawn in fp32 at a time
 
 
 def init_leaf(spec: ParamSpec, generator: torch.Generator,
               device: torch.device, dtype=None) -> torch.Tensor:
-    """One leaf: zeros, ones, or a normal draw of the reference's std.
-    With ``dtype`` the leaf is made in that dtype and a normal draw is
-    written chunk by chunk (at most ``_INIT_CHUNK`` elements, a slice of
-    the stacked layers axis or less, in fp32 at a time), so no fp32 copy of
-    the whole leaf exists."""
-    dt = as_dtype(spec.dtype if dtype is None else dtype)
+    """One leaf in ``dtype`` (default: the spec's): zeros, ones, or a normal
+    draw of the reference's std, written chunk by chunk (at most
+    ``_INIT_CHUNK`` elements, a slice of the stacked layers axis or less,
+    in fp32 at a time), so no fp32 copy of the whole leaf exists."""
+    dt = as_dtype(dtype or spec.dtype)
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dt, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dt, device=device)
     std = _std(spec)
-    if dtype is None:
-        x = torch.randn(spec.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (x * std).to(dt)
     out = torch.empty(spec.shape, dtype=dt, device=device)
     flat = out.view(-1)
     for i in range(0, flat.numel(), _INIT_CHUNK):
@@ -124,15 +119,15 @@ def init_leaf(spec: ParamSpec, generator: torch.Generator,
 def init_params(schema: Any, generator: torch.Generator,
                 device: DeviceLike = None, dtype=None) -> Any:
     """Random parameters for ``schema`` on ``device`` (default: the card).
-    ``generator`` must live on that device.  With ``dtype`` (a serving
-    dtype) every weight matrix is drawn straight into it and the
-    ``keeps_fp32`` leaves in fp32: the tree ``serve.engine.serving_params``
-    makes, without an fp32 copy of the model ever existing."""
+    ``generator`` must live on that device.  Each leaf is made in its
+    spec's dtype, or with ``dtype`` (a serving dtype) every weight matrix in
+    it and the ``keeps_fp32`` leaves in fp32: the tree
+    ``serve.engine.serving_params`` makes, without an fp32 copy of the model
+    ever existing."""
     dev = resolve_device(device)
-    if dtype is None:
-        return tree_map(lambda s: init_leaf(s, generator, dev), schema)
     return tree_map(lambda s: init_leaf(
-        s, generator, dev, torch.float32 if keeps_fp32(s) else dtype), schema)
+        s, generator, dev,
+        None if dtype is None else torch.float32 if keeps_fp32(s) else dtype), schema)
 
 
 def zeros(schema: Any, device: torch.device) -> Any:

@@ -81,11 +81,6 @@ def serving_params(api: ModelAPI, params: dict, device: torch.device) -> dict:
     return tree_map(prep, params, api.schema)
 
 
-# the families whose prompt runs through one fused prefill; the others
-# feed it token by token through decode_step (the reference's test)
-FUSED_PREFILL = ("attn_mlp", "moe")
-
-
 class ServingEngine:
     def __init__(self, cfg, params, batch: int, capacity: int,
                  device: DeviceLike = None):
@@ -116,7 +111,7 @@ class ServingEngine:
         B, P = prompts.shape
         if B != self.batch:
             raise ValueError(f"got {B} prompts for a batch of {self.batch}")
-        if self.api.prefill is not None and self.cfg.block_type in FUSED_PREFILL:
+        if self.api.prefill is not None:
             last_logits, self._cache = self.api.prefill(self.params, self._ids(prompts),
                                                         self.capacity)
             self._len = P
@@ -187,7 +182,7 @@ class ContinuousBatchingEngine:
     def __init__(self, cfg, params, *, lanes: int, n_pages: int,
                  page_tokens: int = 16, lane_capacity: int = 128,
                  debug_checks: bool = False, device: DeviceLike = None):
-        if cfg.block_type not in FUSED_PREFILL:
+        if cfg.block_type not in ("attn_mlp", "moe"):
             raise ValueError(
                 f"paged serving needs a KV-cache family, got {cfg.block_type}"
             )
