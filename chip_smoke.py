@@ -188,6 +188,50 @@ on the card, ``ModelAPI.init(..., dtype=)``):
      finite (and zero for the dense model); then two Adafactor updates of
      qwen2-72b's largest leaves at full width against an fp64 plain update
      (``ADAFACTOR_TOL``).
+Slice 7, the encoder-decoder family, pixtral's vision prefix and VGG-16
+(after 9f; phases 3 and 3d also sweep non-causal Sq != Skv with Skv = 4 Sq
+and Skv = 4096, Sq in {1, 17, 129, 1024}, every d, 16/16 heads among the
+layouts, both dtypes, and hold every flash shape of 10b-10f):
+  10a. flash at seamless's shapes — forward and backward times at its
+     encoder shape (B=4, S=4096, 16 heads of 64, not causal) and its
+     cross-attention shape (1024 queries over 4096 frames) beside the plain
+     version, ``scaled_dot_product_attention`` (autograd through it for
+     the backward) and the bound (no causal halving), each held against
+     autograd through the plain version; two backward calls bit-identical.
+  10b. seamless model — seamless-m4t-large-v2 at full width cut to 4
+     encoder and 4 decoder layers: loss and every parameter gradient of 2 x
+     1024 frames and 2 x 256 decoder tokens through the kernels and
+     through the plain version agree; exact launch counts.
+  10c. seamless training — full width and depth (24 + 24 layers, 2.04 B
+     params; fp32 params, bf16 compute, AdamW on the cosine schedule,
+     per-block remat) trains 20 steps of 4 x 4096 frames and 4 x 1024
+     decoder tokens through ``train.loop.train``: finite, falling loss,
+     144 forward and 72 backward flash launches a step, peak memory under
+     80 GB, median step, frames/s and decoder tokens/s; a profiled step
+     must run ``flash_fwd_sm90<64>`` and both ``flash_bwd_*_sm90`` at
+     d=64 and no fp32 flash kernel.
+  10d. seamless served — full depth in bf16 through
+     ``ServingEngine.generate``: 4 x 256 prompts token by token against the
+     zero encoder memory, 32 new tokens (token counts, vocabulary; no
+     flash launch: ``decode_attention`` is plain PyTorch); then a forward
+     of 1 x 4096 frames and 1024 tokens: finite logits.
+  10e. pixtral — at full width cut to 4 layers, prefill logits of 1024
+     patches and 1000 tokens through the kernel and the plain path
+     (``MODEL_RTOL``, same argmax); at full width and depth (12.27 B params
+     drawn into bf16 on the card) ``prefill(..., patch_embeds=)`` of 4 x
+     (1024 patches + 1024 tokens), profiled, against ``forward``'s last
+     position, then 32 ``decode_step``s, then ``ServingEngine.generate`` on
+     4 x 512 text prompts; peak memory below 79 GiB.
+  10f. pixtral training — full width cut to 2 layers, 20 steps of 1 x 4096
+     (1024 patches, 3072 tokens) through ``train.loop.train``: finite,
+     falling loss; a profiled step runs the three ``sm90`` flash kernels
+     at d=128.
+  10g. VGG-16 — the paper's model at its global batch of 32 (224 x 224 x
+     3, fp32, TF32 off): loss and gradients at batch 4 against the same
+     module in fp64 on the card (``VGG_TOL``); 10 AdamW steps on one fixed
+     batch: finite, falling loss, median forward+backward time, peak
+     memory, beside the planner's predicted iteration time on one ``H100``
+     (not enforced).
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
@@ -195,11 +239,13 @@ true, "device": {...}}``; the line before it is the kernels' JSON record
 (six kernels: flash forward and backward, WKV-6 forward and backward, SSD
 forward and backward; the flash records carry their times at the
 qwen2-1.5b shape under ``qwen2``, at grok-1's shape with the cap under
-``softcap`` (with ``capless_ms``), their launches by path, the
-multiplexed foreground, the background tenants and the MoE paths among
-them, and under ``checked_launches`` those of the 9a sweep); the line
-before that is ``card: ...``, and before it ``planning: {...}`` (the
-measured launch overhead and kind ratios).  Imports ``torch``, ``numpy``
+``softcap`` (with ``capless_ms``), at seamless's encoder and cross shapes
+under ``seamless``, their launches by path, the multiplexed foreground,
+the background tenants, the MoE paths and slice 7's paths among them, and
+under ``checked_launches`` those of the 9a sweep); the line before that
+is ``card: ...``, before it ``planning: {...}`` (the measured launch
+overhead and kind ratios), and before that ``slice7: {...}`` (phases
+10c-10g's end-to-end numbers).  Imports ``torch``, ``numpy``
 and ``repro_torch`` only.
 """
 from __future__ import annotations
@@ -236,6 +282,9 @@ SWEEP = dict(
     causal=[True, False],
 )
 CROSS_LENS = [(100, 300), (300, 100), (129, 1), (1, 257), (1000, 2048)]  # (Sq, Skv)
+# seamless's cross-attention regime (phase 10a): non-causal, Skv = 4 Sq and
+# Skv = 4096 (ENC_MEMORY), over every d, both dtypes and its own 16/16 heads
+SEAMLESS_CROSS_LENS = sorted({(sq, skv) for sq in (1, 17, 129, 1024) for skv in (4 * sq, 4096)})
 PREFILL = dict(B=1, S=2048, H=32, KV=8, d=128)  # llama3-8b prefill attention
 QWEN_FLASH = dict(B=4, S=4096, H=12, KV=2, d=128, window=0)  # qwen2-1.5b training
 QUICK_FLASH = dict(B=4, S=64, H=4, KV=1, d=32)  # the quickstart: reduced llama3-8b, 4 x 64
@@ -373,11 +422,15 @@ def phase_kernels(prompt_lens):
     main_path += [(x["B"], (x["H"], x["KV"]), x["d"], (x["S"], x["S"]), 0, "bfloat16", True)
                   for x in (QWEN_FLASH, MUX_FLASH, QUICK_FLASH)]
     main_path += [(b, (h, kv), dd, (s, s), 0, dt, True) for b, s, h, kv, dd, dt in tenant_flash_cases()]
+    main_path += [(b, hd, dd, lens, 0, "bfloat16", c) for b, hd, dd, lens, c in slice7_flash_cases()]
     sweep = [(2, hd, dd, (S, S), w, dt, c)
              for hd, dd, S, w, dt, c in itertools.product(*SWEEP.values())]
     cross = [(2, hd, dd, lens, 0, dt, False)  # non-causal, Sq != Skv
              for hd, dd, lens, dt in itertools.product(
                  SWEEP["heads"], SWEEP["d"], CROSS_LENS, SWEEP["dtype"])]
+    cross += [(2, hd, dd, lens, 0, dt, False)
+              for hd, dd, lens, dt in itertools.product(
+                  SEAMLESS_CROSS_HEADS, SWEEP["d"], SEAMLESS_CROSS_LENS, SWEEP["dtype"])]
     for b, (H, KV), d, (Sq, Skv), window, dtype, causal in main_path + sweep + cross:
         q, k, v = _inputs(b, Sq, Skv, H, KV, d, dtype, seed=n)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -397,8 +450,9 @@ def phase_kernels(prompt_lens):
     print(f"kernels: flash_attention matches its plain version on {n} cases "
           f"({len(main_path)} on main paths: the serving slice's prompt lengths "
           f"{sorted(prompt_lens)}, qwen2-1.5b training at 4 x 4096 and "
-          f"multiplexed at 1 x 4096, the quickstart, the background tenants of phases 8a-8c; "
-          f"{len(cross)} non-causal with Sq != Skv); max abs err fp32 {worst['float32']:.3g} (tol {TOL['float32']}), "
+          f"multiplexed at 1 x 4096, the quickstart, the background tenants of phases 8a-8c, "
+          f"seamless's and pixtral's of phases 10b-10f; "
+          f"{len(cross)} non-causal with Sq != Skv, seamless's Skv = 4 Sq and 4096 among them); max abs err fp32 {worst['float32']:.3g} (tol {TOL['float32']}), "
           f"bf16 {worst['bfloat16']:.3g} (tol {TOL['bfloat16']})")
 
     B, S, H, KV, d = (PREFILL[x] for x in ("B", "S", "H", "KV", "d"))
@@ -813,6 +867,44 @@ FLASH_BWD_SWEEP = dict(
 )
 
 
+# the backward sweep's head layouts (without the forward sweep's 32/8, as
+# there) and seamless's own 16/16: phase 3 sweeps the same cross cases
+SEAMLESS_CROSS_HEADS = FLASH_BWD_SWEEP["heads"] + [(16, 16)]
+# non-causal Sq != Skv (seamless's cross-attention), swept beside FLASH_BWD_SWEEP
+FLASH_BWD_CROSS = dict(heads=SEAMLESS_CROSS_HEADS, d=FLASH_BWD_SWEEP["d"],
+                       lens=SEAMLESS_CROSS_LENS, dtype=FLASH_BWD_SWEEP["dtype"])
+
+
+def slice7_flash_cases(grad=False):
+    """(B, (H, KV), d, (Sq, Skv), causal) of the flash calls slice 7's
+    paths make: seamless's encoder (non-causal), decoder (causal) and
+    cross-attention (non-causal, Skv = the frames) in phases 10b-10d, and
+    pixtral's prefills and training in 10e-10f.  ``grad``: only those
+    whose backward runs too (training), less the two that phase 10a times
+    and holds against the plain version itself."""
+    from repro_torch.configs import get_config
+
+    sm, px = get_config("seamless-m4t-large-v2"), get_config("pixtral-12b")
+    out = []  # (case, backward runs)
+    for b, frames, trains in ((SEAMLESS_CHECK["batch"], SEAMLESS_CHECK["frames"], True),
+                              (SEAMLESS_TRAIN["batch"], SEAMLESS_TRAIN["seq"], True),
+                              (1, SEAMLESS_SERVE["frames"], False)):
+        hd, dec = (sm.num_heads, sm.num_kv_heads), frames // 4
+        out += [((b, hd, sm.d_head, (frames, frames), False), trains),
+                ((b, hd, sm.d_head, (dec, dec), True), trains),
+                ((b, hd, sm.d_head, (dec, frames), False), trains)]
+    hd = (px.num_heads, px.num_kv_heads)
+    for b, s in ((1, PIXTRAL["patches"] + 1000), (PIXTRAL["batch"], 2 * PIXTRAL["patches"]),
+                 (PIXTRAL["batch"], 512)):
+        out.append(((b, hd, px.d_head, (s, s), True), False))
+    out.append(((1, hd, px.d_head, (PIXTRAL_TRAIN["seq"],) * 2, True), True))
+    if not grad:
+        return [c for c, _ in out]
+    timed = {(x["B"], (x["H"], x["KV"]), x["d"], (x["S"], x["Skv"]), x["causal"])
+             for x in (SEAMLESS_ENC_FLASH, SEAMLESS_CROSS_FLASH)}
+    return [c for c, trains in out if trains and c not in timed]
+
+
 def _attn_grads(fn, q, k, v, do, causal, window):
     import torch
 
@@ -844,7 +936,8 @@ def _flex_softcap(S, softcap):
 
 def _flash_times(sl, seed, softcap=0.0):
     """Forward and backward times of the flash kernels at shape ``sl``
-    (bf16, causal, window ``sl["window"]``, logit cap ``softcap``) beside
+    (bf16; causal unless ``sl["causal"]`` is False; ``sl["Skv"]`` keys, S
+    unless given; window ``sl["window"]``, logit cap ``softcap``) beside
     the plain version, the library call (``scaled_dot_product_attention``;
     with a cap, ``flex_attention`` with the tanh score_mod, and the same
     kernels without the cap too; autograd through it for the backward) and
@@ -859,7 +952,8 @@ def _flash_times(sl, seed, softcap=0.0):
     from repro_torch.kernels import flash_attention as fa
 
     B, S, H, KV, d, W = (sl[x] for x in ("B", "S", "H", "KV", "d", "window"))
-    q, k, v = _inputs(B, S, S, H, KV, d, "bfloat16", seed=seed)
+    Skv, causal = sl.get("Skv", S), sl.get("causal", True)
+    q, k, v = _inputs(B, S, Skv, H, KV, d, "bfloat16", seed=seed)
     do = torch.randn(q.shape, device="cuda").to(q.dtype)
     cap = dict(softcap=softcap)
     if softcap:
@@ -871,17 +965,17 @@ def _flash_times(sl, seed, softcap=0.0):
         library = "sdpa"
 
         def lib_call(q, k, v):
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True, **gqa)
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, **gqa)
     with torch.no_grad():
-        fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=W, **cap))
-        plain_fwd_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True,
+        fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=W, **cap))
+        plain_fwd_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal,
                                                                  window=W, **cap), reps=3)
         if softcap:
-            capless_fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=W))
+            capless_fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=W))
         lib_fwd_ms = _time_ms(lambda: lib_call(q.transpose(1, 2), k.transpose(1, 2),
                                                v.transpose(1, 2)))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    o = fa.flash_attention(*leaves, causal=True, window=W, **cap)
+    o = fa.flash_attention(*leaves, causal=causal, window=W, **cap)
     bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
     again = torch.autograd.grad(o, leaves, do, retain_graph=True)
     got = [o.detach(), *torch.autograd.grad(o, leaves, do)]
@@ -892,7 +986,7 @@ def _flash_times(sl, seed, softcap=0.0):
         fail("flash backward is not deterministic: two calls differ")
     del o, again
     if softcap:
-        o = fa.flash_attention(*leaves, causal=True, window=W)
+        o = fa.flash_attention(*leaves, causal=causal, window=W)
         capless_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
         del o
     lt = [t.transpose(1, 2) for t in leaves]  # (B, heads, S, d) views
@@ -904,7 +998,7 @@ def _flash_times(sl, seed, softcap=0.0):
     lib_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got[1:], lib[1:]))
     del o, lib, lt
     torch.cuda.empty_cache()
-    o = fa.flash_attention_plain(*leaves, causal=True, window=W, **cap)
+    o = fa.flash_attention_plain(*leaves, causal=causal, window=W, **cap)
     plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
                             reps=3, warmup=1)
     want = [o.detach(), *torch.autograd.grad(o, leaves, do)]
@@ -923,8 +1017,10 @@ def _flash_times(sl, seed, softcap=0.0):
           f"|plain|), tol {FLASH_BWD_TOL['bfloat16']})", flush=True)
     del got, want
     torch.cuda.empty_cache()
-    # live (query, key) pairs of causal attention, cut by the window
-    pairs = sum(min(i + 1, W) if W else i + 1 for i in range(S))
+    # live (query, key) pairs: all of them without the causal mask, else
+    # those of causal attention, cut by the window
+    pairs = (S * Skv if not causal else
+             sum(min(i + 1, W) if W else i + 1 for i in range(S)))
     fwd_ops = 4 * B * H * d * pairs
     bwd_ops = 10 * B * H * d * pairs  # 5 products: S, dP, dV, dK, dQ (2.5x the forward)
     t_bytes = 2 * (q.numel() + k.numel() + v.numel())
@@ -945,12 +1041,14 @@ def _flash_times(sl, seed, softcap=0.0):
             rec.update(softcap=softcap,
                        capless_ms=capless_fwd_ms if name.endswith("fwd") else capless_bwd_ms)
             beside += f", same kernel without the cap {rec['capless_ms']:.4f} ms"
-        print(f"{name} B={B} S={S} H={H} KV={KV} d={d} bf16 causal softcap={softcap}: kernel "
+        print(f"{name} B={B} Sq={S} Skv={Skv} H={H} KV={KV} d={d} bf16 causal={causal} "
+              f"softcap={softcap}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {beside}, bound "
               f"{max(t_b, t_o) * 1e3:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB); {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
-        records.append(dict(**rec, **_rate(f"{name} (B={B} S={S} H={H} KV={KV} d={d} "
-                                           f"softcap={softcap})", ops, ms, max(t_b, t_o) * 1e3)))
+        records.append(dict(**rec, **_rate(f"{name} (B={B} Sq={S} Skv={Skv} H={H} KV={KV} "
+                                           f"d={d} causal={causal} softcap={softcap})", ops, ms,
+                                           max(t_b, t_o) * 1e3)))
     print(f"flash vs {library} at B={B} S={S} H={H} KV={KV} d={d} softcap={softcap}: forward "
           f"max abs err {lib_fwd_err:.3g}, backward {lib_err:.3g}", flush=True)
     return records, same, lib_err
@@ -989,10 +1087,11 @@ def _fresh_thread_flash():
         fail("flash forward from a fresh host thread disagrees with the plain version")
 
 
-def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
+def phase_flash_bwd(sweep=FLASH_BWD_SWEEP, cross=FLASH_BWD_CROSS):
     """Phase 3d: the d=80 forward and its LSE at the slice shape, the
-    backward kernels against autograd through ``flash_attention_plain``,
-    then times at the slice shape."""
+    backward kernels against autograd through ``flash_attention_plain``
+    (``sweep`` with Sq = Skv, then ``cross``: non-causal, Sq != Skv), then
+    times at the slice shape."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1025,24 +1124,30 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP):
                  (mx["B"], (mx["H"], mx["KV"]), mx["d"], (True, 0), mx["S"], "bfloat16"),
                  (qs["B"], (qs["H"], qs["KV"]), qs["d"], (True, 0), qs["S"], "bfloat16")]
     main_path += [(b, (h, kv), dd, (True, 0), s, dt) for b, s, h, kv, dd, dt in tenant_flash_cases()]
+    main_path += [(b, hd, dd, (c, 0), lens, "bfloat16")
+                  for b, hd, dd, lens, c in slice7_flash_cases(grad=True)]
     cases = [(2, *c) for c in itertools.product(*sweep.values())]
+    cases += [(2, hd, dd, (False, 0), lens, dt)
+              for hd, dd, lens, dt in itertools.product(*cross.values())]
     for b, (h, kv), dd, (causal, window), s, dtype in main_path + cases:
-        q, k, v = _inputs(b, s, s, h, kv, dd, dtype, seed=500 + n)
+        sq, skv = s if isinstance(s, tuple) else (s, s)
+        q, k, v = _inputs(b, sq, skv, h, kv, dd, dtype, seed=500 + n)
         do = torch.randn(q.shape, device="cuda").to(q.dtype)
         got = _attn_grads(fa.flash_attention, q, k, v, do, causal, window)
         want = _attn_grads(fa.flash_attention_plain, q, k, v, do, causal, window)
         torch.cuda.synchronize()
-        _check_close(f"B={b} H={h} KV={kv} d={dd} S={s} causal={causal} window={window} "
-                     f"{dtype}", names, got, want, FLASH_BWD_TOL[dtype], worst, used, where,
-                     dtype, rel_to_max=dtype == "bfloat16")
+        _check_close(f"B={b} H={h} KV={kv} d={dd} Sq={sq} Skv={skv} causal={causal} "
+                     f"window={window} {dtype}", names, got, want, FLASH_BWD_TOL[dtype], worst,
+                     used, where, dtype, rel_to_max=dtype == "bfloat16")
         del got, want
-        SWEPT_BWD.add((b, s, s, h, kv, dd, dtype, causal, window))
+        SWEPT_BWD.add((b, sq, skv, h, kv, dd, dtype, causal, window))
         n += 1
     torch.cuda.empty_cache()
     print(f"kernels: flash backward matches autograd through flash_attention_plain on {n} "
           f"cases (o, dq, dk, dv; {len(main_path)} on main paths: zamba2's slice shape, "
           f"qwen2-1.5b multiplexed at 1 x 4096, the quickstart, the background tenants of "
-          f"phases 8a-8c; qwen2-1.5b's at 4 x 4096 in phase 3e); "
+          f"phases 8a-8c, the cut models of 10b and 10e; qwen2-1.5b's at 4 x 4096 in phase "
+          f"3e, seamless's training shapes in 10a); "
           f"max abs err fp32 "
           f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}; largest share of an "
           f"element's tolerance (fp32 tol + tol |plain|, tol {FLASH_BWD_TOL['float32']}; "
@@ -1700,148 +1805,72 @@ def phase_qwen_model():
     forward twice per layer."""
     import torch
 
-    from repro_torch.checkpoint.ckpt import flatten
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.models.api import get_model
-    from repro_torch.models.layers import tree_leaves
 
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=4)
     api = get_model(cfg)
     dev = torch.device("cuda")
     params = api.init(torch.Generator(device=dev).manual_seed(1), dev)
-    leaves = [p.requires_grad_() for p in tree_leaves(params)]
     toks = np.random.default_rng(14).integers(0, cfg.vocab_size, (2, 1024))
     batch = {"tokens": torch.as_tensor(toks, device=dev),
              "labels": torch.as_tensor(np.roll(toks, -1, axis=1), device=dev)}
-
-    def loss_and_grads():
-        loss, _ = api.loss(params, batch)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
-
-    _reset_counts()
-    loss_k, grads_k = loss_and_grads()
-    torch.cuda.synchronize()
-    counts = _counts()["flash"]
-    want = {"fwd": 2 * cfg.num_layers, "bwd": cfg.num_layers}
-    if counts != want:
-        fail(f"4-layer qwen2 train step launched the flash kernels {counts} times, not {want}")
-    kernel_attention = ops.attention
-    ops.attention = lambda q, k, v, *, causal=True, window=0, softcap=0.0: (
-        fa.flash_attention_plain(q, k, v, causal=causal, window=window))
-    try:
-        loss_p, grads_p = loss_and_grads()
-    finally:
-        ops.attention = kernel_attention
-    if _counts()["flash"] != want:
-        fail("the plain-attention qwen2 train step launched a flash kernel")
-    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    diffs = [float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
-             for a, b in zip(grads_k, grads_p)]
-    worst = max(diffs)
-    worst_leaf = list(flatten(params))[diffs.index(worst)]
-    gnorm = float(torch.sqrt(sum(g.float().square().sum() for g in grads_k)))
-    print(f"model: qwen2-1.5b x{cfg.num_layers} layers (12 heads over 2 KV heads of 128), "
-          f"2 x 1024 tokens, bf16: loss kernel {float(loss_k):.6f} vs plain {float(loss_p):.6f} "
-          f"(rel diff {rel:.3g}, bound {TRAIN_MODEL_TOL['loss']}); worst gradient leaf diff "
-          f"{worst:.3g} of its max |g| ({worst_leaf}; bound {TRAIN_MODEL_TOL['grad']}) over "
-          f"{len(leaves)} leaves; grad norm {gnorm:.4g}; flash launches {counts}", flush=True)
-    if not (rel <= TRAIN_MODEL_TOL["loss"] and worst <= TRAIN_MODEL_TOL["grad"]
-            and np.isfinite(gnorm)):
-        fail("in-model qwen2 flash kernels and plain train step disagree")
-    del params, leaves, grads_k, grads_p
-    torch.cuda.empty_cache()
+    _kernel_vs_plain_grads(f"qwen2-1.5b x{cfg.num_layers} layers (12 heads over 2 KV heads "
+                           "of 128), 2 x 1024 tokens, bf16", cfg, api, params, batch,
+                           {"fwd": 2 * cfg.num_layers, "bwd": cfg.num_layers})
+    del params
+    _free_card()
 
 
 def phase_qwen_train(smi):
-    """Phase 5q: qwen2-1.5b at full width and depth (28 layers, fp32
-    params, bf16 compute, AdamW on the cosine schedule, per-layer remat)
-    trains 20 steps at 4 x 4096 through ``train.loop.train``."""
-    import torch
-
-    from repro_torch.configs import TRAIN_4K, get_config
-    from repro_torch.models.layers import tree_leaves
-    from repro_torch.train.loop import TrainConfig, train
+    """Phases 5q and 6q: qwen2-1.5b at full width and depth (28 layers,
+    fp32 params, bf16 compute, AdamW on the cosine schedule, per-layer
+    remat) trains 20 steps at 4 x 4096 through ``train.loop.train``; then
+    one more step under the profiler, which must run the ``wgmma`` flash
+    forward at d=128 and both backward kernels (and no fp32 FMA flash
+    kernel)."""
+    from repro_torch.configs import get_config
 
     cfg = get_config("qwen2-1.5b")
     n = QWEN_TRAIN
-    shape = dataclasses.replace(TRAIN_4K, seq_len=n["seq"], global_batch=n["batch"],
-                                name="smoke")
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    rep = train(cfg, shape, TrainConfig(steps=n["steps"], seed=0, max_failures=0),
-                device="cuda")
-    counts = _counts()
-    peak = torch.cuda.max_memory_allocated()
+    tokens = n["batch"] * n["seq"]
+    counts, _, _, _ = _train_and_profile(
+        cfg, n, f"{cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} {cfg.num_heads} "
+        f"heads over {cfg.num_kv_heads} KV heads of {cfg.d_head}", smi, 128,
+        lambda step_s: f"{tokens / step_s:.0f} tokens/s")
     L, steps = cfg.num_layers, n["steps"]
     want = {"fwd": steps * 2 * L, "bwd": steps * L}
-    losses = rep.losses
-    tokens = n["batch"] * n["seq"]
-    step_s = float(np.median(rep.step_times))
-    print(f"train slice on {smi}: {cfg.name} {L} layers d_model {cfg.d_model} "
-          f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of {cfg.d_head}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype} params, {cfg.dtype} compute, "
-          f"{cfg.n_params() / 1e9:.2f} B params; {steps} steps of "
-          f"{n['batch']} x {n['seq']} tokens; losses {[round(x, 4) for x in losses]}; "
-          f"median step {step_s * 1e3:.1f} ms ({tokens / step_s:.0f} tokens/s); step times "
-          f"{[round(t * 1e3, 1) for t in rep.step_times]} ms; peak memory "
-          f"{peak / 2**30:.2f} GiB; launches {counts}", flush=True)
-    if rep.steps_done != steps or rep.restarts:
-        fail(f"{rep.steps_done} steps done, {rep.restarts} restarts")
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        fail(f"losses not finite and falling: {losses}")
     if counts["flash"] != want or any(counts["ssd"].values()):
         fail(f"launches {counts} != flash {want}")
-    if peak >= 80e9:
-        fail(f"peak memory {peak / 1e9:.2f} GB does not fit an 80 GB card")
-    bad = [i for i, p in enumerate(tree_leaves(rep.state["params"]))
-           if not bool(torch.isfinite(p).all())]
-    if bad:
-        fail(f"non-finite parameters after the last step: leaves {bad}")
-    return counts["flash"], rep.state
+    return counts["flash"]
 
 
 FLASH_SM90 = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90")
 
 
-def phase_qwen_profile(state):
-    """Phase 6q: one more qwen2 training step under the profiler; fails
-    unless the ``wgmma`` flash forward at d=128 and both backward kernels
-    ran (and no fp32 FMA flash kernel)."""
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import SyntheticLMData
-    from repro_torch.models.api import get_model
-    from repro_torch.optim.optimizer import make_optimizer
-    from repro_torch.train.step import make_train_step
-
-    cfg = get_config("qwen2-1.5b")
-    n = QWEN_TRAIN
-    step = make_train_step(get_model(cfg), make_optimizer(cfg, total_steps=n["steps"]))
-    data = SyntheticLMData(cfg, n["batch"], n["seq"], seed=0, start_step=n["steps"],
-                           device="cuda")
-    batch = next(data)
-    data.close()
-    rows = _profile(f"qwen2 train step {n['batch']} x {n['seq']}", lambda: step(state, batch),
-                    top=14)
-    _require_flash_sm90("qwen2", rows)
-
-
-def _prefill_kernel_vs_plain(cfg4, api, params, label):
-    """A 1000-token prefill through the flash kernel and through
+def _prefill_kernel_vs_plain(cfg4, api, params, label, n_patches=0):
+    """A 1000-token prefill (after ``n_patches`` seeded patch embeddings,
+    for a vision model) through the flash kernel and through
     ``flash_attention_plain`` (with the config's softcap) on the same
     weights: logits within ``MODEL_RTOL`` of the largest, the same argmax,
-    one forward launch per layer and none for the plain path."""
+    one forward launch per layer and none for the plain path.  Returns the
+    kernel prefill's forward launches."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
-    tokens = torch.as_tensor(
-        np.random.default_rng(11).integers(0, cfg4.vocab_size, (1, 1000)), device=dev)
+    rng = np.random.default_rng(11)
+    tokens = torch.as_tensor(rng.integers(0, cfg4.vocab_size, (1, 1000)), device=dev)
+    kw = {}
+    if n_patches:
+        kw["patch_embeds"] = torch.as_tensor(
+            rng.standard_normal((1, n_patches, cfg4.d_model), dtype=np.float32), device=dev)
+    cap = n_patches + 1008
     fa.launches.update(fwd=0, bwd=0)
-    via_kernel, _ = api.prefill(params, tokens, 1008)
+    via_kernel, _ = api.prefill(params, tokens, cap, **kw)
+    launches = fa.launches["fwd"]
     if fa.launches != {"fwd": cfg4.num_layers, "bwd": 0}:
         fail(f"{label}: 4-layer prefill launched the kernel {fa.launches} times, "
              f"not {cfg4.num_layers} forward")
@@ -1850,7 +1879,7 @@ def _prefill_kernel_vs_plain(cfg4, api, params, label):
         fa.flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap))
     fa.launches.update(fwd=0, bwd=0)
     try:
-        via_plain, _ = api.prefill(params, tokens, 1008)
+        via_plain, _ = api.prefill(params, tokens, cap, **kw)
     finally:
         ops.attention = kernel_attention
     if fa.launches != {"fwd": 0, "bwd": 0}:
@@ -1858,12 +1887,13 @@ def _prefill_kernel_vs_plain(cfg4, api, params, label):
     a, b = via_kernel.float(), via_plain.float()
     diff, scale = float((a - b).abs().max()), float(b.abs().max())
     same = int(a.argmax()) == int(b.argmax())
-    print(f"model: {label}, 1000-token prefill logits kernel vs plain: "
+    print(f"model: {label}, {n_patches} + 1000-position prefill logits kernel vs plain: "
           f"max abs diff {diff:.4g} (bound {MODEL_RTOL} x max|logit| = "
           f"{MODEL_RTOL * scale:.4g}); argmax {int(a.argmax())} vs {int(b.argmax())}",
           flush=True)
     if not (torch.isfinite(a).all() and diff <= MODEL_RTOL * scale and same):
         fail(f"{label}: in-model kernel and plain prefill disagree")
+    return launches
 
 
 def phase_model(cfg):
@@ -2547,59 +2577,23 @@ def phase_big_train(smi):
     one profiled step each, which must run ``flash_fwd_sm90<128>`` and both
     ``flash_bwd_*_sm90``, and whose ``moe_aux`` is finite; then
     ``_adafactor_full_width`` at qwen2-72b's widths."""
-    import torch
-
-    from repro_torch.configs import TRAIN_4K, get_config
-    from repro_torch.data.pipeline import SyntheticLMData
-    from repro_torch.models.api import get_model
-    from repro_torch.optim.optimizer import make_optimizer
-    from repro_torch.train.loop import TrainConfig, train
-    from repro_torch.train.step import make_train_step
+    from repro_torch.configs import get_config
 
     n = BIG_TRAIN
-    shape = dataclasses.replace(TRAIN_4K, seq_len=n["seq"], global_batch=n["batch"],
-                                name="smoke")
     launches = {}
-    gc.collect()  # qwen2-72b's state takes 66 GiB: nothing of earlier phases may linger
-    torch.cuda.empty_cache()
     for arch in ("qwen3-moe-30b-a3b", "qwen2-72b"):
         cfg = dataclasses.replace(get_config(arch), num_layers=n["layers"])
-        torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
-        rep = train(cfg, shape, TrainConfig(steps=n["steps"], seed=0, max_failures=0),
-                    device="cuda")
-        counts = _counts()["flash"]
-        peak = torch.cuda.max_memory_allocated()
-        losses = rep.losses
-        step_s = float(np.median(rep.step_times))
-        print(f"train {arch} x{cfg.num_layers} layers on {smi}: {cfg.optimizer}, "
-              f"{cfg.n_params() / 1e9:.2f} B params; {n['steps']} steps of {n['batch']} x "
-              f"{n['seq']}; losses {[round(x, 4) for x in losses]}; median step "
-              f"{step_s * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB; flash launches "
-              f"{counts}", flush=True)
-        if rep.steps_done != n["steps"] or rep.restarts:
-            fail(f"{arch}: {rep.steps_done} steps done, {rep.restarts} restarts")
-        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-            fail(f"{arch}: losses not finite and falling: {losses}")
+        counts, _, _, metrics = _train_and_profile(
+            cfg, n, f"{arch} x{cfg.num_layers} layers", smi, 128,
+            lambda step_s: f"{n['batch'] * n['seq'] / step_s:.0f} tokens/s")
+        counts = counts["flash"]
         if counts != {"fwd": 2 * n["steps"] * cfg.num_layers, "bwd": n["steps"] * cfg.num_layers}:
             fail(f"{arch}: flash launches {counts}")
         launches[arch] = counts
-        step = make_train_step(get_model(cfg), make_optimizer(cfg, total_steps=n["steps"]))
-        data = SyntheticLMData(cfg, n["batch"], n["seq"], seed=0, start_step=n["steps"],
-                               device="cuda")
-        batch = next(data)
-        data.close()
-        res = {}
-        rows = _profile(f"{arch} x{cfg.num_layers} train step {n['batch']} x {n['seq']}",
-                        lambda: res.update(m=step(rep.state, batch)[1]), top=10)
-        _require_flash_sm90(arch, rows)
-        aux = float(res["m"]["moe_aux"])
+        aux = float(metrics["moe_aux"])
         print(f"  {arch} moe_aux {aux:.6g}", flush=True)
         if not np.isfinite(aux) or (cfg.block_type == "moe") != (aux > 0):
             fail(f"{arch}: moe_aux {aux}")
-        del rep, res, step
-        gc.collect()
-        torch.cuda.empty_cache()
     _adafactor_full_width(cfg, smi)
     return launches
 
@@ -2707,16 +2701,544 @@ def _adafactor_full_width(cfg, smi):
     torch.cuda.empty_cache()
 
 
-def _require_flash_sm90(label, rows):
-    """Fails unless a profiled step ran the ``wgmma`` flash forward at
-    d=128 and both backward kernels (and no fp32 FMA flash kernel)."""
+# ---------------------------------------------------------------------------
+# Slice 7: the encoder-decoder family, the vision prefix and VGG-16 (10a-10g)
+# ---------------------------------------------------------------------------
+
+# seamless-m4t-large-v2 training at 4 x 4096 frames: its encoder self-attention
+# and its decoder's cross-attention over the frames, 16 heads of 64, not causal
+SEAMLESS_ENC_FLASH = dict(B=4, S=4096, Skv=4096, H=16, KV=16, d=64, window=0, causal=False)
+SEAMLESS_CROSS_FLASH = dict(SEAMLESS_ENC_FLASH, S=1024)
+SEAMLESS_CHECK = dict(batch=2, frames=1024, layers=4)  # 10b: 4 encoder + 4 decoder layers
+SEAMLESS_TRAIN = dict(steps=20, batch=4, seq=4096)     # 10c: 4 x 4096 frames, 4 x 1024 tokens
+SEAMLESS_SERVE = dict(batch=4, prompt=256, new=32, frames=4096)  # 10d
+PIXTRAL = dict(batch=4, patches=1024, new=32, check_layers=4)    # 10e
+PIXTRAL_TRAIN = dict(steps=20, batch=1, seq=4096, layers=2)      # 10f: 1024 patches + 3072 text
+VGG_RUN = dict(batch=32, check_batch=4, steps=10, lr=1e-4)       # 10g
+# 10g: fp32 (TF32 off) against the same module in fp64 on the card, relative
+# L2 errors: the loss and the logits hold to 1e-5; each gradient leaf to
+# 2e-2, because cuDNN's fp32 convolution gradients stand about 1e-2 from
+# fp64 on an H100 while the dense layers' stand near 2e-6 (phase 10g prints
+# both, and beside them the same gradients without cuDNN and with TF32 on,
+# which this bound refuses)
+VGG_TOL = dict(loss=1e-5, logits=1e-5, grad=2e-2)
+
+
+def phase_flash_seamless():
+    """Phase 10a: the flash forward and backward at seamless's encoder
+    shape (4 x 4096, 16 heads of 64, not causal) and cross-attention shape
+    (1024 queries over 4096 frames), timed beside the plain version,
+    ``scaled_dot_product_attention`` (autograd through it for the
+    backward) and the bound (no causal halving), each held against autograd
+    through the plain version; two backward calls at each shape
+    bit-identical.  (The sweeps of phases 3 and 3d hold the non-causal
+    Sq != Skv cases of this regime.)"""
+    out = {}
+    for name, sl, seed in (("encoder", SEAMLESS_ENC_FLASH, 81),
+                           ("cross", SEAMLESS_CROSS_FLASH, 82)):
+        (fwd, bwd), same, lib_err = _flash_times(sl, seed=seed)
+        bwd.update(deterministic=all(same), vs_sdpa_max_abs_err=lib_err)
+        out[name] = (fwd, bwd)
+        _free_card()
+    return ({k: v[0] for k, v in out.items()}, {k: v[1] for k, v in out.items()})
+
+
+def _free_card():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _seamless_batch(cfg, B, frames, seed):
+    """Seeded fp32 frames (B, frames, D) and skewed tokens (B, frames // 4)
+    with next-token labels, on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    toks = np.minimum(rng.random((B, frames // 4)) ** 3 * cfg.vocab_size,
+                      cfg.vocab_size - 1).astype(np.int64)
+    return {"frames": torch.as_tensor(rng.standard_normal((B, frames, cfg.d_model),
+                                                          dtype=np.float32), device="cuda"),
+            "tokens": torch.as_tensor(toks, device="cuda"),
+            "labels": torch.as_tensor(np.roll(toks, -1, axis=1), device="cuda")}
+
+
+def _kernel_vs_plain_grads(label, cfg, api, params, batch, want):
+    """Loss and every parameter gradient of one batch through the flash
+    kernels, then through ``flash_attention_plain`` (``ops.attention``
+    swapped), within ``TRAIN_MODEL_TOL``; the kernels' launches must be
+    ``want`` exactly and the plain run's none."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import tree_leaves
+
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+
+    def loss_and_grads():
+        loss, _ = api.loss(params, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    _reset_counts()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    counts = _counts()["flash"]
+    if counts != want:
+        fail(f"{label}: the train step launched the flash kernels {counts} times, not {want}")
+    kernel_attention = ops.attention
+    ops.attention = lambda q, k, v, *, causal=True, window=0, softcap=0.0: (
+        fa.flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap))
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        ops.attention = kernel_attention
+    if _counts()["flash"] != want:
+        fail(f"{label}: the plain-attention train step launched a flash kernel")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    diffs = [float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+             for a, b in zip(grads_k, grads_p)]
+    worst = max(diffs)
+    worst_leaf = list(flatten(params))[diffs.index(worst)]
+    gnorm = float(torch.sqrt(sum(g.float().square().sum() for g in grads_k)))
+    print(f"model: {label}: loss kernel {float(loss_k):.6f} vs plain {float(loss_p):.6f} "
+          f"(rel diff {rel:.3g}, bound {TRAIN_MODEL_TOL['loss']}); worst gradient leaf diff "
+          f"{worst:.3g} of its max |g| ({worst_leaf}; bound {TRAIN_MODEL_TOL['grad']}) over "
+          f"{len(leaves)} leaves; grad norm {gnorm:.4g}; flash launches {counts}", flush=True)
+    if not (rel <= TRAIN_MODEL_TOL["loss"] and worst <= TRAIN_MODEL_TOL["grad"]
+            and np.isfinite(gnorm)):
+        fail(f"{label}: flash kernels and plain train step disagree")
+    return counts
+
+
+def _encdec_flash_per_pass(cfg):
+    """Flash calls of one encoder-decoder forward: one per encoder layer,
+    two (self and cross) per decoder layer."""
+    return cfg.num_encoder_layers + 2 * cfg.num_layers
+
+
+def phase_seamless_model():
+    """Phase 10b: seamless-m4t-large-v2 at full width cut to 4 encoder and
+    4 decoder layers, one batch of 2 x 1024 frames and 2 x 256 decoder
+    tokens: loss and every parameter gradient through the flash kernels
+    (non-causal encoder and cross-attention, causal decoder, d=64) and
+    through the plain version agree; per-block remat runs each forward
+    twice."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    n = SEAMLESS_CHECK
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"), num_layers=n["layers"],
+                              num_encoder_layers=n["layers"])
+    api = get_model(cfg)
+    dev = torch.device("cuda")
+    params = api.init(torch.Generator(device=dev).manual_seed(1), dev)
+    per = _encdec_flash_per_pass(cfg)
+    counts = _kernel_vs_plain_grads(
+        f"seamless-m4t-large-v2 x{n['layers']}+{n['layers']} layers (16 heads of 64), "
+        f"{n['batch']} x {n['frames']} frames, {n['frames'] // 4} decoder tokens, bf16",
+        cfg, api, params, _seamless_batch(cfg, n["batch"], n["frames"], seed=15),
+        {"fwd": 2 * per, "bwd": per})
+    del params
+    _free_card()
+    return counts
+
+
+def _train_and_profile(cfg, n, label, smi, d, tokens_note):
+    """``n["steps"]`` steps of ``n["batch"] x n["seq"]`` through
+    ``train.loop.train`` (the config's optimizer on the cosine schedule,
+    ``SyntheticLMData`` seed 0): every loss finite, the last below the
+    first, finite parameters, peak memory under 80 GB; then one more step
+    under the profiler, which must run the ``sm90`` flash kernels at head
+    dim ``d``.  Returns (``_counts()`` over the ``n["steps"]`` steps, median
+    step s, peak bytes, the profiled step's metrics)."""
+    import torch
+
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.train.step import make_train_step
+
+    shape = dataclasses.replace(TRAIN_4K, seq_len=n["seq"], global_batch=n["batch"],
+                                name="smoke")
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rep = train(cfg, shape, TrainConfig(steps=n["steps"], seed=0, max_failures=0),
+                device="cuda")
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = rep.losses
+    step_s = float(np.median(rep.step_times))
+    print(f"train {label} on {smi}: {cfg.param_dtype} params, {cfg.dtype} compute, "
+          f"{cfg.optimizer}, remat {cfg.remat_policy}, {cfg.n_params() / 1e9:.3f} B params; "
+          f"{n['steps']} steps of {n['batch']} x {n['seq']} ({tokens_note(step_s)}); losses "
+          f"{[round(x, 4) for x in losses]}; median step {step_s * 1e3:.1f} ms; step times "
+          f"{[round(t * 1e3, 1) for t in rep.step_times]} ms; {wall:.1f} s in train() with "
+          f"set-up; peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); launches "
+          f"{counts}", flush=True)
+    if rep.steps_done != n["steps"] or rep.restarts:
+        fail(f"{label}: {rep.steps_done} steps done, {rep.restarts} restarts")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"{label}: losses not finite and falling: {losses}")
+    if peak >= 80e9:
+        fail(f"{label}: peak memory {peak / 1e9:.2f} GB does not fit an 80 GB card")
+    bad = [i for i, p in enumerate(tree_leaves(rep.state["params"]))
+           if not bool(torch.isfinite(p).all())]
+    if bad:
+        fail(f"{label}: non-finite parameters after the last step: leaves {bad}")
+    step = make_train_step(get_model(cfg), make_optimizer(cfg, total_steps=n["steps"]))
+    data = SyntheticLMData(cfg, n["batch"], n["seq"], seed=0, start_step=n["steps"],
+                           device="cuda")
+    batch = next(data)
+    data.close()
+    res = {}
+    rows = _profile(f"{label} train step {n['batch']} x {n['seq']}",
+                    lambda: res.update(m=step(rep.state, batch)[1]), top=12)
+    _require_flash_sm90(label, rows, d=d)
+    del rep, step, batch
+    _free_card()
+    return counts, step_s, peak, res["m"]
+
+
+def phase_seamless_train(smi):
+    """Phase 10c: seamless-m4t-large-v2 at full width and depth (24
+    encoder and 24 decoder layers, d_model 1024, 16 heads of 64, d_ff 8192,
+    vocab 256206; fp32 params, bf16 compute, AdamW on the cosine schedule,
+    per-block remat) trains 20 steps of 4 x 4096 frames and 4 x 1024
+    decoder tokens; flash launches per step 2 x (24 + 2 x 24) forward
+    (remat runs each block's forward twice) and 24 + 2 x 24 backward; the
+    profiled step must run ``flash_fwd_sm90<64>`` and both backward
+    kernels at d=64."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("seamless-m4t-large-v2")
+    n = SEAMLESS_TRAIN
+    frames, dec = n["batch"] * n["seq"], n["batch"] * n["seq"] // 4
+
+    def note(step_s):
+        return (f"{frames} frames and {dec} decoder tokens a step: {frames / step_s:.0f} "
+                f"frames/s, {dec / step_s:.0f} decoder tokens/s")
+
+    counts, step_s, peak, _ = _train_and_profile(
+        cfg, n, f"{cfg.name} {cfg.num_encoder_layers}+{cfg.num_layers} layers", smi, 64, note)
+    counts = counts["flash"]
+    per = _encdec_flash_per_pass(cfg)
+    want = {"fwd": n["steps"] * 2 * per, "bwd": n["steps"] * per}
+    if counts != want:
+        fail(f"seamless training launched the flash kernels {counts} times, not {want}")
+    return counts, dict(median_step_ms=step_s * 1e3, frames_per_s=frames / step_s,
+                        decoder_tokens_per_s=dec / step_s, peak_gib=peak / 2**30)
+
+
+def phase_seamless_serve(smi):
+    """Phase 10d: seamless-m4t-large-v2 at full width and depth in bf16
+    (weights drawn straight into bf16 on the card) through
+    ``ServingEngine.generate``: 4 x 256 prompts fed token by token through
+    ``decode_step`` against the zero encoder memory ``init_cache`` makes
+    (as the reference serves it), 32 new tokens; token counts and the
+    vocabulary.  The decoder's self- and cross-attention at decode run
+    ``decode_attention``, plain PyTorch on every device (the reference has
+    no decode kernel), so generate launches no flash kernel.  Then a
+    full-depth ``forward`` of 1 x 4096 frames and 1024 tokens: finite
+    logits, one flash launch per encoder layer and two per decoder layer."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = get_config("seamless-m4t-large-v2")
+    n = SEAMLESS_SERVE
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    api, params = _direct_params(cfg, seed=6)
+    prompts = np.random.default_rng(23).integers(0, cfg.vocab_size, (n["batch"], n["prompt"]))
+    eng = ServingEngine(cfg, params, batch=n["batch"], capacity=n["prompt"] + n["new"],
+                        device="cuda")
+    _reset_counts()
+    out = eng.generate(prompts, n["new"])
+    gen_launches = dict(fa.launches)
+    st = eng.stats
+    ok = out.shape == (n["batch"], n["new"]) and bool(((0 <= out) & (out < cfg.vocab_size)).all())
+    print(f"seamless-m4t-large-v2 ServingEngine.generate on {smi}: {n['batch']} x "
+          f"{n['prompt']} prompts token by token, {n['new']} new tokens -> {out.shape}; prefill "
+          f"{st.prefill_s * 1e3:.1f} ms ({st.prefill_s / n['prompt'] * 1e3:.2f} ms a token "
+          f"step); decode {st.tokens_per_s:.2f} tokens/s ({st.decode_steps} steps in "
+          f"{st.decode_s:.3f} s); tokens in the vocabulary: {ok}; flash launches "
+          f"{gen_launches} (decode_attention is plain PyTorch)", flush=True)
+    if not ok:
+        fail("seamless: generate gave the wrong token count or tokens outside the vocabulary")
+    if gen_launches != {"fwd": 0, "bwd": 0}:
+        fail(f"seamless: token-by-token serving launched flash kernels {gen_launches}")
+    eng.reset()
+    del eng
+    _free_card()
+    batch = _seamless_batch(cfg, 1, n["frames"], seed=24)
+    _reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = api.forward(params, batch["frames"], batch["tokens"])
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    finite = bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"seamless-m4t-large-v2 forward 1 x {n['frames']} frames, "
+          f"{n['frames'] // 4} tokens, bf16: logits {tuple(logits.shape)} finite {finite}; "
+          f"{fwd_s * 1e3:.1f} ms (first call); flash launches {launches}; peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    want = {"fwd": _encdec_flash_per_pass(cfg), "bwd": 0}
+    if not finite or launches != want:
+        fail(f"seamless forward: finite {finite}, launches {launches} != {want}")
+    del params, logits, api
+    _free_card()
+    return launches["fwd"], dict(prefill_ms_per_token_step=st.prefill_s / n["prompt"] * 1e3,
+                                 decode_tokens_per_s=st.tokens_per_s)
+
+
+def phase_pixtral(smi):
+    """Phase 10e: pixtral-12b.  At full width cut to 4 layers: prefill
+    logits of 1024 patch positions and 1000 text tokens through the flash
+    kernel and through the plain path (``MODEL_RTOL``, same argmax).  At
+    full width and depth (12.27 B params drawn straight into bf16 on the
+    card): ``prefill(..., patch_embeds=)`` of 4 requests of 1024 patches
+    and 1024 tokens, profiled; its last logits against
+    ``forward(..., patch_embeds=)``'s last position; 32 greedy
+    ``decode_step``s; then ``ServingEngine.generate`` on 4 x 512 text
+    prompts (the reference's engine passes no patches); peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    n = PIXTRAL
+    full = get_config("pixtral-12b")
+    cfg4 = dataclasses.replace(full, num_layers=n["check_layers"])
+    api, params = _direct_params(cfg4, seed=7)
+    check = _prefill_kernel_vs_plain(cfg4, api, params, "pixtral-12b x4 layers (1024 patches)",
+                                     n_patches=n["patches"])
+    del api, params
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api, params = _direct_params(full, seed=8)
+    torch.cuda.synchronize()
+    print(f"pixtral-12b: {full.num_layers} layers d_model {full.d_model}, {full.num_heads} "
+          f"heads over {full.num_kv_heads} KV heads of {full.d_head}, {full.n_params() / 1e9:.2f} "
+          f"B params in {full.dtype}, drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    B, P = n["batch"], n["patches"]
+    rng = np.random.default_rng(25)
+    tokens = torch.as_tensor(rng.integers(0, full.vocab_size, (B, P)), device="cuda")
+    patches = torch.as_tensor(rng.standard_normal((B, P, full.d_model), dtype=np.float32),
+                              device="cuda")
+    cap = 2 * P + n["new"]
+    _reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        last, cache = api.prefill(params, tokens, cap, patch_embeds=patches)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        del last, cache
+        _profile(f"pixtral-12b prefill {B} x ({P} patches + {P} tokens)",
+                 lambda: api.prefill(params, tokens, cap, patch_embeds=patches), top=10)
+        t0 = time.perf_counter()
+        last, cache = api.prefill(params, tokens, cap, patch_embeds=patches)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        want = api.forward(params, tokens, patch_embeds=patches)[:, -1].float()
+        a = last.float()
+        diff, scale = float((a - want).abs().max()), float(want.abs().max())
+        same = bool((a.argmax(-1) == want.argmax(-1)).all())
+        del want
+        tok = a.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n["new"]):
+            logits, cache = api.decode_step(params, tok, cache, 2 * P + i)
+            tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    print(f"pixtral-12b prefill with patches on {smi}: {B} x ({P} patches + {P} tokens), "
+          f"cache of {cap} positions: {first_ms:.1f} ms (first call), {prefill_ms:.1f} ms "
+          f"(third); last logits vs forward's last position: max abs diff {diff:.4g} (bound "
+          f"{MODEL_RTOL} x max|logit| = {MODEL_RTOL * scale:.4g}), argmax same {same}; "
+          f"{n['new']} decode steps {decode_s * 1e3:.1f} ms ({B * n['new'] / decode_s:.2f} "
+          f"tokens/s, {n['new'] / decode_s:.2f} steps/s); flash launches {launches} (3 "
+          f"prefills and 1 forward of {full.num_layers} layers)", flush=True)
+    if not (bool(torch.isfinite(a).all()) and diff <= MODEL_RTOL * scale and same):
+        fail("pixtral-12b: prefill with patches disagrees with forward")
+    if launches != {"fwd": 4 * full.num_layers, "bwd": 0}:
+        fail(f"pixtral-12b: flash launches {launches} != 4 x {full.num_layers} forward")
+    del cache, last, a, logits, tok
+    _free_card()
+    total = launches["fwd"] + _generate_check(full, params, B, 512, n["new"], "pixtral-12b", smi)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"pixtral-12b serving peak memory {peak / 2**30:.2f} GiB", flush=True)
+    if peak >= PEAK_LIMIT:
+        fail(f"pixtral-12b peak memory {peak / 2**30:.2f} GiB is not below 79 GiB")
+    del params, api
+    _free_card()
+    return total, check, dict(prefill_ms=prefill_ms, decode_tokens_per_s=B * n["new"] / decode_s,
+                              peak_gib=peak / 2**30)
+
+
+def phase_pixtral_train(smi):
+    """Phase 10f: pixtral-12b at full width cut to 2 layers trains 20 steps
+    of 1 x 4096 positions (1024 patches, 3072 text tokens, the pipeline's
+    vision batches) through ``train.loop.train``; the profiled step must
+    run the ``sm90`` flash kernels at d=128."""
+    from repro_torch.configs import get_config
+
+    n = PIXTRAL_TRAIN
+    cfg = dataclasses.replace(get_config("pixtral-12b"), num_layers=n["layers"])
+    text = n["seq"] - max(n["seq"] // 4, 4)
+
+    def note(step_s):
+        return f"{n['batch'] * text / step_s:.0f} text tokens/s"
+
+    counts, step_s, peak, _ = _train_and_profile(
+        cfg, n, f"pixtral-12b x{n['layers']} layers (vision batches)", smi, 128, note)
+    counts = counts["flash"]
+    want = {"fwd": n["steps"] * 2 * cfg.num_layers, "bwd": n["steps"] * cfg.num_layers}
+    if counts != want:
+        fail(f"pixtral training launched the flash kernels {counts} times, not {want}")
+    return counts, dict(median_step_ms=step_s * 1e3, peak_gib=peak / 2**30)
+
+
+def phase_vgg(smi):
+    """Phase 10g: VGG-16 (the paper's model) at its Fig 9a global batch of
+    32, 224 x 224 x 3 images, fp32 with TF32 off (phase 1).  Loss and every
+    gradient at batch 4 against the same module run in fp64 on the card
+    (``VGG_TOL``); then 10 steps of the port's ``adamw`` on one fixed
+    seeded batch of 32: finite, falling loss, the median forward+backward
+    time and peak memory, beside the iteration time the port's planner
+    predicts for ``build_vgg_graph(VCFG, 32)`` on one ``H100`` (printed,
+    not enforced)."""
+    import torch
+
+    from repro_torch.configs.vgg16 import CONFIG as VCFG
+    from repro_torch.core.costmodel import H100
+    from repro_torch.core.planner import plan
+    from repro_torch.models import vgg
+    from repro_torch.models.graph import build_vgg_graph
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim.optimizer import adamw, constant_schedule
+
+    n = VGG_RUN
+    dev = torch.device("cuda")
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    params = vgg.init(torch.Generator(device=dev).manual_seed(9), VCFG, dev)
+    rng = np.random.default_rng(32)
+    images = torch.as_tensor(rng.standard_normal((n["batch"], VCFG.image_size,
+                                                  VCFG.image_size, 3), dtype=np.float32),
+                             device=dev)
+    labels = torch.as_tensor(rng.integers(0, VCFG.num_classes, (n["batch"],)), device=dev)
+
+    def loss_and_grads(p, batch):
+        leaves = [x.requires_grad_() for x in tree_leaves(p)]
+        loss, _ = vgg.loss_fn(p, batch, VCFG)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    b = n["check_batch"]
+    small = {"images": images[:b], "labels": labels[:b]}
+    loss32, g32 = loss_and_grads(params, small)
+    p64 = tree_map(lambda x: x.detach().double(), params)
+    small64 = {"images": small["images"].double(), "labels": small["labels"]}
+    loss64, g64 = loss_and_grads(p64, small64)
+    with torch.no_grad():
+        z32, z64 = vgg.forward(params, small["images"], VCFG), vgg.forward(p64, small64["images"],
+                                                                            VCFG)
+    rel = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    logits_rel = float((z32.double() - z64).norm() / z64.norm())
+    diffs = [float((a.double() - w).norm() / w.norm()) for a, w in zip(g32, g64)]
+    names = [f"{k}/{leaf}" for k in sorted(params) for leaf in sorted(params[k])]
+    worst = max(diffs)
+    print(f"vgg16 at batch {b}, fp32 (TF32 off) vs fp64 on the card: loss {float(loss32):.8f} "
+          f"vs {float(loss64):.8f} (rel diff {rel:.3g}, bound {VGG_TOL['loss']}); logits rel L2 "
+          f"{logits_rel:.3g} (bound {VGG_TOL['logits']}); gradients rel L2, worst "
+          f"{worst:.3g} ({names[diffs.index(worst)]}; bound {VGG_TOL['grad']}) over "
+          f"{len(diffs)} leaves: " + ", ".join(f"{k} {d:.3g}" for k, d in zip(names, diffs)
+                                               if k.endswith("/w")), flush=True)
+    if not (rel <= VGG_TOL["loss"] and logits_rel <= VGG_TOL["logits"]
+            and worst <= VGG_TOL["grad"]):
+        fail("vgg16: fp32 loss, logits or gradients disagree with fp64")
+    # where cuDNN's fp32 gradients stand: the same module through PyTorch's
+    # own convolutions (cuDNN off), in fp32 and in fp64, and with TF32 on
+    others = {}
+    flags = torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32
+    for label, p, batch, enabled, tf32 in (
+            ("fp32 without cuDNN", params, small, False, False),
+            ("fp64 without cuDNN", p64, small64, False, False),
+            ("fp32 cuDNN with TF32", params, small, True, True)):
+        torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32 = enabled, tf32
+        try:
+            g = loss_and_grads(p, batch)[1]
+        finally:
+            torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32 = flags
+        others[label] = max(float((a.double() - w).norm() / w.norm()) for a, w in zip(g, g64))
+        del g
+    print("  worst gradient rel L2 against fp64 with cuDNN: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in others.items()), flush=True)
+    del p64, g64, g32, z32, z64
+    _free_card()
+    opt = adamw(constant_schedule(n["lr"]))
+    state = opt.init(params)
+    batch = {"images": images, "labels": labels}
+    ordered = {k: {leaf: params[k][leaf] for leaf in sorted(params[k])} for k in sorted(params)}
+    losses, fb_ms = [], []
+    for _ in range(n["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(params, batch)
+        torch.cuda.synchronize()
+        fb_ms.append((time.perf_counter() - t0) * 1e3)
+        it = iter(grads)  # tree_leaves' order: sorted keys
+        params, state = opt.update(tree_map(lambda _: next(it), ordered), state, params)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    graph = build_vgg_graph(VCFG, n["batch"])
+    predicted_ms = plan(graph, 1, amp_limit=2.0, hw=H100).total_time * 1e3
+    flops = 3 * sum(x.flops for x in graph)  # forward + backward, the graph's count
+    fb = float(np.median(fb_ms))
+    print(f"vgg16 on {smi}: {n['steps']} AdamW steps (lr {n['lr']}) on one batch of "
+          f"{n['batch']} x {VCFG.image_size} x {VCFG.image_size} x 3, fp32: losses "
+          f"{[round(x, 4) for x in losses]}; forward+backward median {fb:.2f} ms (times "
+          f"{[round(t, 2) for t in fb_ms]} ms; {flops / (fb * 1e-3) / 1e12:.1f} TFLOP/s of the "
+          f"graph's {flops / 1e12:.3f} TFLOP); peak memory {peak / 2**30:.2f} GiB; the port's "
+          f"planner predicts {predicted_ms:.2f} ms an iteration on one H100 (not enforced)",
+          flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"vgg16: losses not finite and falling: {losses}")
+    del params, state, grads, images
+    _free_card()
+    return dict(fwd_bwd_ms=fb, predicted_ms=predicted_ms, peak_gib=peak / 2**30,
+                fp64_loss_rel=rel, fp64_logits_rel_l2=logits_rel, fp64_grad_worst_rel_l2=worst,
+                **{f"fp64_grad_worst_rel_l2 ({k})": v for k, v in others.items()})
+
+
+def _require_flash_sm90(label, rows, d=128):
+    """Fails unless a profiled step ran the ``wgmma`` flash forward and
+    both backward kernels at head dim ``d`` (and no fp32 FMA flash kernel)."""
     ran = {k: v for k, v in rows.items() if "flash_" in k}
     print("  flash kernels in the step: " + "; ".join(
         f"{k[:70]} x{c} {ms:.2f} ms" for k, (c, ms) in sorted(ran.items(), key=lambda x: -x[1][1])))
-    fwd128 = [k for k in ran if "flash_fwd_sm90" in k and "128" in k]
-    missing = [name for name in FLASH_SM90[1:] if not any(name in k for k in ran)]
-    if not fwd128 or missing:
-        fail(f"the {label} step ran no flash_fwd_sm90<128> ({fwd128}) or misses {missing}")
+    fwd = [k for k in ran if f"flash_fwd_sm90<{d}," in k]
+    missing = [name for name in FLASH_SM90[1:] if not any(f"{name}<{d}," in k for k in ran)]
+    if not fwd or missing:
+        fail(f"the {label} step ran no flash_fwd_sm90<{d}> ({fwd}) or misses {missing} at "
+             f"d={d}")
     if any("f32" in k or "flash_bwd_dq<" in k or "flash_bwd_dkdv<" in k for k in ran):
         fail(f"the {label} step ran an fp32 flash kernel: {sorted(ran)}")
 
@@ -2756,10 +3278,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     ssd_fwd["launches"], ssd_bwd["launches"] = counts["ssd"]["fwd"], counts["ssd"]["bwd"]
     phase_qwen_model()
-    qwen, state = phase_qwen_train(smi)
-    phase_qwen_profile(state)
-    del state
-    torch.cuda.empty_cache()
+    qwen = phase_qwen_train(smi)
     quick = phase_quickstart()
     alone = phase_bg_tenants()
     fg_mux, bg_mux, _ = phase_multiplex_train(smi)
@@ -2771,6 +3290,13 @@ def main() -> None:
     serve_grok = phase_grok(smi)
     phase_recurrent_serving(smi)
     big = phase_big_train(smi)
+    flash["seamless"], flash_bwd["seamless"] = phase_flash_seamless()
+    sm_check = phase_seamless_model()
+    sm_train, sm_train_stats = phase_seamless_train(smi)
+    sm_fwd, sm_serve = phase_seamless_serve(smi)
+    px_serve, px_check, px_stats = phase_pixtral(smi)
+    px_train, px_train_stats = phase_pixtral_train(smi)
+    vgg_stats = phase_vgg(smi)
     bg = {k: alone[k] + bg_mux[k] + bg_exec[k] for k in ("fwd", "bwd")}
     flash["launches_by_path"] = {"serve llama3-8b": serve_launches,
                                  "train zamba2-2.7b": counts["flash"]["fwd"],
@@ -2783,7 +3309,16 @@ def main() -> None:
                                  "serve grok-1-314b (4 layers)": serve_grok,
                                  "train qwen3-moe-30b-a3b (2 layers)":
                                      big["qwen3-moe-30b-a3b"]["fwd"],
-                                 "train qwen2-72b (2 layers)": big["qwen2-72b"]["fwd"]}
+                                 "train qwen2-72b (2 layers)": big["qwen2-72b"]["fwd"],
+                                 "seamless-m4t-large-v2 x4+4 layers (check)": sm_check["fwd"],
+                                 "train seamless-m4t-large-v2": sm_train["fwd"],
+                                 "serve seamless-m4t-large-v2 (forward)": sm_fwd,
+                                 "pixtral-12b x4 layers (check)": px_check,
+                                 "serve pixtral-12b": px_serve,
+                                 "train pixtral-12b (2 layers)": px_train["fwd"]}
+    # seamless's token-by-token serving (10d) decodes through
+    # ``decode_attention``, plain PyTorch on every device as the reference has
+    # no decode kernel: no flash launch, so no entry
     flash_bwd["launches_by_path"] = {"train zamba2-2.7b": counts["flash"]["bwd"],
                                      "train qwen2-1.5b": qwen["bwd"],
                                      "quickstart llama3-8b (reduced)": quick["bwd"],
@@ -2791,12 +3326,17 @@ def main() -> None:
                                      "bg tenants": bg["bwd"],
                                      "train qwen3-moe-30b-a3b (2 layers)":
                                          big["qwen3-moe-30b-a3b"]["bwd"],
-                                     "train qwen2-72b (2 layers)": big["qwen2-72b"]["bwd"]}
+                                     "train qwen2-72b (2 layers)": big["qwen2-72b"]["bwd"],
+                                     "seamless-m4t-large-v2 x4+4 layers (check)":
+                                         sm_check["bwd"],
+                                     "train seamless-m4t-large-v2": sm_train["bwd"],
+                                     "train pixtral-12b (2 layers)": px_train["bwd"]}
     for rec in (flash, flash_bwd):
         rec["launches"] = sum(rec["launches_by_path"].values())
         # launches made to hold the capped kernels against the plain version
         # (phase 9a), outside every main path, so not in ``launches``
         rec["checked_launches"] = {"9a softcap sweep": sweep_n}
+    print(f"slice7: {json.dumps(dict(seamless_train=sm_train_stats, seamless_serve=sm_serve, pixtral_serve=px_stats, pixtral_train=px_train_stats, vgg16=vgg_stats))}")
     print(f"planning: {json.dumps(planning)}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": [flash, flash_bwd, wkv_fwd, wkv_bwd, ssd_fwd, ssd_bwd]}))

@@ -4,8 +4,10 @@ The port of ``repro/data/pipeline.py``.  Host batches are made with the
 reference's numpy code, so for a given (seed, step) they are bit-identical
 to the reference's; restart-safe (the cursor is checkpointed).  A
 background thread keeps ``prefetch`` batches ready so host data work
-overlaps device compute.  ``next()`` returns token and label tensors as
-int64 on ``device``.
+overlaps device compute.  ``next()`` returns the batch on ``device``:
+token and label ids as int64, an encoder-decoder batch's ``frames`` and a
+vision batch's ``patch_embeds`` as the reference's fp32 (the models cast
+them to ``cfg.dtype``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.encdec import DEC_RATIO
 
 
 @dataclass
@@ -36,16 +39,29 @@ def _skewed_tokens(rng, shape, V):
 
 def make_host_batch(cfg: ModelConfig, batch: int, seq: int, seed: int,
                     step: int) -> Dict[str, np.ndarray]:
-    """The reference's host batch for (seed, step), as numpy arrays (the
-    token-only LM batch; the encoder-decoder and vision batches wait for
-    their model families)."""
-    if cfg.num_encoder_layers or cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: batches for encoder-decoder and vision models are not "
-            "ported yet (ROADMAP Queue 1, item 10)")
+    """The reference's host batch for (seed, step), as numpy arrays, drawn
+    in the reference's order: an encoder-decoder batch's decoder tokens
+    (``max(seq // DEC_RATIO, 8)``) then its fp32 frames ``(batch, seq,
+    d_model)``; a vision batch's text tokens then its fp32 patches
+    (``max(seq // 4, 4)`` positions, the rest text); else tokens alone."""
     rng = np.random.default_rng((seed << 20) ^ step)
-    toks = _skewed_tokens(rng, (batch, seq), cfg.vocab_size)
-    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1).astype(np.int32)}
+    V = cfg.vocab_size
+
+    def labels(toks):
+        return np.roll(toks, -1, axis=1).astype(np.int32)
+
+    if cfg.num_encoder_layers:
+        toks = _skewed_tokens(rng, (batch, max(seq // DEC_RATIO, 8)), V)
+        return {"frames": rng.standard_normal((batch, seq, cfg.d_model), dtype=np.float32),
+                "tokens": toks, "labels": labels(toks)}
+    if cfg.frontend == "vision":
+        si = max(seq // 4, 4)
+        toks = _skewed_tokens(rng, (batch, seq - si), V)
+        return {"tokens": toks, "labels": labels(toks),
+                "patch_embeds": rng.standard_normal((batch, si, cfg.d_model),
+                                                    dtype=np.float32)}
+    toks = _skewed_tokens(rng, (batch, seq), V)
+    return {"tokens": toks, "labels": labels(toks)}
 
 
 class SyntheticLMData:
@@ -85,7 +101,8 @@ class SyntheticLMData:
     def __next__(self) -> Dict[str, torch.Tensor]:
         step, hb = self._q.get()
         self.cursor.step = step + 1
-        return {k: torch.from_numpy(v).long().to(self.device) for k, v in hb.items()}
+        return {k: torch.from_numpy(v if v.dtype == np.float32 else v.astype(np.int64))
+                .to(self.device) for k, v in hb.items()}
 
     def __iter__(self) -> Iterator:
         return self

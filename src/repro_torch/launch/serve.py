@@ -6,8 +6,10 @@
 Mirrors ``repro/launch/serve.py``: the arch's ``reduced()`` config with
 random weights from a seeded ``torch.Generator``, drawn straight into the
 serving dtype.  Default mode runs the fixed-batch engine: batched prefill
-+ greedy decode, for every decoder-only family (``attn_mlp``, ``moe``;
-``rwkv6`` and ``mamba2`` feed the prompt token by token).
++ greedy decode, for every family (``attn_mlp`` and ``moe`` through their
+fused prefill, pixtral-12b's without patches; ``rwkv6``, ``mamba2`` and the
+encoder-decoder seamless-m4t-large-v2 feed the prompt token by token, the
+latter against a zero encoder memory, as in the reference).
 ``--continuous`` serves a generated Poisson request trace through the
 paged continuous-batching engine and reports per-request latency
 percentiles; as in the reference, it takes the KV-cache families

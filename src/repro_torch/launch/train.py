@@ -8,9 +8,11 @@ Mirrors ``repro/launch/train.py --smoke``: first the burst plan of the
 FULL config (``TRAIN_4K`` on 256 devices, ``--amp-limit``), what
 production would run, then the arch's ``reduced()`` config trained by
 ``train.loop.train`` on the skewed-unigram synthetic data, with
-checkpoint/restart when ``--ckpt-dir`` is given.  Trains the ``attn_mlp``,
-``moe``, ``rwkv6`` and ``mamba2`` families, with the config's optimizer
-(AdamW, or Adafactor for qwen2-72b and grok-1).  Runs on the card; ``--device cpu``
+checkpoint/restart when ``--ckpt-dir`` is given.  Trains every family —
+``attn_mlp`` (pixtral-12b on vision batches of patches and text),
+``moe``, ``rwkv6``, ``mamba2`` and the encoder-decoder seamless-m4t-large-v2
+(frames in, decoder tokens out) — with the config's optimizer (AdamW, or
+Adafactor for qwen2-72b and grok-1).  Runs on the card; ``--device cpu``
 runs on the CPU.  The full config is trained by calling ``train()``
 directly (as ``chip_smoke.py`` does).
 

@@ -1,0 +1,203 @@
+"""Encoder-decoder stack (seamless-m4t-large-v2 backbone), in PyTorch.
+
+The port of ``repro/models/encdec.py``.  The speech frontend is a stub:
+inputs are precomputed frame embeddings (B, S_enc, D), projected by
+``frontend_proj``.  Encoder: bidirectional self-attention with RoPE.
+Decoder: causal self-attention, then cross-attention (q from the decoder,
+k/v from the encoder output, no RoPE, not causal), then the MLP.
+
+Shape mapping: for training and prefill the encoder consumes ``seq_len``
+frames and the decoder ``seq_len // DEC_RATIO`` tokens; ``decode_step``
+runs one decoder step against a decoder KV cache and a cached encoder
+memory of ``ENC_MEMORY`` frames, over which its cross-attention runs
+``decode_attention`` (plain PyTorch on every device, as in the reference).
+
+Parameters are the reference's tree, with every per-layer leaf stacked on
+a leading ``layers`` axis; each stack is unbound once (``layers.unstack``).
+Under any ``remat_policy`` other than ``"none"`` a whole block is
+rematerialised (non-reentrant ``torch.utils.checkpoint``), as the
+reference wraps each block in ``jax.checkpoint``: ``"dots"`` means
+``"full"`` here.  On CUDA every self- and cross-attention of ``encode``
+and ``forward`` goes to the flash kernels (``models/attention.attend``).
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch._device import as_dtype
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (
+    ParamSpec,
+    _proj_in,
+    apply_rope,
+    attention_schema,
+    cast,
+    mlp_apply,
+    mlp_schema,
+    out_project,
+    qkv_project,
+    rms_norm,
+    softmax_xent,
+    stack_schema,
+    tree_map,
+    unstack,
+)
+from repro_torch.models.transformer import _positions, embed_tokens, unembed
+
+DEC_RATIO = 4       # decoder length = encoder length // 4 for train/prefill
+ENC_MEMORY = 4096   # encoder memory length at decode shapes
+
+
+def encoder_block_schema(cfg) -> dict:
+    D = cfg.d_model
+    return {
+        "ln1": ParamSpec((D,), ("norm",), init="zeros"),
+        "ln2": ParamSpec((D,), ("norm",), init="zeros"),
+        "attn": attention_schema(cfg),
+        "mlp": mlp_schema(cfg),
+    }
+
+
+def decoder_block_schema(cfg) -> dict:
+    D = cfg.d_model
+    return {
+        "ln1": ParamSpec((D,), ("norm",), init="zeros"),
+        "lnx": ParamSpec((D,), ("norm",), init="zeros"),
+        "ln2": ParamSpec((D,), ("norm",), init="zeros"),
+        "self_attn": attention_schema(cfg),
+        "cross_attn": attention_schema(cfg),
+        "mlp": mlp_schema(cfg),
+    }
+
+
+def encdec_schema(cfg) -> dict:
+    D, Vp = cfg.d_model, cfg.padded_vocab
+    return {
+        "frontend_proj": ParamSpec((D, D), ("embed", "embed_out")),
+        "embed": ParamSpec((Vp, D), ("vocab", "embed"), init="embed"),
+        "enc_layers": stack_schema(encoder_block_schema(cfg), cfg.num_encoder_layers),
+        "dec_layers": stack_schema(decoder_block_schema(cfg), cfg.num_layers),
+        "enc_norm": ParamSpec((D,), ("norm",), init="zeros"),
+        "final_norm": ParamSpec((D,), ("norm",), init="zeros"),
+        "lm_head": ParamSpec((D, Vp), ("embed", "vocab")),
+    }
+
+
+def _block(cfg, fn, *args):
+    """``fn(*args)``, rematerialised whole unless ``remat_policy`` is
+    ``"none"`` (the reference's ``jax.checkpoint`` of the block)."""
+    if cfg.remat_policy == "none":
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _enc_block(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
+    a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    q, k, v = qkv_project(lp["attn"], a_in, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    h = h + out_project(lp["attn"], attn_lib.attend(q, k, v, causal=False))
+    m_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    return h + mlp_apply(lp["mlp"], m_in)
+
+
+def encode(params: dict, frames, cfg) -> torch.Tensor:
+    """frames: (B, S_enc, D) precomputed frame embeddings (frontend stub),
+    cast to ``cfg.dtype`` before the ``frontend_proj`` product."""
+    fp = params["frontend_proj"]
+    h = torch.as_tensor(frames, device=fp.device).to(as_dtype(cfg.dtype))
+    h = h @ cast(fp, h.dtype)
+    B, S, _ = h.shape
+    positions = _positions(B, S, h.device)
+    for lp in unstack(params["enc_layers"], cfg.num_encoder_layers):
+        h = _block(cfg, _enc_block, lp, h, positions, cfg)
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg) -> tuple:
+    """Cross-attention k, v (B, S_enc, KV, hd) from the encoder output."""
+    return _proj_in(enc_out, lp["cross_attn"]["wk"]), _proj_in(enc_out, lp["cross_attn"]["wv"])
+
+
+def _cross_attend(lp: dict, h: torch.Tensor, enc_kv: tuple, positions, cfg) -> torch.Tensor:
+    """Cross-attention: q from the decoder's h (``wq`` alone, no RoPE),
+    k/v precomputed from the encoder; ``positions`` is unused, as in the
+    reference."""
+    a_in = rms_norm(h, lp["lnx"], cfg.norm_eps)
+    q = _proj_in(a_in, lp["cross_attn"]["wq"])
+    k, v = enc_kv
+    return h + out_project(lp["cross_attn"], attn_lib.attend(q, k, v, causal=False))
+
+
+def _dec_block(lp: dict, h: torch.Tensor, enc_out: torch.Tensor, positions: torch.Tensor,
+               cfg) -> torch.Tensor:
+    a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    q, k, v = qkv_project(lp["self_attn"], a_in, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    h = h + out_project(lp["self_attn"], attn_lib.attend(q, k, v, causal=True))
+    h = _cross_attend(lp, h, _enc_kv(lp, enc_out, cfg), positions, cfg)
+    m_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    return h + mlp_apply(lp["mlp"], m_in)
+
+
+def forward(params: dict, frames, tokens, cfg) -> torch.Tensor:
+    """Teacher-forced logits (B, S_dec, padded vocab)."""
+    enc_out = encode(params, frames, cfg)
+    h = embed_tokens(params, tokens, cfg)
+    B, S, _ = h.shape
+    positions = _positions(B, S, h.device)
+    for lp in unstack(params["dec_layers"], cfg.num_layers):
+        h = _block(cfg, _dec_block, lp, h, enc_out, positions, cfg)
+    return unembed(params, h, cfg)
+
+
+def loss_fn(params: dict, batch: dict, cfg) -> tuple:
+    """batch: frames (B, S_enc, D), tokens and labels (B, S_dec) (labels
+    below 0 masked).  Masked cross-entropy, no aux term."""
+    logits = forward(params, batch["frames"], batch["tokens"], cfg)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    mask = (labels >= 0).float()
+    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask)
+    return xent, {"loss": xent, "xent": xent}
+
+
+def cache_schema(cfg, batch: int, capacity: int) -> dict:
+    """Decoder KV (L, B, capacity, KV, hd) and the encoder memory's
+    cross-attention k/v, always ``ENC_MEMORY`` frames."""
+    KV, hd, L = cfg.num_kv_heads, cfg.d_head, cfg.num_layers
+    axes = ("layers", "act_batch", "act_kv_seq", "kv_heads", "head_dim")
+    kv = ParamSpec((L, batch, capacity, KV, hd), axes, init="zeros", dtype=cfg.dtype)
+    enc_kv = ParamSpec((L, batch, ENC_MEMORY, KV, hd), axes, init="zeros", dtype=cfg.dtype)
+    return {"k": kv, "v": kv, "enc_k": enc_kv, "enc_v": enc_kv}
+
+
+def decode_step(params: dict, token, cache: dict, cache_len, cfg) -> tuple:
+    """One decoder step; the encoder memory's k/v are in ``cache``.
+    ``cache_len`` is a scalar (all lanes aligned); the new self-attention
+    entry is written into ``cache`` in place.  Returns (logits (B, V), cache)."""
+    h = embed_tokens(params, token, cfg)
+    B = h.shape[0]
+    n = torch.as_tensor(cache_len, device=h.device).long()
+    positions = n.reshape(1, 1).expand(B, 1)
+    for i in range(cfg.num_layers):
+        lp = tree_map(lambda x: x[i], params["dec_layers"])
+        kc, vc = cache["k"][i], cache["v"][i]
+        a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = qkv_project(lp["self_attn"], a_in, cfg)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        kc[:, n] = k[:, 0].to(kc.dtype)
+        vc[:, n] = v[:, 0].to(vc.dtype)
+        h = h + out_project(lp["self_attn"], attn_lib.decode_attention(
+            q, kc.to(q.dtype), vc.to(q.dtype), n + 1))
+        # cross-attention over the full encoder memory
+        x_in = rms_norm(h, lp["lnx"], cfg.norm_eps)
+        qx = _proj_in(x_in, lp["cross_attn"]["wq"])
+        h = h + out_project(lp["cross_attn"], attn_lib.decode_attention(
+            qx, cache["enc_k"][i].to(qx.dtype), cache["enc_v"][i].to(qx.dtype), ENC_MEMORY))
+        m_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        h = h + mlp_apply(lp["mlp"], m_in)
+    logits = unembed(params, h, cfg)[:, 0]
+    return logits, cache

@@ -1,24 +1,29 @@
 """Decoder-only LM stack (dense and MoE variants), in PyTorch.
 
 The port of ``repro/models/transformer.py``: the ``attn_mlp`` family
-(llama3-8b, qwen2, minicpm, ...) and the ``moe`` family (qwen3-moe,
-grok-1), whose blocks replace the MLP by ``models/moe.moe_apply``.  Parameters are the reference's tree: nested dicts
+(llama3-8b, qwen2, minicpm, pixtral-12b's backbone, ...) and the ``moe``
+family (qwen3-moe, grok-1), whose blocks replace the MLP by
+``models/moe.moe_apply``.  Parameters are the reference's tree: nested dicts
 with every per-layer leaf stacked on a leading ``layers`` axis; the
 reference's ``lax.scan`` over layers is a Python loop over that axis.
 
 Modes:
-  forward(params, tokens)                        -> logits     (teacher forcing)
-  loss_fn(params, batch)                         -> (loss, metrics)
-  prefill(params, tokens, cache_capacity)        -> (last-position logits, cache)
-  decode_step(params, token, cache, cache_len)   -> (logits, cache)
+  forward(params, tokens[, patch_embeds])                  -> logits  (teacher forcing)
+  loss_fn(params, batch)                                   -> (loss, metrics)
+  prefill(params, tokens, cache_capacity[, patch_embeds])  -> (last-position logits, cache)
+  decode_step(params, token, cache, cache_len)             -> (logits, cache)
+
+The vision frontend (pixtral) is a stub: ``patch_embeds`` (B, S_img, D)
+are precomputed patch embeddings, projected by ``frontend_proj`` and
+prepended to the token embeddings; positions run over patches and text
+together, and ``loss_fn`` scores the text positions only.
 
 The training stack (``hidden_states``) rematerialises each layer as
 ``cfg.remat_policy`` says (``layers.remat``, the reference's
 ``_maybe_remat``).
 
 ``decode_step`` writes the new KV entries into ``cache`` in place and
-returns the same tensors.  The vision frontend is not ported yet (ROADMAP
-Queue 1, item 10).
+returns the same tensors.
 """
 from __future__ import annotations
 
@@ -44,12 +49,10 @@ from repro_torch.models.layers import (
     zeros,
 )
 
+VISION_PREFIX = 1024  # pixtral: number of precomputed patch-embedding positions
+
 
 def _check_supported(cfg) -> None:
-    if cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: the vision frontend is not ported yet "
-            "(ROADMAP Queue 1, item 10)")
     if cfg.block_type not in ("attn_mlp", "moe"):
         raise NotImplementedError(f"{cfg.name}: block_type {cfg.block_type!r} "
                                   "is not a decoder-only attn_mlp or moe model")
@@ -84,6 +87,8 @@ def lm_schema(cfg) -> dict:
     }
     if not cfg.tie_embeddings:
         schema["lm_head"] = ParamSpec((D, Vp), ("embed", "vocab"))
+    if cfg.frontend == "vision":
+        schema["frontend_proj"] = ParamSpec((D, D), ("embed", "embed_out"))
     return schema
 
 
@@ -174,6 +179,17 @@ def unembed(params: dict, h: torch.Tensor, cfg) -> torch.Tensor:
     return h @ cast(params["lm_head"], h.dtype)
 
 
+def _embed_inputs(params: dict, tokens, cfg, patch_embeds=None) -> torch.Tensor:
+    """Token embeddings, with the projected patches prepended for a vision
+    model given ``patch_embeds`` (cast to the compute dtype first)."""
+    h = embed_tokens(params, tokens, cfg)
+    if cfg.frontend == "vision" and patch_embeds is not None:
+        fp = cast(params["frontend_proj"], h.dtype)
+        pe = torch.as_tensor(patch_embeds, device=h.device).to(h.dtype) @ fp
+        h = torch.cat([pe, h], dim=1)
+    return h
+
+
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device).expand(B, S)
 
@@ -183,11 +199,11 @@ def _block_h(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> tuple:
     return h, aux
 
 
-def hidden_states(params: dict, tokens, cfg) -> tuple:
-    """Embed and run the layer stack -> (h, the layers' mean MoE aux loss,
-    an fp32 zero for a dense model)."""
+def hidden_states(params: dict, tokens, cfg, patch_embeds=None) -> tuple:
+    """Embed (with the optional vision prefix) and run the layer stack ->
+    (h, the layers' mean MoE aux loss, an fp32 zero for a dense model)."""
     _check_supported(cfg)
-    h = embed_tokens(params, tokens, cfg)
+    h = _embed_inputs(params, tokens, cfg, patch_embeds)
     B, S, _ = h.shape
     positions = _positions(B, S, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -198,15 +214,19 @@ def hidden_states(params: dict, tokens, cfg) -> tuple:
     return h, aux / cfg.num_layers
 
 
-def forward(params: dict, tokens, cfg) -> torch.Tensor:
-    return unembed(params, hidden_states(params, tokens, cfg)[0], cfg)
+def forward(params: dict, tokens, cfg, patch_embeds=None) -> torch.Tensor:
+    return unembed(params, hidden_states(params, tokens, cfg, patch_embeds)[0], cfg)
 
 
 def loss_fn(params: dict, batch: dict, cfg) -> tuple:
     """batch: tokens (B,S), labels (B,S) (-1 = masked).  Masked
     cross-entropy plus ``0.01 * aux``, the layers' mean MoE load-balancing
-    loss (zero for a dense model).  Returns (loss, metrics)."""
-    h, aux = hidden_states(params, batch["tokens"], cfg)
+    loss (zero for a dense model).  A vision batch's ``patch_embeds``
+    positions are dropped before the unembedding: the loss is over text
+    positions only.  Returns (loss, metrics)."""
+    h, aux = hidden_states(params, batch["tokens"], cfg, batch.get("patch_embeds"))
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        h = h[:, batch["patch_embeds"].shape[1]:]
     logits = unembed(params, h, cfg)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = (labels >= 0).float()
@@ -215,10 +235,11 @@ def loss_fn(params: dict, batch: dict, cfg) -> tuple:
     return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
 
 
-def prefill(params: dict, tokens, cfg, cache_capacity: int) -> tuple:
-    """Returns (last-position logits (B, V), cache {'k','v'} (L, B, cap, KV, hd))."""
+def prefill(params: dict, tokens, cfg, cache_capacity: int, patch_embeds=None) -> tuple:
+    """Returns (last-position logits (B, V), cache {'k','v'} (L, B, cap, KV, hd));
+    with ``patch_embeds`` the cache holds the S_img + S_txt positions."""
     _check_supported(cfg)
-    h = embed_tokens(params, tokens, cfg)
+    h = _embed_inputs(params, tokens, cfg, patch_embeds)
     B, S, _ = h.shape
     if S > cache_capacity:
         raise ValueError(f"prompt of {S} tokens exceeds cache capacity {cache_capacity}")

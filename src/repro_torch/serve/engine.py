@@ -3,16 +3,20 @@
 The port of ``repro/serve/engine.py``.  ``ServingEngine`` is the
 fixed-batch engine: requests are grouped into one batch; finished
 sequences are masked to EOS (output and fed-back token) while the batch
-keeps stepping.  It serves every decoder-only family: ``attn_mlp`` and
-``moe`` through their fused prefill, ``rwkv6`` and ``mamba2`` (which have
-none) by feeding the prompt through ``decode_step`` one token at a time,
-as the reference does.
+keeps stepping.  It serves every family: ``attn_mlp`` and ``moe`` through
+their fused prefill (pixtral's without patches, as in the reference),
+``rwkv6``, ``mamba2`` and the encoder-decoder family (which have none) by
+feeding the prompt through ``decode_step`` one token at a time, as the
+reference does.  An encoder-decoder model so decodes against the cache's
+encoder memory as ``init_cache`` made it: all zeros, as in the reference.
 
 ``ContinuousBatchingEngine`` serves a request *stream*: a paged KV pool
 (``serve/kvcache.py``) replaces the contiguous per-batch cache, each batch
 lane holds one live request with its own page table and length, and
 finished lanes are retired and refilled mid-decode.  ``serve/scheduler.py``
-drives it over a request trace.  Prefill/decode disaggregation over device
+drives it over a request trace.  Like the reference's, it accepts an
+encoder-decoder config (``block_type`` ``attn_mlp``) and fails at the first
+``admit``, since that family has no ``prefill``.  Prefill/decode disaggregation over device
 carvings (the reference's ``submeshes``) waits for the multi-device layer.
 
 Both engines take ``device`` (default: the card; they raise when there is

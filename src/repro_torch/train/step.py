@@ -2,8 +2,9 @@
 
 The port of ``repro/train/step.py::make_train_step``, ``make_forward`` and
 ``bg_step_factory``: loss, ``torch.autograd.grad`` over the parameter
-leaves, then ``optimizer.update`` (which clips and writes in place).  The
-jit and sharding wrappers (``jit_train_step`` and friends) wait for the
+leaves, then ``optimizer.update`` (which clips and writes in place), for
+every family, the encoder-decoder (``frames`` batches) and vision
+(``patch_embeds``) ones included.  The jit and sharding wrappers (``jit_train_step`` and friends) wait for the
 multi-device layer (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
@@ -17,9 +18,7 @@ from repro_torch.models.layers import tree_leaves, tree_map
 
 def make_train_step(api, optimizer):
     if api.loss is None:
-        raise NotImplementedError(
-            f"{api.cfg.name}: training the {api.cfg.block_type!r} family waits for "
-            "its loss_fn, not ported yet (ROADMAP Queue 1, item 10)")
+        raise NotImplementedError(f"{api.cfg.name}: this ModelAPI has no loss_fn to train")
 
     def train_step(state, batch):
         params = state["params"]
@@ -48,6 +47,10 @@ def make_forward(api):
     """Full-sequence forward (prefill benchmark shape)."""
 
     def fwd(params, batch):
+        if "frames" in batch:
+            return api.forward(params, batch["frames"], batch["tokens"])
+        if "patch_embeds" in batch:
+            return api.forward(params, batch["tokens"], patch_embeds=batch["patch_embeds"])
         return api.forward(params, batch["tokens"])
 
     return fwd

@@ -277,8 +277,17 @@ def test_api_layer_graph_and_input_specs(arch):
 
 
 def test_input_specs_refuse_unported_batches():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_input_specs(get_config("seamless-m4t-large-v2"), TRAIN_4K)
+    """The encoder-decoder and vision batches, once refused, are ported:
+    the reference's shapes (``tests/test_torch_encdec.py`` and
+    ``tests/test_torch_vision.py`` check more lengths)."""
+    from repro.models.api import train_input_specs as ref_specs
+
+    for arch in ("seamless-m4t-large-v2", "pixtral-12b"):
+        specs = train_input_specs(get_config(arch), TRAIN_4K)
+        want = ref_specs(ref_get_config(arch), REF_TRAIN_4K)
+        assert sorted(specs) == sorted(want) and len(specs) == 3
+        for k, t in specs.items():
+            assert t.device.type == "meta" and tuple(t.shape) == want[k].shape, k
 
 
 def test_calibrate_kinds_one_ratio_per_kind():

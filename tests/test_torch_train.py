@@ -70,11 +70,22 @@ def test_data_bit_identical(seed, start):
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "pixtral-12b"])
 def test_data_refuses_unported_batch_kinds(arch):
-    from repro_torch.configs import get_config
+    """The encoder-decoder and vision batches, once refused, are ported:
+    bit for bit the reference's (``tests/test_torch_encdec.py`` and
+    ``tests/test_torch_vision.py`` hold them over more seeds and steps)."""
     from repro_torch.data.pipeline import make_host_batch
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_host_batch(get_config(arch).reduced(), 1, 8, seed=0, step=0)
+    cfg = small_config(arch)
+    ref = RefData(cfg, 1, 8, seed=0)
+    try:
+        want = ref._make_host_batch(0)
+    finally:
+        ref.close()
+    got = make_host_batch(port_config(cfg), 1, 8, seed=0, step=0)
+    assert sorted(got) == sorted(want) and len(got) == 3
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype, k
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
 
 
 def test_data_restore():
@@ -109,7 +120,8 @@ def _batch(cfg, step, B=2, S=32):
 
     hb = make_host_batch(cfg, B, S, seed=0, step=step)
     return ({k: jnp.asarray(v) for k, v in hb.items()},
-            {k: torch.from_numpy(v).long() for k, v in hb.items()})
+            {k: torch.from_numpy(v if v.dtype == np.float32 else v.astype(np.int64))
+             for k, v in hb.items()})
 
 
 def test_train_step_and_trajectory():
@@ -131,11 +143,11 @@ def test_hybrid_train_step_and_trajectory():
 NOISE_FLOOR = 1e-4
 
 
-def _step_and_trajectory(cfg, noise_floor=None):
+def _step_and_trajectory(cfg, noise_floor=None, steps=5):
     ropt, popt, jstate, tstate = _states(cfg)
     ref_step = jax.jit(ref_make_train_step(ref_get_model(cfg), ropt))
     port_step = make_train_step(get_model(port_config(cfg)), popt)
-    for i in range(5):
+    for i in range(steps):
         jb, tb = _batch(cfg, i)
         jstate, jm = ref_step(jstate, jb)
         tstate, tm = port_step(tstate, tb)
@@ -156,7 +168,7 @@ def _step_and_trajectory(cfg, noise_floor=None):
                         assert not bad.any(), (k, np.abs(g - w)[bad].max(), int(bad.sum()))
                     else:
                         np.testing.assert_allclose(g, w, atol=atol, rtol=MOMENT_TOL, err_msg=k)
-    assert int(tstate["step"]) == int(jstate["step"]) == 5
+    assert int(tstate["step"]) == int(jstate["step"]) == steps
 
 
 def test_init_state_and_schema():

@@ -90,11 +90,17 @@ def test_bf16_forward_and_prefill():
 @pytest.mark.parametrize("name,match", [
     ("pixtral-12b", "vision"), ("seamless-m4t-large-v2", "not ported")])
 def test_unported_families_raise(name, match):
-    """The families still waiting for their port (the MoE family is ported,
-    ``tests/test_torch_moe_model.py``)."""
-    cfg = port_config(small_config(name))
-    with pytest.raises(NotImplementedError, match=match):
-        port_get_model(cfg)
+    """The families the port once refused (with an error naming ``match``)
+    are ported: ``get_model`` builds them with the reference's schema
+    (``tests/test_torch_vision.py`` and ``tests/test_torch_encdec.py`` hold
+    them against the reference)."""
+    from repro.checkpoint import ckpt as ref_ckpt
+    from repro_torch.checkpoint import ckpt
+
+    cfg = small_config(name)
+    got = ckpt.flatten(port_get_model(port_config(cfg)).schema)
+    want = ref_ckpt._flatten(ref_get_model(cfg).schema)
+    assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
 
 
 def test_config_cut_keeps_reference_shapes():
