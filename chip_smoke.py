@@ -232,6 +232,34 @@ layouts, both dtypes, and hold every flash shape of 10b-10f):
      batch: finite, falling loss, median forward+backward time, peak
      memory, beside the planner's predicted iteration time on one ``H100``
      (not enforced).
+Slice 8, multi-device (after 10g; one card, so the mesh is (1, 1): a
+one-rank NCCL group; several ranks run in the CPU tests on gloo):
+  11a. mesh — ``init_process_group("nccl")`` over a ``HashStore`` and
+     ``make_mesh(1, 1)``; qwen2-1.5b's rules and parameter specs on it
+     (equal to an abstract (1, 1) mesh's) and on the abstract (16, 16) and
+     (2, 16, 16) production meshes, with the divisibility guard's drops.
+  11b. sharded training, the slice's main path — qwen2-1.5b at full width
+     and depth (phase 5q's recipe) trains 8 steps of 4 x 4096 through
+     ``train.loop.train(..., mesh=)`` (``jit_train_step``: parameters and
+     AdamW state as DTensors, each layer gathered inside its remat
+     function), then 8 through the plain step: losses bit-identical; 56
+     forward and 28 backward flash launches a step; median step, tokens/s
+     and peak memory of both.
+  11c. every other family through the sharded step against the plain step
+     (rwkv6-1.6b x4 layers, zamba2-2.7b x7, qwen3-moe-30b-a3b x2,
+     seamless-m4t-large-v2 x2+2, pixtral-12b x2; full width, 3 steps of 1
+     x 4096): losses bit-identical; the WKV-6, SSD and flash kernels launch;
+     the first step apart from the median of the two after it.
+  11d. PowerSGD — qwen2-1.5b at full width cut to 2 layers, 20 steps of 1
+     x 4096 through ``make_train_step(grad_transform=)`` at rank 4: losses
+     finite and falling; one ``compress_decompress`` of a step's gradients
+     against an fp64 replica (``POWERSGD_TOL``); its time and
+     ``compression_ratio``.
+  11e. disaggregated serving — llama3-8b at full width and depth through
+     ``ContinuousBatchingEngine(submeshes=split_mesh_for_serving(1, [card,
+     card]))``: prefill and decode on streams of their own; phase 5's trace
+     gives phase 5's tokens exactly; no page leaks; the median handoff.
+  A ``slice8: {...}`` line (11a-11e's numbers) comes before ``slice7``.
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
@@ -242,7 +270,8 @@ qwen2-1.5b shape under ``qwen2``, at grok-1's shape with the cap under
 ``softcap`` (with ``capless_ms``), at seamless's encoder and cross shapes
 under ``seamless``, their launches by path, the multiplexed foreground,
 the background tenants, the MoE paths and slice 7's paths among them, and
-under ``checked_launches`` those of the 9a sweep); the line before that
+under ``checked_launches`` those of the 9a sweep; every record's
+``launches_by_path`` has slice 8's sharded paths too); the line before that
 is ``card: ...``, before it ``planning: {...}`` (the measured launch
 overhead and kind ratios), and before that ``slice7: {...}`` (phases
 10c-10g's end-to-end numbers).  Imports ``torch``, ``numpy``
@@ -3228,6 +3257,303 @@ def phase_vgg(smi):
                 **{f"fp64_grad_worst_rel_l2 ({k})": v for k, v in others.items()})
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: multi-device (the sharded steps on a (1, 1) mesh of the one card)
+# ---------------------------------------------------------------------------
+
+SHARDED_TRAIN = dict(steps=8, batch=4, seq=4096)  # 11b: phase 5q's recipe, 8 steps
+FAMILY_TRAIN = dict(steps=3, batch=1, seq=4096)   # 11c: a warm-up step, then 2
+FAMILIES = (  # (arch, overrides: full width, depth cut), 11c
+    ("rwkv6-1.6b", dict(num_layers=4)),
+    ("zamba2-2.7b", dict(num_layers=7)),  # the shared block runs at layers 0 and 6
+    ("qwen3-moe-30b-a3b", dict(num_layers=2)),
+    ("seamless-m4t-large-v2", dict(num_layers=2, num_encoder_layers=2)),
+    ("pixtral-12b", dict(num_layers=2)),
+)
+POWERSGD = dict(steps=20, batch=1, seq=4096, layers=2, rank=4)  # 11d
+POWERSGD_TOL = 1e-4  # fp32 approximation vs fp64, of each leaf's largest magnitude
+
+
+def phase_mesh():
+    """Phase 11a: a one-rank NCCL group (a ``HashStore``, no port) and the
+    (1, 1) ``(data, model)`` mesh over the card; qwen2-1.5b's rules and
+    parameter specs on it (equal to those of an abstract (1, 1) mesh), then
+    on the abstract (16, 16) and (2, 16, 16) production meshes, train and
+    decode layouts, with the divisibility guard's drops."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import DECODE_32K, TRAIN_4K, get_config
+    from repro_torch.dist.sharding import RuleReport, param_pspecs, sharding_rules
+    from repro_torch.launch.mesh import AbstractMesh, make_mesh, make_production_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import tree_leaves
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    mesh = make_mesh(1, 1)
+    cfg = get_config("qwen2-1.5b")
+    api = get_model(cfg)
+    abstract = AbstractMesh((1, 1), ("data", "model"))
+    if sharding_rules(cfg, mesh, TRAIN_4K) != sharding_rules(cfg, abstract, TRAIN_4K):
+        fail("mesh: the card's (1, 1) DeviceMesh gives other rules than an abstract one")
+    out = {}
+    for label, m in (("1x1 (the card)", mesh), ("16x16", make_production_mesh()),
+                     ("2x16x16", make_production_mesh(multi_pod=True))):
+        for shape in (TRAIN_4K, DECODE_32K):
+            rep = RuleReport()
+            rules = sharding_rules(cfg, m, shape)
+            specs = tree_leaves(param_pspecs(api.schema, rules, m, rep))
+            split = sum(1 for sp in specs if any(e is not None for e in sp))
+            out[f"{label} {shape.name}"] = dict(split_leaves=split, leaves=len(specs),
+                                                dropped=len(rep.dropped))
+            print(f"mesh {label} ({type(m).__name__}) {shape.name}: "
+                  f"{ {k: v for k, v in rules.items() if v} }; {split} of {len(specs)} "
+                  f"parameter leaves split; {len(rep.dropped)} rules dropped "
+                  f"{sorted(set(rep.dropped))}", flush=True)
+    return mesh, out
+
+
+def _train_pair(cfg, n, mesh, label):
+    """``n["steps"]`` steps of ``train.loop.train`` through the sharded step
+    on ``mesh`` (launch counts reset just before and read just after), then
+    the same through the plain step; fails unless every loss is bit-identical
+    (world size 1: the same kernels on the same shards).  Returns (launch
+    counts of the sharded run, its median step s and peak bytes, the plain
+    run's median and peak, the step times (s) of each)."""
+    import torch
+
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.train.loop import TrainConfig, train
+
+    shape = dataclasses.replace(TRAIN_4K, seq_len=n["seq"], global_batch=n["batch"],
+                                name="smoke")
+    tc = TrainConfig(steps=n["steps"], seed=0, max_failures=0)
+    runs = {}
+    for kind in ("sharded", "plain"):
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        rep = train(cfg, shape, tc, device="cuda", mesh=mesh if kind == "sharded" else None)
+        counts = dict(_counts(), wkv=dict(wk.launches))
+        runs[kind] = (rep.losses, float(np.median(rep.step_times)),
+                      torch.cuda.max_memory_allocated(), counts, rep.step_times)
+        if rep.steps_done != n["steps"] or not np.isfinite(rep.losses).all():
+            fail(f"{label} ({kind}): {rep.steps_done} steps, losses {rep.losses}")
+        del rep
+    _free_card()
+    (ls, ss, ps, cs, ts), (lp, sp, pp, _, tp) = runs["sharded"], runs["plain"]
+    print(f"  {label}: sharded losses {[round(x, 5) for x in ls]}; plain "
+          f"{[round(x, 5) for x in lp]}; median step sharded {ss * 1e3:.1f} ms, plain "
+          f"{sp * 1e3:.1f} ms (steps sharded {[round(t * 1e3, 1) for t in ts]}, plain "
+          f"{[round(t * 1e3, 1) for t in tp]} ms); peak sharded {ps / 2**30:.2f} GiB, plain "
+          f"{pp / 2**30:.2f} GiB; launches {cs}", flush=True)
+    if ls != lp:
+        fail(f"{label}: the sharded step's losses {ls} are not the plain step's {lp}")
+    return cs, ss, ps, sp, pp, ts, tp
+
+
+def phase_sharded_train(mesh, smi):
+    """Phase 11b, the slice's main path: qwen2-1.5b at full width and depth
+    (phase 5q's recipe: 4 x 4096, fp32 params, bf16 compute, AdamW, per-layer
+    remat) trains 8 steps through ``train.loop.train(..., mesh=)`` and
+    ``jit_train_step`` on the (1, 1) mesh, parameters and AdamW state as
+    DTensors, each layer gathered inside its remat function; then 8 steps
+    through the plain step.  Losses bit-identical; flash launches 56
+    forward and 28 backward a step on the sharded run."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-1.5b")
+    n = SHARDED_TRAIN
+    counts, ss, ps, sp, pp, _, _ = _train_pair(cfg, n, mesh,
+                                               f"train {cfg.name} sharded (11b)")
+    want = {"fwd": n["steps"] * 2 * cfg.num_layers, "bwd": n["steps"] * cfg.num_layers}
+    if counts["flash"] != want or any(counts["ssd"].values()):
+        fail(f"11b: launches {counts} != flash {want}")
+    tokens = n["batch"] * n["seq"]
+    print(f"sharded train on {smi}: {cfg.name} {n['steps']} steps of {n['batch']} x "
+          f"{n['seq']}: median step {ss * 1e3:.1f} ms ({tokens / ss:.0f} tokens/s), peak "
+          f"{ps / 2**30:.2f} GiB; the plain step {sp * 1e3:.1f} ms ({tokens / sp:.0f} "
+          f"tokens/s), peak {pp / 2**30:.2f} GiB", flush=True)
+    return counts["flash"], dict(median_step_ms=ss * 1e3, tokens_per_s=tokens / ss,
+                                 peak_gib=ps / 2**30, plain_median_step_ms=sp * 1e3,
+                                 plain_tokens_per_s=tokens / sp, plain_peak_gib=pp / 2**30)
+
+
+def phase_sharded_families(mesh, smi):
+    """Phase 11c: every other family through the sharded step against the
+    plain step, at full width cut in depth (``FAMILIES``), 3 steps of 1 x
+    4096 each: losses bit-identical; the WKV-6 (rwkv6), SSD (zamba2) and
+    flash kernels launch in the sharded run.  The first step (the warm-up:
+    DTensor's sharding propagation, caching allocator growth) is reported
+    apart from the median of the steps after it."""
+    from repro_torch.configs import get_config
+
+    out, launches = {}, {}
+    for arch, cut in FAMILIES:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        label = f"{arch} x{cfg.num_layers}" + (f"+{cfg.num_encoder_layers}"
+                                               if cfg.num_encoder_layers else "")
+        counts, _, ps, _, pp, ts, tp = _train_pair(cfg, FAMILY_TRAIN, mesh,
+                                                             f"11c {label}")
+        need = {"rwkv6-1.6b": ["wkv"], "zamba2-2.7b": ["ssd", "flash"]}.get(arch, ["flash"])
+        if any(counts[k]["fwd"] == 0 or counts[k]["bwd"] == 0 for k in need):
+            fail(f"11c {label}: the sharded step launched {counts}, none of {need}")
+        launches[label] = counts
+        out[label] = dict(steady_median_step_ms=float(np.median(ts[1:])) * 1e3,
+                          plain_steady_median_step_ms=float(np.median(tp[1:])) * 1e3,
+                          first_step_ms=ts[0] * 1e3, plain_first_step_ms=tp[0] * 1e3,
+                          peak_gib=ps / 2**30, plain_peak_gib=pp / 2**30)
+    print(f"sharded families on {smi}: {json.dumps(out)}", flush=True)
+    return launches, out
+
+
+def _powersgd_plain64(grads, state, rank):
+    """One PowerSGD round of ``compress_decompress`` in fp64 on the card
+    (no group): the reference's formulas, for phase 11d."""
+    import torch
+
+    out = {}
+    for k, g in grads.items():
+        gf = g.double() + state[k]["err"].double()
+        m2 = gf.reshape(1, -1) if gf.dim() == 1 else gf.reshape(-1, gf.shape[-1])
+        if min(m2.shape) <= rank:
+            out[k] = gf
+            continue
+        p, _ = torch.linalg.qr(m2 @ state[k]["q"].double())
+        out[k] = (p @ (m2.T @ p).T).reshape(gf.shape)
+    return out
+
+
+def phase_powersgd(smi):
+    """Phase 11d: qwen2-1.5b at full width cut to 2 layers trains 20 steps
+    of 1 x 4096 through ``make_train_step(grad_transform=)`` with PowerSGD
+    rank 4 and error feedback: losses finite and falling.  Then one round of
+    ``compress_decompress`` on one step's gradients against an fp64 replica
+    (``POWERSGD_TOL``), its time per step (CUDA events) and
+    ``compression_ratio``."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import grad_compression as gc
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+
+    n = POWERSGD
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=n["layers"])
+    api, opt = get_model(cfg), make_optimizer(cfg, total_steps=n["steps"])
+    dev = torch.device("cuda")
+    _free_card()
+    state = init_state(api, opt, torch.Generator(device=dev).manual_seed(0), dev)
+    holder = {"st": gc.init_state(state["params"], rank=n["rank"])}
+
+    def transform(grads):
+        approx, holder["st"] = gc.compress_decompress(grads, holder["st"], rank=n["rank"])
+        return approx
+
+    step = make_train_step(api, opt, grad_transform=transform)
+    data = SyntheticLMData(cfg, n["batch"], n["seq"], seed=0, device=dev)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(n["steps"]):
+        state, m = step(state, next(data))
+        losses.append(float(m["loss"]))
+    wall = time.perf_counter() - t0
+    data.close()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"11d: PowerSGD losses not finite and falling: {losses}")
+    params = state["params"]
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    data = SyntheticLMData(cfg, n["batch"], n["seq"], seed=1, device=dev)
+    batch = next(data)
+    data.close()
+    loss, _ = api.loss(params, batch)
+    grads = dict(zip(flatten(params), torch.autograd.grad(loss, leaves)))
+    st = {k: v for k, v in flatten(holder["st"]).items()}
+    st = {k: {"q": st[k + "/q"], "err": st[k + "/err"]} for k in grads}
+    got, _ = gc.compress_decompress(grads, st, rank=n["rank"])
+    want = _powersgd_plain64(grads, st, n["rank"])
+    worst = max(float((got[k].double() - want[k]).abs().max() / want[k].abs().max())
+                for k in grads)
+    ms = _time_ms(lambda: gc.compress_decompress(grads, st, rank=n["rank"]), reps=10)
+    ratio = gc.compression_ratio(params, rank=n["rank"])
+    print(f"powersgd on {smi}: {cfg.name} x{cfg.num_layers} layers, rank {n['rank']}, "
+          f"{n['steps']} steps of {n['batch']} x {n['seq']}: losses "
+          f"{[round(x, 4) for x in losses]} ({wall:.1f} s); compress_decompress "
+          f"{ms:.3f} ms a step over {len(grads)} leaves; compression ratio {ratio:.5f}; "
+          f"vs fp64 worst {worst:.3g} of the leaf's largest (tol {POWERSGD_TOL})", flush=True)
+    if not worst <= POWERSGD_TOL:
+        fail(f"11d: compress_decompress differs from fp64 by {worst:.3g}")
+    del state, params, grads, st, got, want, holder
+    _free_card()
+    return dict(compress_ms=ms, compression_ratio=ratio, fp64_worst=worst,
+                first_loss=losses[0], last_loss=losses[-1])
+
+
+def phase_disaggregated(cfg, smi, tokens5, stats5):
+    """Phase 11e: llama3-8b at full width and depth (phase 5's weights,
+    drawn anew from the same seed) serves phase 5's trace through
+    ``ContinuousBatchingEngine(submeshes=split_mesh_for_serving(1, [card,
+    card]))`` + ``ContinuousScheduler``: prefill on one slice's stream,
+    decode on the other's, the pages handed off at each admit.  Every
+    request's tokens equal phase 5's; no page leaks; one flash launch per
+    prefill and layer; the median handoff per admit."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import split_mesh_for_serving
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    from repro_torch.serve.trace import materialize_requests
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _free_card()
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(0), dev, dtype=cfg.dtype)
+    sm = split_mesh_for_serving(1, devices=[dev, dev])
+    eng = ContinuousBatchingEngine(cfg, params, lanes=4, n_pages=545, page_tokens=16,
+                                   lane_capacity=2176, submeshes=sm)
+    del params
+    _free_card()
+    if eng.prefill_stream == eng.decode_stream or eng.params_prefill is not eng.params:
+        fail("11e: the slices share a stream, or the card holds two copies of the weights")
+    reqs = materialize_requests(slice_trace(cfg.vocab_size))
+    fa.launches.update(fwd=0, bwd=0)
+    rep = ContinuousScheduler(eng).run(reqs)
+    launches = fa.launches["fwd"]
+    got = {r.rid: tuple(r.tokens) for r in rep.completed}
+    if got != tokens5:
+        diff = sorted(k for k in tokens5 if got.get(k) != tokens5[k])
+        fail(f"11e: disaggregated tokens differ from phase 5's for requests {diff}")
+    if eng.alloc.used_pages != 0:
+        fail(f"11e: {eng.alloc.used_pages} pages leaked")
+    if fa.launches["bwd"] or launches != eng.stats.prefills * cfg.num_layers:
+        fail(f"11e: flash launches {fa.launches} != {eng.stats.prefills} x {cfg.num_layers}")
+    st = eng.stats
+    handoff = float(np.median(eng.handoff_s)) * 1e3
+    out = dict(requests=len(rep.completed), prefill_ms=st.prefill_s / st.prefills * 1e3,
+               decode_tokens_per_s=st.tokens_per_s, handoff_ms_median=handoff,
+               handoffs=len(eng.handoff_s), ttft_p50_ms=rep.ttft_percentile(50) * 1e3,
+               phase5_prefill_ms=stats5.prefill_s / stats5.prefills * 1e3,
+               phase5_decode_tokens_per_s=stats5.tokens_per_s)
+    print(f"disaggregated serve on {smi}: {json.dumps(out)}; tokens equal phase 5's; "
+          f"launches {launches}", flush=True)
+    del eng
+    _free_card()
+    return launches, out
+
+
 def _require_flash_sm90(label, rows, d=128):
     """Fails unless a profiled step ran the ``wgmma`` flash forward and
     both backward kernels at head dim ``d`` (and no fp32 FMA flash kernel)."""
@@ -3261,6 +3587,7 @@ def main() -> None:
     phase_model(cfg)
     serve_launches, eng, rep5 = phase_slice(cfg, smi)
     stats5 = dataclasses.replace(eng.stats)  # phase 6 resets the engine
+    tokens5 = {r.rid: tuple(r.tokens) for r in rep5.completed}
     ttft5 = (rep5.ttft_percentile(50), rep5.ttft_percentile(99))
     phase_profile(eng, cfg)
     del eng
@@ -3297,6 +3624,14 @@ def main() -> None:
     px_serve, px_check, px_stats = phase_pixtral(smi)
     px_train, px_train_stats = phase_pixtral_train(smi)
     vgg_stats = phase_vgg(smi)
+    mesh, mesh_rules = phase_mesh()
+    sharded, sharded_stats = phase_sharded_train(mesh, smi)
+    fam_counts, fam_stats = phase_sharded_families(mesh, smi)
+    psgd = phase_powersgd(smi)
+    disagg, disagg_stats = phase_disaggregated(cfg, smi, tokens5, stats5)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     bg = {k: alone[k] + bg_mux[k] + bg_exec[k] for k in ("fwd", "bwd")}
     flash["launches_by_path"] = {"serve llama3-8b": serve_launches,
                                  "train zamba2-2.7b": counts["flash"]["fwd"],
@@ -3315,7 +3650,11 @@ def main() -> None:
                                  "serve seamless-m4t-large-v2 (forward)": sm_fwd,
                                  "pixtral-12b x4 layers (check)": px_check,
                                  "serve pixtral-12b": px_serve,
-                                 "train pixtral-12b (2 layers)": px_train["fwd"]}
+                                 "train pixtral-12b (2 layers)": px_train["fwd"],
+                                 "train qwen2-1.5b sharded (11b)": sharded["fwd"],
+                                 **{f"train {k} sharded (11c)": c["flash"]["fwd"]
+                                    for k, c in fam_counts.items() if c["flash"]["fwd"]},
+                                 "serve llama3-8b disaggregated (11e)": disagg}
     # seamless's token-by-token serving (10d) decodes through
     # ``decode_attention``, plain PyTorch on every device as the reference has
     # no decode kernel: no flash launch, so no entry
@@ -3330,12 +3669,27 @@ def main() -> None:
                                      "seamless-m4t-large-v2 x4+4 layers (check)":
                                          sm_check["bwd"],
                                      "train seamless-m4t-large-v2": sm_train["bwd"],
-                                     "train pixtral-12b (2 layers)": px_train["bwd"]}
+                                     "train pixtral-12b (2 layers)": px_train["bwd"],
+                                     "train qwen2-1.5b sharded (11b)": sharded["bwd"],
+                                     **{f"train {k} sharded (11c)": c["flash"]["bwd"]
+                                        for k, c in fam_counts.items()
+                                        if c["flash"]["bwd"]}}
     for rec in (flash, flash_bwd):
         rec["launches"] = sum(rec["launches_by_path"].values())
         # launches made to hold the capped kernels against the plain version
         # (phase 9a), outside every main path, so not in ``launches``
         rec["checked_launches"] = {"9a softcap sweep": sweep_n}
+    for rec, fam, key, first in ((wkv_fwd, "wkv", "fwd", "train rwkv6-1.6b"),
+                                 (wkv_bwd, "wkv", "bwd", "train rwkv6-1.6b"),
+                                 (ssd_fwd, "ssd", "fwd", "train zamba2-2.7b"),
+                                 (ssd_bwd, "ssd", "bwd", "train zamba2-2.7b")):
+        rec["launches_by_path"] = {first: rec["launches"], **{
+            f"train {k} sharded (11c)": c[fam][key] for k, c in fam_counts.items()
+            if c[fam][key]}}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    slice8 = dict(mesh=mesh_rules, sharded_train=sharded_stats, families=fam_stats,
+                  powersgd=psgd, disaggregated_serve=disagg_stats)
+    print(f"slice8: {json.dumps(slice8)}")
     print(f"slice7: {json.dumps(dict(seamless_train=sm_train_stats, seamless_serve=sm_serve, pixtral_serve=px_stats, pixtral_train=px_train_stats, vgg16=vgg_stats))}")
     print(f"planning: {json.dumps(planning)}")
     print(f"card: {smi}")

@@ -10,6 +10,12 @@ mapping into the port's nested dicts of tensors (same paths, shapes and
 dtypes); ``load_reference_checkpoint`` reads a saved step without a
 template.  Every parity test carries the reference's weights over through
 here, since JAX's PRNG cannot be reproduced in PyTorch.
+
+A sharded state (DTensor leaves) saves in the same format: every rank
+gathers each leaf (``full_tensor``, a collective) and rank 0 writes.
+``restore(..., shardings=)`` places every leaf by the *target* mesh's
+shardings, whatever mesh saved it: the elastic restore onto a re-carved
+mesh.
 """
 from __future__ import annotations
 
@@ -84,6 +90,8 @@ def _gc(ckpt_dir: str, keep: int) -> None:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
+    if hasattr(t, "full_tensor"):  # a DTensor: gathered on every rank
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         raise TypeError("bfloat16 leaves have no numpy dtype here; the reference "
                         "format holds training state in float32")
@@ -94,8 +102,12 @@ def save(ckpt_dir: str, state: Any, step: int, *, keep: int = 3,
          extra_meta: Optional[dict] = None, async_: bool = True) -> threading.Thread:
     """Checkpoint ``state`` (nested dicts of tensors) at ``step``.  The copy
     to the host is synchronous; writing the files runs on the returned
-    thread (joined here unless ``async_``)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    thread (joined here unless ``async_``).  In a process group every rank
+    calls it (DTensor leaves are gathered) and rank 0 alone writes; a
+    synchronous save returns once it is written, on every rank."""
+    import torch.distributed as dist
+
+    group = dist.is_available() and dist.is_initialized()
     host = {k: _numpy(v) for k, v in flatten(state).items()}
     meta = {"step": int(step), "time": time.time(), **(extra_meta or {})}
 
@@ -111,17 +123,30 @@ def save(ckpt_dir: str, state: Any, step: int, *, keep: int = 3,
         os.rename(tmp, final)
         _gc(ckpt_dir, keep)
 
-    t = threading.Thread(target=_write, daemon=True)
+    writer = not group or dist.get_rank() == 0
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    t = threading.Thread(target=_write if writer else (lambda: None), daemon=True)
     t.start()
     if not async_:
         t.join()
+        if group:
+            dist.barrier()
     return t
 
 
-def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None) -> Tuple[Any, dict]:
-    """Restore into the structure of ``like`` (nested dicts of tensors):
-    every leaf comes back with ``like``'s dtype, device and
-    ``requires_grad``; shapes must match.  Returns ``(tree, meta)``."""
+def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None,
+            shardings: Any = None) -> Tuple[Any, dict]:
+    """Restore into the structure of ``like`` (nested dicts of tensors, or
+    of ``meta`` tensors such as ``train.state.abstract_state``): every leaf
+    comes back with ``like``'s dtype and ``requires_grad``; shapes must
+    match.  With ``shardings`` (a ``dist.sharding.NamedSharding`` tree)
+    each leaf is placed as a DTensor by its target sharding, each rank
+    cutting its own shard from the file (the elastic restart); a 0-d leaf
+    stays a plain tensor, on ``like``'s device (the CPU for a ``meta``
+    leaf).  Without, on ``like``'s device.  Returns ``(tree, meta)``."""
+    from repro_torch.dist.sharding import device_put
+
     path, meta = _open(ckpt_dir, step)
     flat = {}
     with np.load(os.path.join(path, "arrays.npz")) as data:
@@ -131,9 +156,13 @@ def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None) -> Tuple[An
             arr = data[key]
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: ckpt shape {arr.shape} != state {tuple(leaf.shape)}")
-            t = _tensor(arr, leaf.device).to(leaf.dtype)
+            dev = torch.device("cpu") if leaf.device.type == "meta" else leaf.device
+            t = _tensor(arr, dev).to(leaf.dtype)
             flat[key] = t.requires_grad_(leaf.requires_grad)
-    return _unflatten(flat), meta
+    tree = _unflatten(flat)
+    if shardings is not None:
+        tree = device_put(tree, shardings)
+    return tree, meta
 
 
 def _open(ckpt_dir: str, step: Optional[int]) -> Tuple[str, dict]:

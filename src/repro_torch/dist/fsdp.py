@@ -1,0 +1,223 @@
+"""FSDP parameter gathering, activation constraints and the collectives of
+explicit local compute.
+
+The port of ``repro/dist/fsdp.py``.  The models call the reference's
+hooks at the reference's sites:
+
+  - ``gather(tree, schema)`` / ``gather_leaf(x, axes)``: a parameter is a
+    DTensor placed by the rules; at its use site it is redistributed to
+    its TP-only layout (data and pod axes stripped, ``_tp_only_rules``: an
+    all-gather of the FSDP shards) and handed to the model as this rank's
+    plain local tensor, with ``Partial`` gradient placements on the axes
+    the batch is split over.  Autograd then reduce-scatters the gradient
+    back onto the parameter's shards: ZeRO-3, since every family calls
+    the hook inside its per-layer remat function, so the recompute gathers
+    again.
+  - ``constrain(x, axes)``: local compute already holds this rank's
+    shard and needs no layout hint, so this is the identity.  The layouts
+    local compute does not run (tensor parallelism over ``model`` beyond
+    the dense ``attn_mlp`` family, ROADMAP item 11b) are refused once, by
+    the sharded step factories (``train.step._check_layout``).
+  - ``group_count(axis)``: the number of shards the active rules give a
+    logical axis (1 outside any context), for group-local capacity math.
+
+Port-only, for the global reductions local compute must make itself:
+``batch_sum`` (a sum over the ranks the batch is split over, whose
+backward is the identity: each rank's gradient is its own share), and
+the tensor-parallel pair over the ``model`` axis, ``tp_copy`` (identity
+forward, gradient summed) and ``tp_sum`` (sum forward, identity
+backward), with ``model_max``, ``model_size`` and ``model_rank``.
+
+Every hook is the identity outside a ``context(mesh, rules)`` block, so
+single-device code runs the same model code unsharded, and every
+collective over axes of size 1 is skipped.
+"""
+from __future__ import annotations
+
+import math
+from contextlib import contextmanager
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.dist.sharding import DP_AXES, axis_names, mesh_axis_sizes, placements, pspec
+
+ITEM_11B = "ROADMAP Queue 1, item 11b"
+
+# Stack of (mesh, rules) — LIFO so contexts nest.
+_CTX: list = []
+
+
+@contextmanager
+def context(mesh, rules):
+    """Activate (mesh, rules) for the hooks."""
+    _CTX.append((mesh, rules))
+    try:
+        yield
+    finally:
+        _CTX.pop()
+
+
+def active() -> Optional[tuple]:
+    return _CTX[-1] if _CTX else None
+
+
+def group_count(axis: str) -> int:
+    """Shard count of a logical axis under the active rules (1 if inactive)."""
+    ctx = active()
+    if ctx is None:
+        return 1
+    mesh, rules = ctx
+    sizes = mesh_axis_sizes(mesh)
+    return int(math.prod(sizes.get(a, 1) for a in rules.get(axis, ()))) or 1
+
+
+def _tp_only_rules(rules) -> dict:
+    """The rule set with DP/FSDP axes stripped (what a gathered weight keeps)."""
+    dp = set(DP_AXES)
+    return {
+        k: tuple(a for a in v if a not in dp)
+        for k, v in rules.items()
+        if isinstance(v, (tuple, list))
+    }
+
+
+def _live(axes) -> Tuple[str, ...]:
+    """The axes among ``axes`` of size > 1 on the active mesh."""
+    mesh, _ = active()
+    sizes = mesh_axis_sizes(mesh)
+    return tuple(a for a in axes if sizes.get(a, 1) > 1)
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The mesh axes (of size > 1) the batch is split over: the active
+    rules' ``act_batch``; () outside a context."""
+    if active() is None:
+        return ()
+    return _live(active()[1].get("act_batch", ()))
+
+
+def batch_shards() -> int:
+    """How many ranks split the batch (1 outside a context)."""
+    if active() is None:
+        return 1
+    sizes = mesh_axis_sizes(active()[0])
+    return int(math.prod(sizes[a] for a in batch_axes()))
+
+
+def model_size() -> int:
+    """The ``model`` axis size (1 outside a context)."""
+    if active() is None:
+        return 1
+    return mesh_axis_sizes(active()[0]).get("model", 1)
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the ``model`` axis (0 outside a context)."""
+    if model_size() == 1:
+        return 0
+    return active()[0].get_local_rank("model")
+
+
+def _groups(axes):
+    mesh = active()[0]
+    return [mesh.get_group(a) for a in axes]
+
+
+def _all_reduce(x: torch.Tensor, axes, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+
+    y = x.clone()
+    for g in _groups(axes):
+        dist.all_reduce(y, op=op or dist.ReduceOp.SUM, group=g)
+    return y
+
+
+class _SumIdentityGrad(torch.autograd.Function):
+    """Forward: the sum over ``axes``; backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        return _all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _IdentitySumGrad(torch.autograd.Function):
+    """Forward: the identity; backward: the gradient summed over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axes), None
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks the batch is split over: every rank
+    holds the global value, and its gradient flows back to this rank's own
+    share only.  The identity outside a context or on one shard."""
+    axes = batch_axes()
+    return _SumIdentityGrad.apply(x, axes) if axes else x
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """Enter a tensor-parallel region: identity, gradient summed over ``model``."""
+    return _IdentitySumGrad.apply(x, ("model",)) if model_size() > 1 else x
+
+
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """Leave a tensor-parallel region: sum over ``model``, gradient as is."""
+    return _SumIdentityGrad.apply(x, ("model",)) if model_size() > 1 else x
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over ``model`` (no gradient)."""
+    import torch.distributed as dist
+
+    x = x.detach()
+    return _all_reduce(x, ("model",), dist.ReduceOp.MAX) if model_size() > 1 else x
+
+
+def gather_leaf(x, axes: Tuple[str, ...]):
+    """All-gather an FSDP-sharded leaf at its use site (identity unsharded).
+
+    Inside a context ``x`` must be a DTensor.  It is redistributed to its
+    TP-only layout (on a mesh whose axes are all of size 1 that is its own
+    layout, and nothing is copied) and returned as this rank's local
+    tensor, whose gradient is ``Partial`` on the axes the batch is split
+    over."""
+    ctx = active()
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        raise TypeError(f"inside a sharding context a parameter must be a DTensor, got a "
+                        f"{type(x).__name__} of shape {tuple(x.shape)} (axes {axes})")
+    mesh, rules = ctx
+    target = placements(pspec(axes, x.shape, _tp_only_rules(rules), mesh), mesh)
+    live_batch = set(batch_axes())
+    grad = [p if isinstance(p, Shard) else Partial() if name in live_batch else Replicate()
+            for name, p in zip(axis_names(mesh), target)]
+    return x.redistribute(mesh, target).to_local(grad_placements=grad)
+
+
+def gather(params: Any, schema: Any) -> Any:
+    """``gather_leaf`` over a param subtree, axes taken from its schema."""
+    if active() is None:
+        return params
+    from repro_torch.models.layers import tree_map  # models import this module
+
+    return tree_map(lambda x, s: gather_leaf(x, s.axes), params, schema)
+
+
+def constrain(x, axes: Tuple[Optional[str], ...]):
+    """The reference's sharding constraint: the identity, since local
+    compute already holds this rank's batch/token shard."""
+    return x

@@ -1,12 +1,23 @@
-"""Plan-driven device slices (executable gap collocation, paper §5).
+"""Meshes and device slices (multi-device, and executable gap collocation).
 
-The port of the plan carving of ``repro/launch/mesh.py``:
-``submesh_from_range``, ``PlanSubmeshes`` and ``split_mesh_for_plan``.
-The reference's JAX ``Mesh`` becomes a frozen ``DeviceSlice``: the index
-range ``[start, end)``, the ``torch.device`` at each of those positions,
-the ``(data, model)`` shape, the ids of the positions (what the
-executable cache keys on) and the CUDA stream its work is issued on
-(``None`` on the CPU).
+The port of ``repro/launch/mesh.py``.  A mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the
+process group, one process per position (SPMD), with the reference's axis
+names (``pod``, ``data``, ``model``): gloo on the CPU, NCCL on cards.
+``make_mesh`` builds one over every rank (or a list of ranks);
+``make_production_mesh`` builds the reference's (16, 16) or (2, 16, 16)
+mesh, or an ``AbstractMesh`` of that shape when the world is smaller, for
+the rules to read.  ``pow2_mesh_shape``/``largest_pow2_mesh`` and
+``remesh_for_pool`` are the elastic re-carving over a surviving pool of
+ranks, and ``split_mesh_for_serving`` the prefill/decode carving.
+
+The plan carving (``submesh_from_range``, ``PlanSubmeshes``,
+``split_mesh_for_plan``) gives frozen ``DeviceSlice``s: the index range
+``[start, end)``, the ``torch.device`` at each of those positions, the
+``(data, model)`` shape, the ids of the positions (what the executable
+cache keys on), the CUDA stream its work is issued on (``None`` on the
+CPU) and, for a slice over several ranks (``rank_slice``), the
+``DeviceMesh`` over them.
 
 Devices are taken by position, so two disjoint index ranges always give
 disjoint slices of the plan.  Where the positions are distinct cards
@@ -14,23 +25,143 @@ disjoint slices of the plan.  Where the positions are distinct cards
 card, the paper's own GPU mode (``MultiplexConfig.collocate_same_device``),
 every position is that card, and the slices differ only by their streams:
 the foreground on one of the greatest priority, each background tenant on
-its own of the least.
-
-``make_mesh``, ``largest_pow2_mesh``, ``remesh_for_pool``,
-``split_mesh_for_serving`` and the process groups a step over several
-cards would need wait for the multi-device layer (ROADMAP Queue 1, item
-11); ``DeviceSlice.device`` raises, naming that item, for a slice that
-spans more than one card.
+its own of the least.  A step runs in one process on one device: a slice
+of several cards runs through the ``DeviceMesh`` of a ``rank_slice``,
+each rank issuing its own share.  The plan carving does not build rank
+slices yet, so its slices of several cards raise ``NotImplementedError``
+when a step asks for their device (ROADMAP item 11b).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.core.plan import normalize_quanta, pack_ranges
+from repro_torch.core.plan import normalize_quanta, pack_ranges, pow2_floor, serving_plan
+from repro_torch.dist.sharding import mesh_axis_sizes  # noqa: F401 (re-export)
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's shape and axis names, with no ranks behind it: what the
+    sharding rules read (``axis_names`` and ``devices.shape``), for meshes
+    larger than the process group."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    @property
+    def devices(self) -> np.ndarray:
+        return np.zeros(self.shape, dtype=np.int8)
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh needs torch.distributed.init_process_group first "
+                           "(gloo on the CPU, nccl on cards)")
+    return dist.get_world_size()
+
+
+def _device_type() -> str:
+    import torch.distributed as dist
+
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def _rank_mesh(ranks: Sequence[int], shape: Tuple[int, ...], names: Tuple[str, ...]):
+    """A DeviceMesh of ``shape`` over ``ranks`` (row-major).  Every rank of
+    the process group takes part in building it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = [int(r) for r in ranks]
+    if len(ranks) != math.prod(shape):
+        raise ValueError(f"mesh {dict(zip(names, shape))} needs {math.prod(shape)} ranks, "
+                         f"got {len(ranks)}")
+    world = _world()
+    bad = [r for r in ranks if not 0 <= r < world]
+    if bad:
+        raise ValueError(f"ranks {bad} outside the {world}-rank process group")
+    return DeviceMesh(_device_type(), torch.tensor(ranks).reshape(shape),
+                      mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh: (16, 16) ``(data, model)`` or (2,
+    16, 16) ``(pod, data, model)``; a ``DeviceMesh`` when the process group
+    has exactly that many ranks, else an ``AbstractMesh`` of that shape."""
+    import torch.distributed as dist
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dist.is_initialized() and dist.get_world_size() == math.prod(shape):
+        return _rank_mesh(range(math.prod(shape)), shape, axes)
+    return AbstractMesh(shape, axes)
+
+
+def make_mesh(data: int, model: int, pod: int = 1, devices: Optional[Sequence[int]] = None):
+    """A (data, model) mesh, or (pod, data, model) when ``pod > 1``, over
+    ``devices``: ranks of the process group (default: every rank, in
+    order).  Every rank of the process group must call it."""
+    ranks = list(devices) if devices is not None else list(range(_world()))
+    if pod > 1:
+        return _rank_mesh(ranks, (pod, data, model), ("pod", "data", "model"))
+    return _rank_mesh(ranks, (data, model), ("data", "model"))
+
+
+def pow2_mesh_shape(n_devices: int) -> Tuple[int, int]:
+    """The (data, model) shape ``largest_pow2_mesh`` would build — pure
+    arithmetic, so every mesh shape reachable after a failure can be
+    enumerated without building one."""
+    if n_devices < 1:
+        raise ValueError(f"need at least one device, got {n_devices}")
+    cap = 1
+    while cap * cap * 4 <= pow2_floor(n_devices):
+        cap *= 2
+    candidates = []
+    m = 1
+    while m <= cap:
+        candidates.append(m)
+        m *= 2
+    # widest model axis within the 4:1 bound that maximizes device coverage
+    model = max(candidates, key=lambda m: (n_devices // m * m, m))
+    return n_devices // model, model
+
+
+def largest_pow2_mesh(n_devices: int, devices: Optional[Sequence[int]] = None):
+    """Elastic re-mesh: the largest (data, model) mesh that fits n_devices,
+    favoring the data axis 4:1 (used after failures).  The model axis stays
+    a power of two — sharding rules genuinely need it to divide head/hidden
+    dims — but the data axis is just a batch split, so a non-power-of-two
+    survivor count keeps every rank the model width allows (7 survivors
+    -> 7x1, not 4x1).  ``devices`` are ranks (default: every rank)."""
+    data, model = pow2_mesh_shape(n_devices)
+    ranks = list(devices) if devices is not None else list(range(_world()))
+    return make_mesh(data, model, devices=ranks[: data * model])
+
+
+def remesh_for_pool(device_ids, *, devices: Optional[Sequence[int]] = None):
+    """Re-carve a mesh onto a surviving pool (applied reconfig).
+
+    ``device_ids`` is the healthy pool from a reconfiguration event.  Ids
+    map positionally onto ``devices`` (default: the ranks of the process
+    group) and ids beyond it are skipped; the carving itself is
+    ``largest_pow2_mesh``, so a non-pow2 survivor count keeps every rank
+    the model width allows.
+    """
+    devs = list(devices) if devices is not None else list(range(_world()))
+    local = [devs[int(i)] for i in device_ids if 0 <= int(i) < len(devs)]
+    if not local:
+        raise ValueError(
+            f"reconfig pool {sorted(int(i) for i in device_ids)} has no "
+            f"local devices (process has {len(devs)})"
+        )
+    return largest_pow2_mesh(len(local), devices=local)
 
 
 def host_devices(device: DeviceLike = None) -> List[torch.device]:
@@ -53,6 +184,7 @@ class DeviceSlice:
     shape: Tuple[int, int]  # (data, model)
     ids: Tuple[int, ...]    # the positions' ids: the executable cache's key
     stream: Optional[object] = None  # torch.cuda.Stream; None on the CPU
+    mesh: Optional[object] = None    # DeviceMesh over the ranks (rank_slice)
 
     @property
     def size(self) -> int:
@@ -60,14 +192,41 @@ class DeviceSlice:
 
     @property
     def device(self) -> torch.device:
-        """The one device every position of the slice is on."""
+        """The one device this process issues the slice's work on: every
+        position's, or for a ``rank_slice`` this rank's own.  A slice of
+        several cards in one process (what ``split_mesh_for_plan`` and
+        ``split_mesh_for_serving`` carve from a list of cards) raises
+        ``NotImplementedError``: turning a plan's slices into rank slices
+        under a process group is ROADMAP item 11b."""
         distinct = list(dict.fromkeys(self.devices))
         if len(distinct) > 1:
             raise NotImplementedError(
-                f"a step over positions [{self.start}, {self.end}) spans "
-                f"{len(distinct)} devices {[str(d) for d in distinct]}: steps over more "
-                "than one card wait for process groups (ROADMAP Queue 1, item 11)")
+                f"positions [{self.start}, {self.end}) span {len(distinct)} devices "
+                f"{[str(d) for d in distinct]} in one process: a step over several cards "
+                "runs one process per card, on a rank_slice, and carving a plan into rank "
+                "slices is not ported (ROADMAP Queue 1, item 11b)")
         return distinct[0]
+
+
+def rank_device() -> torch.device:
+    """This rank's device: its current card under NCCL, else the CPU."""
+    if _device_type() == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def rank_slice(start: int, end: int, *, model: int = 1, stream=None) -> DeviceSlice:
+    """A (data, model) slice over the ranks [start, end) of the process
+    group, with the ``DeviceMesh`` over them; every rank calls it (building
+    a mesh is collective).  Each rank issues its share of the slice's work
+    on its own device."""
+    n = end - start
+    if n <= 0 or n % model:
+        raise ValueError(f"rank range [{start}, {end}) is empty or not divisible by "
+                         f"model={model}")
+    mesh = _rank_mesh(range(start, end), (n // model, model), ("data", "model"))
+    return DeviceSlice(start, end, (rank_device(),) * n, (n // model, model),
+                       tuple(range(start, end)), stream, mesh)
 
 
 def submesh_from_range(start: int, end: int, *, model: int = 1,
@@ -189,3 +348,62 @@ def split_mesh_for_plan(plan, *, devices: Optional[Sequence] = None,
         bg[gap.stage_index] = next(s for s in slots if s is not None)
     return PlanSubmeshes(fg_range=(0, fg_peak), fg_mesh=fg_mesh, bg=bg,
                          stage_fg_range=stage_fg, bg_tenants=bg_tenants)
+
+
+# ---------------------------------------------------------------------------
+# Serving submeshes (prefill/decode disaggregation)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ServingSubmeshes:
+    """Disjoint prefill/decode slices for a disaggregated serving engine.
+
+    Built by carving a ``serving_plan`` with ``split_mesh_for_plan``:
+    prefill is the plan's foreground stage on [0, n_prefill), decode is the
+    gap's largest bg chunk.  The ranges are positional indices, so
+    ``disjoint`` is checkable without touching the devices.
+    """
+
+    prefill_range: Tuple[int, int]
+    prefill_mesh: DeviceSlice
+    decode_range: Tuple[int, int]
+    decode_mesh: DeviceSlice
+
+    def disjoint(self) -> bool:
+        (ps, pe), (ds, de) = self.prefill_range, self.decode_range
+        return pe <= ds or de <= ps
+
+    def device_sets_disjoint(self) -> bool:
+        """The ground-truth check: no physical device in both slices (false
+        on one card, where both are that card on streams of their own)."""
+        return not (set(self.prefill_mesh.devices) & set(self.decode_mesh.devices))
+
+
+def split_mesh_for_serving(n_prefill: int, *,
+                           devices: Optional[Sequence] = None,
+                           prefill_model: int = 1,
+                           decode_model: int = 1) -> ServingSubmeshes:
+    """Carve the device list into disjoint prefill + decode slices.
+
+    Reuses the ``split_mesh_for_plan`` carving over a ``serving_plan`` —
+    prefill as the foreground stage, decode as its burst gap — so the
+    positional-disjointness invariant of ``submesh_from_range`` carries
+    over.  ``devices`` defaults to the process's cards; on one card pass
+    it twice (``[card, card]``): two positions of the same card.
+    """
+    devs = list(devices) if devices is not None else host_devices()
+    plan = serving_plan(len(devs), n_prefill)
+    split = split_mesh_for_plan(plan, devices=devs, fg_model=prefill_model,
+                                bg_model=decode_model)
+    hit = split.bg.get(0)
+    if hit is None:
+        raise ValueError(
+            f"no decode carving: {len(devs) - n_prefill} free devices can't "
+            f"fit a decode submesh with model={decode_model}"
+        )
+    (ds, de), dmesh = hit
+    return ServingSubmeshes(
+        prefill_range=split.fg_range, prefill_mesh=split.fg_mesh,
+        decode_range=(ds, de), decode_mesh=dmesh,
+    )

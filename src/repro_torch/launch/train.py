@@ -3,6 +3,7 @@
   python -m repro_torch.launch.train --arch ARCH [--steps N] [--batch B]
       [--seq S] [--ckpt-dir DIR] [--amp-limit A] [--device cuda|cpu]
       [--bg-arch qwen2-1.5b [--bg-arch minicpm-2b ...]]
+      [--data N --model M]
 
 Mirrors ``repro/launch/train.py --smoke``: first the burst plan of the
 FULL config (``TRAIN_4K`` on 256 devices, ``--amp-limit``), what
@@ -16,13 +17,22 @@ Adafactor for qwen2-72b and grok-1).  Runs on the card; ``--device cpu``
 runs on the CPU.  The full config is trained by calling ``train()``
 directly (as ``chip_smoke.py`` does).
 
+``--data N --model M`` trains through the sharded step on an (N, M)
+mesh, one process per position:
+
+  python -m torch.distributed.run --nproc-per-node N*M \
+      -m repro_torch.launch.train --arch ARCH --data N --model M
+
+(NCCL and one card per process; with ``--device cpu``, gloo).  A world
+of one needs no launcher: ``--data 1 --model 1`` alone runs the sharded
+step on one card.  Rank 0 prints.
+
 ``--bg-arch`` (repeatable) enables DeepPool multiplexing: each background
 job's steps are paced beside the foreground's, the first --bg-arch the
-highest-priority tenant.  The foreground holds one card (``--data/--model``
-wait for the multi-device layer, ROADMAP Queue 1, item 11), so on a
-one-card host every tenant takes the reference's same-device branch: it
-shares the card, on a stream of its own of the least priority while the
-foreground's has the greatest.  The control plane the reference wires
+highest-priority tenant.  The foreground holds this process's card, so
+on a one-card host every tenant takes the reference's same-device branch:
+it shares the card, on a stream of its own of the least priority while
+the foreground's has the greatest.  The control plane the reference wires
 here waits for ROADMAP Queue 1, item 12.
 """
 from __future__ import annotations
@@ -157,26 +167,80 @@ def main(argv=None):
     ap.add_argument("--amp-limit", type=float, default=2.0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a CUDA card")
+    ap.add_argument("--data", type=int, default=None,
+                    help="data axis of the mesh (with --model): the sharded step")
+    ap.add_argument("--model", type=int, default=None, help="model axis of the mesh")
     args = ap.parse_args(argv)
+    if (args.data is None) != (args.model is None):
+        ap.error("--data and --model go together")
 
     import torch
 
     from repro_torch._device import resolve_device
+
+    device = resolve_device(args.device)  # no card: raise before any work
+    mesh = None
+    if args.data is not None:
+        mesh, device = _process_mesh(args.data, args.model, device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        _run(args, device, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _process_mesh(data: int, model: int, device):
+    """This process's rank joins the group (``torch.distributed.run``'s
+    environment, or a world of one without it) and the (data, model) mesh
+    is built over every rank.  Returns (mesh, this rank's device)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "RANK" in os.environ:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group(backend)
+    elif data * model == 1:
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    else:
+        raise SystemExit(f"--data {data} --model {model} needs {data * model} processes: "
+                         f"run it under python -m torch.distributed.run "
+                         f"--nproc-per-node {data * model}")
+    if dist.get_world_size() != data * model:
+        raise SystemExit(f"--data {data} --model {model} needs {data * model} ranks, "
+                         f"got {dist.get_world_size()}")
+    return make_mesh(data, model), device
+
+
+def _run(args, device, mesh):
+    import torch.distributed as dist
+
     from repro_torch.configs import TRAIN_4K, get_config
     from repro_torch.core.coordinator import ClusterCoordinator, Job
     from repro_torch.models.graph import build_lm_graph
     from repro_torch.train.loop import TrainConfig, train
 
-    device = resolve_device(args.device)  # no card: raise before any work
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    lead = mesh is None or dist.get_rank() == 0
     cfg = get_config(args.arch)
     # burst-parallel plan for the FULL config (what production would run)
     coord = ClusterCoordinator(256)
     plan = coord.submit_foreground(
         Job(args.arch, "foreground", build_lm_graph(cfg, TRAIN_4K),
             amp_limit=args.amp_limit))
-    print(plan.summary())
+    if lead:
+        print(plan.summary())
 
     bg_fn = None
     if args.bg_arch:
@@ -199,7 +263,11 @@ def main(argv=None):
                                 name="cli")
     report = train(cfg.reduced(), shape,
                    TrainConfig(steps=args.steps, ckpt_dir=args.ckpt_dir, bg_step_fn=bg_fn),
-                   device=device)
+                   device=device, mesh=mesh)
+    if not lead:
+        return
+    if mesh is not None:
+        print(f"sharded step on mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     print(f"done on {args.device}: steps={report.steps_done} loss "
           f"{report.losses[0]:.3f} -> {report.losses[-1]:.3f} "
           f"restarts={report.restarts} mitigations={len(report.mitigations)} "

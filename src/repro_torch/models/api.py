@@ -8,9 +8,11 @@ prefill and decode; the encoder-decoder family (``forward(params, frames,
 tokens)``), ``rwkv6`` and the ``mamba2`` hybrid train and decode, with no
 ``prefill``, as in the reference.  ``init(generator, device, dtype)`` draws
 the parameters (straight into a serving dtype when ``dtype`` is given).
-``layer_graph(shape)`` is the model's burst-planner graph;
-``train_input_specs`` is one training batch as ``meta``-device tensors;
-``make_batch`` a random one.  VGG-16 has no ``ModelAPI`` in either
+``abstract()`` and ``axes()`` are the parameters as ``meta``-device tensors
+and their logical axes; ``layer_graph(shape)`` is the model's
+burst-planner graph; ``train_input_specs``, ``decode_input_specs`` and
+``input_specs`` are a step's inputs as ``meta``-device tensors (what the
+sharding rules place); ``make_batch`` a random batch.  VGG-16 has no ``ModelAPI`` in either
 package: it is ``models/vgg.py``.
 """
 from __future__ import annotations
@@ -24,7 +26,7 @@ from repro_torch._device import DeviceLike, as_dtype
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid, rwkv_lm, transformer
 from repro_torch.models.graph import build_lm_graph
-from repro_torch.models.layers import init_params
+from repro_torch.models.layers import abstract_params, init_params, logical_axes
 
 
 @dataclass(frozen=True)
@@ -41,6 +43,12 @@ class ModelAPI:
     def init(self, generator: torch.Generator, device: DeviceLike = None,
              dtype: Optional[str] = None):
         return init_params(self.schema, generator, device, dtype)
+
+    def abstract(self):
+        return abstract_params(self.schema)
+
+    def axes(self):
+        return logical_axes(self.schema)
 
     def layer_graph(self, shape: ShapeConfig):
         return build_lm_graph(self.cfg, shape)
@@ -110,6 +118,29 @@ def train_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
         return {"tokens": spec(B, S_txt), "labels": spec(B, S_txt),
                 "patch_embeds": spec(B, S_img, cfg.d_model, dtype=as_dtype(cfg.dtype))}
     return {"tokens": spec(B, S), "labels": spec(B, S)}
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """One ``decode_step`` call with a full cache, as ``meta`` tensors."""
+    B, cap = shape.global_batch, shape.seq_len
+    return {
+        "token": torch.empty((B, 1), dtype=torch.long, device="meta"),
+        "cache": abstract_params(get_model(cfg).cache_schema(B, cap)),
+        "cache_len": torch.empty((), dtype=torch.long, device="meta"),
+    }
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The inputs of the step ``shape.kind`` names: a decode call, a
+    prefill (the training batch without labels: the full-sequence forward)
+    or a training batch."""
+    if shape.kind == "decode":
+        return decode_input_specs(cfg, shape)
+    if shape.kind == "prefill":
+        spec = train_input_specs(cfg, shape)
+        spec.pop("labels", None)
+        return spec
+    return train_input_specs(cfg, shape)
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, generator: torch.Generator,

@@ -17,7 +17,8 @@ a leading ``layers`` axis; each stack is unbound once (``layers.unstack``).
 Under any ``remat_policy`` other than ``"none"`` a whole block is
 rematerialised (non-reentrant ``torch.utils.checkpoint``), as the
 reference wraps each block in ``jax.checkpoint``: ``"dots"`` means
-``"full"`` here.  On CUDA every self- and cross-attention of ``encode``
+``"full"`` here.  Each block's ``fsdp.gather`` (the reference's site)
+runs inside it.  On CUDA every self- and cross-attention of ``encode``
 and ``forward`` goes to the flash kernels (``models/attention.attend``).
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import as_dtype
+from repro_torch.dist import fsdp
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
     ParamSpec,
@@ -93,6 +95,7 @@ def _block(cfg, fn, *args):
 
 
 def _enc_block(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
+    lp = fsdp.gather(lp, encoder_block_schema(cfg))
     a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
     q, k, v = qkv_project(lp["attn"], a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -105,14 +108,14 @@ def _enc_block(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> torch
 def encode(params: dict, frames, cfg) -> torch.Tensor:
     """frames: (B, S_enc, D) precomputed frame embeddings (frontend stub),
     cast to ``cfg.dtype`` before the ``frontend_proj`` product."""
-    fp = params["frontend_proj"]
+    fp = fsdp.gather_leaf(params["frontend_proj"], ("embed", "embed_out"))
     h = torch.as_tensor(frames, device=fp.device).to(as_dtype(cfg.dtype))
     h = h @ cast(fp, h.dtype)
     B, S, _ = h.shape
     positions = _positions(B, S, h.device)
     for lp in unstack(params["enc_layers"], cfg.num_encoder_layers):
         h = _block(cfg, _enc_block, lp, h, positions, cfg)
-    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(h, fsdp.gather_leaf(params["enc_norm"], ("norm",)), cfg.norm_eps)
 
 
 def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg) -> tuple:
@@ -132,6 +135,7 @@ def _cross_attend(lp: dict, h: torch.Tensor, enc_kv: tuple, positions, cfg) -> t
 
 def _dec_block(lp: dict, h: torch.Tensor, enc_out: torch.Tensor, positions: torch.Tensor,
                cfg) -> torch.Tensor:
+    lp = fsdp.gather(lp, decoder_block_schema(cfg))
     a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
     q, k, v = qkv_project(lp["self_attn"], a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -182,7 +186,8 @@ def decode_step(params: dict, token, cache: dict, cache_len, cfg) -> tuple:
     n = torch.as_tensor(cache_len, device=h.device).long()
     positions = n.reshape(1, 1).expand(B, 1)
     for i in range(cfg.num_layers):
-        lp = tree_map(lambda x: x[i], params["dec_layers"])
+        lp = fsdp.gather(tree_map(lambda x: x[i], params["dec_layers"]),
+                         decoder_block_schema(cfg))
         kc, vc = cache["k"][i], cache["v"][i]
         a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
         q, k, v = qkv_project(lp["self_attn"], a_in, cfg)

@@ -10,13 +10,15 @@ The reference's ``lax.cond`` on the layer index is a Python ``if``; its
 ``lax.scan`` over layers a Python loop over the stacked layers, unbound
 once.  Each layer, its shared-block invocation included, runs under
 ``layers.remat`` (the reference's ``jax.checkpoint`` unless
-``cfg.remat_policy == "none"``).  The reference's
-``fsdp.gather`` is the identity on one device and is dropped.
+``cfg.remat_policy == "none"``).  The ``fsdp.gather`` sites are the
+reference's: the shared block once per call, each layer inside its remat
+function.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import fsdp
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
     ParamSpec,
@@ -90,6 +92,7 @@ def shared_block(sp: dict, h: torch.Tensor, h0: torch.Tensor, positions: torch.T
 
 def _layer(lp: dict, sp: dict, h: torch.Tensor, h0: torch.Tensor, positions, idx: int,
            cfg) -> torch.Tensor:
+    lp = fsdp.gather(lp, _layer_schema(cfg))
     m_out, _ = mamba2_apply(lp["mamba"], rms_norm(h, lp["ln"], cfg.norm_eps), cfg)
     h = h + m_out
     if idx % cfg.attn_every == 0:
@@ -102,7 +105,7 @@ def hidden_states(params: dict, tokens, cfg) -> torch.Tensor:
     h0 = h
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
-    sp = params["shared"]
+    sp = fsdp.gather(params["shared"], shared_block_schema(cfg))
     for idx, lp in enumerate(unstack(params["layers"], cfg.num_layers)):
         h = remat(cfg, _layer, lp, sp, h, h0, positions, idx, cfg)
     return h
@@ -165,9 +168,10 @@ def decode_step(params: dict, token, cache: dict, cache_len, cfg) -> tuple:
     caches are written in place.  Returns (logits (B, V), new cache)."""
     h = embed_tokens(params, token, cfg)
     h0 = h
-    sp = params["shared"]
+    sp = fsdp.gather(params["shared"], shared_block_schema(cfg))
     ssm, conv = [], []
     for idx, lp in enumerate(unstack(params["layers"], cfg.num_layers)):
+        lp = fsdp.gather(lp, _layer_schema(cfg))
         conv_state = cache["conv"][idx]
         m_out, (s_new, c_new) = mamba2_apply(
             lp["mamba"], rms_norm(h, lp["ln"], cfg.norm_eps), cfg,

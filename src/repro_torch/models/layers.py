@@ -130,6 +130,17 @@ def init_params(schema: Any, generator: torch.Generator,
         None if dtype is None else torch.float32 if keeps_fp32(s) else dtype), schema)
 
 
+def abstract_params(schema: Any) -> Any:
+    """The schema as ``meta``-device tensors: shapes and dtypes, no storage
+    (the reference's ShapeDtypeStructs)."""
+    return tree_map(
+        lambda s: torch.empty(s.shape, dtype=as_dtype(s.dtype), device="meta"), schema)
+
+
+def logical_axes(schema: Any) -> Any:
+    return tree_map(lambda s: s.axes, schema)
+
+
 def zeros(schema: Any, device: torch.device) -> Any:
     """Zeroed tensors of each spec's shape and dtype (KV caches)."""
     return tree_map(
@@ -219,17 +230,40 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 mask: Optional[torch.Tensor] = None,
+                 vocab_parallel: bool = False) -> torch.Tensor:
     """logits (B, S, V) any float dtype; labels int (B, S). fp32 reduction:
-    the mean over ``mask``-weighted positions of ``logsumexp - gold``."""
+    the mean over ``mask``-weighted positions of ``logsumexp - gold``.
+
+    Inside a sharding context the mean is over the global batch: the
+    numerator and the denominator are summed over the ranks the batch is
+    split over (``fsdp.batch_sum``), never a mean of per-rank means.  With
+    ``vocab_parallel`` the logits are this rank's contiguous slice of the
+    vocabulary: the row max, the exponentials' sum and the gold logit are
+    reduced over ``model``."""
+    from repro_torch.dist import fsdp
+
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if vocab_parallel:
+        top = fsdp.model_max(logits.max(dim=-1).values)
+        logz = torch.log(fsdp.tp_sum(torch.exp(logits - top[..., None]).sum(dim=-1))) + top
+        V = logits.shape[-1]
+        local = labels.long() - fsdp.model_rank() * V
+        inside = (local >= 0) & (local < V)
+        gold = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+        gold = fsdp.tp_sum(gold * inside.float())
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
-    if mask is None:
-        return nll.mean()
-    mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if fsdp.batch_shards() == 1:
+        if mask is None:
+            return nll.mean()
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    return fsdp.batch_sum((nll * mask).sum()) / torch.clamp(fsdp.batch_sum(mask.sum()),
+                                                            min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -10,16 +10,23 @@ the buffer, and read back from slot ``C - 1`` with a zero gate, as the
 reference does).  The Switch load-balancing loss is returned beside the
 output.
 
-The reference splits the pairs into ``fsdp.group_count('act_tokens')``
-groups, which is 1 outside a sharding context; the port has one group.
-The expert products are ``torch.bmm``: the reference leaves them to XLA,
-outside any Pallas kernel.
+As in the reference, the pairs are split into
+``fsdp.group_count('act_tokens')`` groups (1 outside a sharding context;
+the data axes' size when the tokens split over them), each with its own
+capacity ``max(K, C // groups)`` of the global ``C``, so slots are counted
+within a group and a data shard's scatter never leaves it.  A rank holds
+the groups of its batch shard.  The load-balancing loss is over the
+global batch (``fsdp.batch_sum``).  The ``fsdp.constrain`` sites are the
+reference's; expert parallelism over 'model' is refused by the sharded
+step factories (ROADMAP item 11b).  The expert products are ``torch.bmm``: the reference leaves them to
+XLA, outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import fsdp
 from repro_torch.models.layers import ParamSpec, cast, swiglu
 
 
@@ -50,7 +57,9 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_tok
     T = B * S
-    C = _capacity(T, cfg)
+    shards = fsdp.batch_shards()  # ranks the batch is split over
+    T_all = T * shards
+    C = _capacity(T_all, cfg)
     xt = x.reshape(T, D)
 
     # --- routing (fp32) ---
@@ -59,41 +68,70 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
     gate_vals, idx = _top_k(probs, K)  # (T, K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 
-    # load-balancing aux loss (Switch-style): E * sum_e f_e * p_e
-    me = probs.mean(dim=0)
-    ce = F.one_hot(idx[:, 0], E).float().mean(dim=0)
+    # load-balancing aux loss (Switch-style): E * sum_e f_e * p_e, over the
+    # global batch
+    top1 = F.one_hot(idx[:, 0], E).float()
+    if shards == 1:
+        me, ce = probs.mean(dim=0), top1.mean(dim=0)
+    else:
+        me = fsdp.batch_sum(probs.sum(dim=0)) / T_all
+        ce = fsdp.batch_sum(top1.sum(dim=0)) / T_all
     aux = E * torch.sum(me * ce)
 
-    # --- slots: prefix count over the (token, k) pairs, token-major ---
-    # (the one-hot is laid out (E, TK), so the count runs along the inner
-    # axis; each pair's slot is the number of earlier pairs routed to its
-    # expert, as the reference's cumsum(onehot) - onehot gives it)
-    flat_e = idx.reshape(T * K)
-    onehot = (torch.arange(E, device=x.device)[:, None] == flat_e[None, :]).int()
-    counts = torch.cumsum(onehot, dim=1, dtype=torch.int32)
-    slot = counts.gather(0, flat_e[None, :])[0].long() - 1  # (TK,)
-    keep = slot < C
-    slot_c = torch.clamp(slot, max=C - 1)
+    # --- group-local slots: a prefix count over each group's (token, k)
+    # pairs, token-major (the one-hot is laid out (G, E, TKg), so the count
+    # runs along the inner axis; each pair's slot is the number of earlier
+    # pairs of its group routed to its expert, as the reference's
+    # cumsum(onehot) - onehot gives it) ---
+    groups = fsdp.group_count("act_tokens")
+    while (T_all * K) % groups != 0:  # defensive, as the reference
+        groups //= 2
+    if groups % shards:
+        raise ValueError(f"{groups} token groups over a batch split {shards} ways")
+    G = groups // shards  # this rank's groups
+    TKg = T * K // G
+    Cg = max(K, C // groups)
+    flat_e = idx.reshape(G, TKg)
+    onehot = (torch.arange(E, device=x.device)[None, :, None] == flat_e[:, None, :]).int()
+    counts = torch.cumsum(onehot, dim=2, dtype=torch.int32)
+    slot = counts.gather(1, flat_e[:, None, :])[:, 0].long() - 1  # (G, TKg)
+    keep = slot < Cg
+    slot_c = torch.clamp(slot, max=Cg - 1)
+    base = (torch.arange(G, device=x.device)[:, None] * E + flat_e) * Cg  # (G, TKg)
 
-    # --- dispatch: scatter the pairs into (E, C, D) ---
-    # The kept pairs' (expert, slot) rows are distinct, so the scatter is a
-    # plain write; a dropped pair writes a spare row past the buffer, cut off
-    # after the scatter (the reference adds its zeroed source into slot
-    # C - 1 instead: the same buffer, and no gradient reaches it either way).
+    # --- dispatch: scatter the pairs into (G, E, Cg, D) ---
+    # The kept pairs' (group, expert, slot) rows are distinct, so the scatter
+    # is a plain write; a dropped pair writes a spare row past the buffer, cut
+    # off after the scatter (the reference adds its zeroed source into slot
+    # Cg - 1 instead: the same buffer, and no gradient reaches it either way).
     dt = x.dtype
-    row = torch.where(keep, flat_e * C + slot, E * C)
-    buf = torch.zeros((E * C + 1, D), dtype=dt, device=x.device).index_put(
-        (row,), xt.repeat_interleave(K, dim=0))[:E * C].view(E, C, D)
+    src = fsdp.constrain(xt.repeat_interleave(K, dim=0).view(G, TKg, D),
+                         ("act_tokens", None, "act_embed"))
+    row = torch.where(keep, base + slot, G * E * Cg).reshape(-1)
+    buf = torch.zeros((G * E * Cg + 1, D), dtype=dt, device=x.device).index_put(
+        (row,), src.reshape(-1, D))[:G * E * Cg].view(G, E, Cg, D)
+    buf = fsdp.constrain(buf, ("act_tokens", None, None, "act_embed"))
+    buf = fsdp.constrain(buf, ("act_tokens", "act_expert", None, "act_embed"))
 
-    # --- expert SwiGLU as batched products ---
-    g = torch.bmm(buf, cast(p["wg"], dt))
-    u = torch.bmm(buf, cast(p["wu"], dt))
-    y = torch.bmm(swiglu(g, u), cast(p["wd"], dt))  # (E, C, D)
+    # --- expert SwiGLU as batched products over each expert's slots ---
+    xe = buf.view(E, Cg, D) if G == 1 else buf.transpose(0, 1).reshape(E, G * Cg, D)
+    g = torch.bmm(xe, cast(p["wg"], dt))
+    u = torch.bmm(xe, cast(p["wu"], dt))
+    for t in (g, u):
+        fsdp.constrain(t.view(G, E, -1, t.shape[-1]), ("act_tokens", "act_expert", None,
+                                                       "act_moe_ff"))
+    y = torch.bmm(swiglu(g, u), cast(p["wd"], dt))  # (E, G * Cg, D)
+    if G > 1:
+        y = y.view(E, G, Cg, D).transpose(0, 1).reshape(G, E, Cg, D)
+    y = fsdp.constrain(y.reshape(G, E, Cg, D), ("act_tokens", "act_expert", None,
+                                                "act_embed"))
+    y = fsdp.constrain(y, ("act_tokens", None, None, "act_embed"))
 
     # --- combine: gather each pair's result, weight by its gate ---
     # (index_select: its backward adds into distinct rows, and a dropped
-    # pair's zero gradient into slot C - 1, exact in any order)
-    out_tk = y.view(E * C, D).index_select(0, flat_e * C + slot_c)  # (TK, D)
-    w = (gate_vals.reshape(T * K) * keep.float()).to(dt)
-    out = (out_tk * w[:, None]).reshape(T, K, D).sum(dim=1)
+    # pair's zero gradient into slot Cg - 1, exact in any order)
+    out_tk = y.reshape(G * E * Cg, D).index_select(0, (base + slot_c).reshape(-1))
+    out_tk = fsdp.constrain(out_tk.view(G, TKg, D), ("act_tokens", None, "act_embed"))
+    w = (gate_vals.reshape(G, TKg) * keep.float()).to(dt)
+    out = (out_tk * w[..., None]).reshape(T, K, D).sum(dim=1)
     return out.reshape(B, S, D), aux

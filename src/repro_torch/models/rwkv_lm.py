@@ -5,12 +5,13 @@ leading ``layers`` axis, as in the reference; its ``lax.scan`` over layers
 is a Python loop.  Each block runs under ``layers.remat`` (the
 reference's ``jax.checkpoint`` unless ``cfg.remat_policy == "none"``):
 the block's activations are recomputed in the backward pass, WKV forward
-included.
+included, and its ``fsdp.gather`` (the reference's site) with them.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import fsdp
 from repro_torch.models.layers import (
     ParamSpec,
     remat,
@@ -43,6 +44,7 @@ def rwkv_lm_schema(cfg) -> dict:
 
 
 def _block(lp: dict, h: torch.Tensor, cfg, decode: bool = False, states=None) -> tuple:
+    lp = fsdp.gather(lp, _layer_schema(cfg))
     tm_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
     if decode:
         wkv_state, tm_shift, cm_shift = states

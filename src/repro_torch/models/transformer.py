@@ -24,15 +24,33 @@ The training stack (``hidden_states``) rematerialises each layer as
 
 ``decode_step`` writes the new KV entries into ``cache`` in place and
 returns the same tensors.
+
+Sharding: the ``dist/fsdp.py`` hooks sit where the reference has them
+(each layer's ``gather`` inside the remat function, ``gather_leaf`` for
+the embedding, unembedding and vision projection) and are the identity
+outside a sharding context.  Under ``model`` > 1 the dense blocks run
+Megatron-style tensor parallelism on the local shards the gathers hand
+out, reading what is split from the shapes: query heads (and KV heads,
+or, where those stay whole, each rank's query heads take theirs from the
+full K/V), the MLP's ``d_ff`` and the vocabulary.  The column-parallel
+inputs enter through ``fsdp.tp_copy``, the row-parallel products (the
+attention out-projection, the MLP down-projection) and the embedding
+leave through ``fsdp.tp_sum`` (an all-reduce over ``model``), and the
+logits stay split by vocabulary into ``softmax_xent(vocab_parallel=True)``.
+The MoE blocks' experts and the vision projection are not
+tensor-parallel: the sharded step factories refuse those layouts, naming
+ROADMAP item 11b (``train.step._check_layout``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import fsdp
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.moe import moe_apply, moe_schema
 from repro_torch.models.layers import (
     ParamSpec,
+    _proj_in,
     apply_rope,
     attention_schema,
     cast,
@@ -44,6 +62,7 @@ from repro_torch.models.layers import (
     rms_norm,
     softmax_xent,
     stack_schema,
+    swiglu,
     tree_map,
     unstack,
     zeros,
@@ -102,24 +121,84 @@ def layer_params(params: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _heads_split(p: dict, cfg) -> bool:
+    """Whether this rank holds a slice of the query heads (TP attention)."""
+    return p["attn"]["wq"].shape[1] < cfg.num_heads
+
+
+def _qkv(p: dict, x: torch.Tensor, cfg) -> tuple:
+    """q, k, v of the block's attention from its (gathered) params: the
+    plain projections, or under TP this rank's query heads and its share
+    of the KV heads, or all of them where the rules keep them whole; then
+    K/V enter the parallel region on their own, so every rank's gradient
+    of the whole K/V projection is complete."""
+    pa = p["attn"]
+    if not _heads_split(p, cfg):
+        return qkv_project(pa, x, cfg)
+    dt = x.dtype
+    xin = fsdp.tp_copy(x)
+    q = _proj_in(xin, pa["wq"])
+    kv_split = pa["wk"].shape[1] < cfg.num_kv_heads
+    src = xin if kv_split else x
+    k, v = _proj_in(src, pa["wk"]), _proj_in(src, pa["wv"])
+    if cfg.qkv_bias:
+        q = q + cast(pa["bq"], dt)
+        k = k + cast(pa["bk"], dt)
+        v = v + cast(pa["bv"], dt)
+    if not kv_split:
+        k, v = fsdp.tp_copy(k), fsdp.tp_copy(v)
+    return q, k, v
+
+
+def _kv_for_heads(k: torch.Tensor, q_heads: int, cfg) -> torch.Tensor:
+    """The KV heads this rank's ``q_heads`` query heads read: ``k`` as it
+    is, unless it holds all KV heads while the query heads are split, when
+    each local query head takes its own (a group of one)."""
+    if q_heads == cfg.num_heads or k.shape[2] < cfg.num_kv_heads:
+        return k
+    first = fsdp.model_rank() * q_heads
+    idx = torch.arange(first, first + q_heads, device=k.device) // (
+        cfg.num_heads // cfg.num_kv_heads)
+    return k.index_select(2, idx)
+
+
+def _attn_out(p: dict, attn_out: torch.Tensor, cfg) -> torch.Tensor:
+    out = out_project(p["attn"], attn_out)
+    return fsdp.tp_sum(out) if _heads_split(p, cfg) else out
+
+
+def _mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The SwiGLU MLP; column- then row-parallel when ``d_ff`` is split."""
+    pm = p["mlp"]
+    if pm["wg"].shape[1] == cfg.d_ff:
+        return mlp_apply(pm, x)
+    dt = x.dtype
+    xin = fsdp.tp_copy(x)
+    h = swiglu(xin @ cast(pm["wg"], dt), xin @ cast(pm["wu"], dt))
+    return fsdp.tp_sum(h @ cast(pm["wd"], dt))
+
+
 def _ffn(p: dict, x: torch.Tensor, cfg) -> tuple:
     """The block's MLP or MoE -> (out, MoE aux loss or None)."""
     if cfg.block_type == "moe":
         return moe_apply(p["moe"], x, cfg)
-    return mlp_apply(p["mlp"], x), None
+    return _mlp(p, x, cfg), None
 
 
 def decoder_block(p: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> tuple:
     """Full-sequence (train/prefill) block. Returns (h, (k, v), aux): aux
-    is the MoE load-balancing loss, None for a dense block."""
+    is the MoE load-balancing loss, None for a dense block; (k, v) hold the
+    KV heads this rank keeps in its cache."""
     a_in = rms_norm(h, p["ln1"], cfg.norm_eps)
-    q, k, v = qkv_project(p["attn"], a_in, cfg)
+    q, k, v = _qkv(p, a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    Hq = q.shape[2]
     attn_out = attn_lib.attend(
-        q, k, v, causal=True, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap
+        q, _kv_for_heads(k, Hq, cfg), _kv_for_heads(v, Hq, cfg), causal=True,
+        window=cfg.sliding_window, softcap=cfg.attn_logit_softcap
     )
-    h = h + out_project(p["attn"], attn_out)
+    h = h + _attn_out(p, attn_out, cfg)
     m_in = rms_norm(h, p["ln2"], cfg.norm_eps)
     out, aux = _ffn(p, m_in, cfg)
     return h + out, (k, v), aux
@@ -135,7 +214,7 @@ def decoder_block_decode(p: dict, h: torch.Tensor, k_cache: torch.Tensor,
     per_row = n.dim() == 1  # continuous batching: ragged lanes
     positions = n.reshape(-1, 1).expand(B, 1)
     a_in = rms_norm(h, p["ln1"], cfg.norm_eps)
-    q, k, v = qkv_project(p["attn"], a_in, cfg)
+    q, k, v = _qkv(p, a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if per_row:
@@ -145,15 +224,16 @@ def decoder_block_decode(p: dict, h: torch.Tensor, k_cache: torch.Tensor,
     else:
         k_cache[:, n] = k[:, 0].to(k_cache.dtype)
         v_cache[:, n] = v[:, 0].to(v_cache.dtype)
+    Hq = q.shape[2]
     attn_out = attn_lib.decode_attention(
         q,
-        k_cache.to(q.dtype),
-        v_cache.to(q.dtype),
+        _kv_for_heads(k_cache, Hq, cfg).to(q.dtype),
+        _kv_for_heads(v_cache, Hq, cfg).to(q.dtype),
         n + 1,
         window=cfg.sliding_window,
         softcap=cfg.attn_logit_softcap,
     )
-    h = h + out_project(p["attn"], attn_out)
+    h = h + _attn_out(p, attn_out, cfg)
     m_in = rms_norm(h, p["ln2"], cfg.norm_eps)
     return h + _ffn(p, m_in, cfg)[0], k_cache, v_cache
 
@@ -167,16 +247,35 @@ def _tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device).long()
 
 
+def _vocab_split(w: torch.Tensor, dim: int, cfg) -> bool:
+    return w.shape[dim] < cfg.padded_vocab
+
+
 def embed_tokens(params: dict, tokens, cfg) -> torch.Tensor:
-    emb = params["embed"]
-    return cast(emb, cfg.dtype)[_tokens(tokens, emb.device)]
+    """Token embeddings; vocab-parallel when the embedding's rows are
+    split: each rank looks up the ids in its own rows, zeros the rest, and
+    the ranks' rows are summed."""
+    emb = cast(fsdp.gather_leaf(params["embed"], ("vocab", "embed")), cfg.dtype)
+    ids = _tokens(tokens, emb.device)
+    if not _vocab_split(emb, 0, cfg):
+        return emb[ids]
+    rows = emb.shape[0]
+    local = ids - fsdp.model_rank() * rows
+    inside = (local >= 0) & (local < rows)
+    out = emb[local.clamp(0, rows - 1)] * inside[..., None].to(emb.dtype)
+    return fsdp.tp_sum(out)
 
 
 def unembed(params: dict, h: torch.Tensor, cfg) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    """Logits; this rank's vocabulary slice when the vocabulary is split."""
+    h = rms_norm(h, fsdp.gather_leaf(params["final_norm"], ("norm",)), cfg.norm_eps)
     if cfg.tie_embeddings:
-        return h @ cast(params["embed"], h.dtype).T
-    return h @ cast(params["lm_head"], h.dtype)
+        w = fsdp.gather_leaf(params["embed"], ("vocab", "embed"))
+        hin = fsdp.tp_copy(h) if _vocab_split(w, 0, cfg) else h
+        return hin @ cast(w, h.dtype).T
+    w = fsdp.gather_leaf(params["lm_head"], ("embed", "vocab"))
+    hin = fsdp.tp_copy(h) if _vocab_split(w, 1, cfg) else h
+    return hin @ cast(w, h.dtype)
 
 
 def _embed_inputs(params: dict, tokens, cfg, patch_embeds=None) -> torch.Tensor:
@@ -184,7 +283,7 @@ def _embed_inputs(params: dict, tokens, cfg, patch_embeds=None) -> torch.Tensor:
     model given ``patch_embeds`` (cast to the compute dtype first)."""
     h = embed_tokens(params, tokens, cfg)
     if cfg.frontend == "vision" and patch_embeds is not None:
-        fp = cast(params["frontend_proj"], h.dtype)
+        fp = cast(fsdp.gather_leaf(params["frontend_proj"], ("embed", "embed_out")), h.dtype)
         pe = torch.as_tensor(patch_embeds, device=h.device).to(h.dtype) @ fp
         h = torch.cat([pe, h], dim=1)
     return h
@@ -195,13 +294,14 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def _block_h(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> tuple:
-    h, _, aux = decoder_block(lp, h, positions, cfg)
+    h, _, aux = decoder_block(fsdp.gather(lp, block_schema(cfg)), h, positions, cfg)
     return h, aux
 
 
 def hidden_states(params: dict, tokens, cfg, patch_embeds=None) -> tuple:
     """Embed (with the optional vision prefix) and run the layer stack ->
-    (h, the layers' mean MoE aux loss, an fp32 zero for a dense model)."""
+    (h, the layers' mean MoE aux loss, an fp32 zero for a dense model).
+    Each layer's parameters are gathered inside its remat function."""
     _check_supported(cfg)
     h = _embed_inputs(params, tokens, cfg, patch_embeds)
     B, S, _ = h.shape
@@ -230,7 +330,8 @@ def loss_fn(params: dict, batch: dict, cfg) -> tuple:
     logits = unembed(params, h, cfg)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = (labels >= 0).float()
-    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask)
+    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask,
+                        vocab_parallel=logits.shape[-1] < cfg.padded_vocab)
     loss = xent + 0.01 * aux
     return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
 
@@ -244,9 +345,13 @@ def prefill(params: dict, tokens, cfg, cache_capacity: int, patch_embeds=None) -
     if S > cache_capacity:
         raise ValueError(f"prompt of {S} tokens exceeds cache capacity {cache_capacity}")
     positions = _positions(B, S, h.device)
-    cache = zeros(cache_schema(cfg, B, cache_capacity), h.device)
+    bschema = block_schema(cfg)
+    cache = None
     for i in range(cfg.num_layers):
-        h, (k, v), _ = decoder_block(layer_params(params, i), h, positions, cfg)
+        h, (k, v), _ = decoder_block(fsdp.gather(layer_params(params, i), bschema),
+                                     h, positions, cfg)
+        if cache is None:  # this rank's KV heads
+            cache = zeros(cache_schema(cfg, B, cache_capacity, k.shape[2]), h.device)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     logits = unembed(params, h[:, -1:], cfg)[:, 0]
@@ -259,16 +364,18 @@ def decode_step(params: dict, token, cache: dict, cache_len, cfg) -> tuple:
     (B,) vector of per-lane lengths.  Returns (logits (B, V), cache)."""
     _check_supported(cfg)
     h = embed_tokens(params, token, cfg)
+    bschema = block_schema(cfg)
     for i in range(cfg.num_layers):
-        h, _, _ = decoder_block_decode(layer_params(params, i), h, cache["k"][i],
-                                       cache["v"][i], cache_len, cfg)
+        lp = fsdp.gather(layer_params(params, i), bschema)
+        h, _, _ = decoder_block_decode(lp, h, cache["k"][i], cache["v"][i], cache_len, cfg)
     logits = unembed(params, h, cfg)[:, 0]
     return logits, cache
 
 
-def cache_schema(cfg, batch: int, capacity: int) -> dict:
-    """Abstract KV-cache layout (used by the serving engine)."""
-    KV, hd, L = cfg.num_kv_heads, cfg.d_head, cfg.num_layers
+def cache_schema(cfg, batch: int, capacity: int, kv_heads: int = 0) -> dict:
+    """Abstract KV-cache layout (used by the serving engine); ``kv_heads``
+    (default: all) sizes a rank's share under tensor parallelism."""
+    KV, hd, L = kv_heads or cfg.num_kv_heads, cfg.d_head, cfg.num_layers
     spec = ParamSpec(
         (L, batch, capacity, KV, hd),
         ("layers", "act_batch", "act_kv_seq", "kv_heads", "head_dim"),

@@ -16,8 +16,14 @@ lane holds one live request with its own page table and length, and
 finished lanes are retired and refilled mid-decode.  ``serve/scheduler.py``
 drives it over a request trace.  Like the reference's, it accepts an
 encoder-decoder config (``block_type`` ``attn_mlp``) and fails at the first
-``admit``, since that family has no ``prefill``.  Prefill/decode disaggregation over device
-carvings (the reference's ``submeshes``) waits for the multi-device layer.
+``admit``, since that family has no ``prefill``.  With ``submeshes``
+(``launch.mesh.split_mesh_for_serving``) it disaggregates: prefill runs on
+the prefill slice's device and stream, decode on the decode slice's; the
+weights are placed on both (one copy when both are one card), the page
+pool lives on the decode slice, and at each admit the prefilled pages are
+handed off to the decode slice's device and stream before they are
+written into the pool.  On one card (the paper's same-device mode) both
+slices are that card, each on a stream of its own.
 
 Both engines take ``device`` (default: the card; they raise when there is
 none) and cast the weights to ``cfg.dtype`` once at construction — the
@@ -40,7 +46,7 @@ import torch
 
 from repro_torch._device import DeviceLike, as_dtype, resolve_device, sync
 from repro_torch.models.api import ModelAPI, get_model
-from repro_torch.models.layers import keeps_fp32, tree_map
+from repro_torch.models.layers import keeps_fp32, tree_leaves, tree_map
 from repro_torch.serve.kvcache import (
     SCRATCH_PAGE,
     PageAllocator,
@@ -185,12 +191,19 @@ class ContinuousBatchingEngine:
 
     def __init__(self, cfg, params, *, lanes: int, n_pages: int,
                  page_tokens: int = 16, lane_capacity: int = 128,
-                 debug_checks: bool = False, device: DeviceLike = None):
+                 submeshes=None, debug_checks: bool = False, device: DeviceLike = None):
         if cfg.block_type not in ("attn_mlp", "moe"):
             raise ValueError(
                 f"paged serving needs a KV-cache family, got {cfg.block_type}"
             )
-        self.device = resolve_device(device)
+        self.submeshes = submeshes
+        if submeshes is None:
+            self.device = self.prefill_device = resolve_device(device)
+        else:
+            self.prefill_device = submeshes.prefill_mesh.device
+            self.device = submeshes.decode_mesh.device  # the pool's
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not the decode slice's {self.device}")
         self.cfg = cfg
         self.api = get_model(cfg)
         self.lanes = lanes
@@ -202,8 +215,18 @@ class ContinuousBatchingEngine:
         # (admit/step/retire/reset) — cheap O(pages) sets, off by default,
         # on in tests
         self.debug_checks = debug_checks
-        self.params = serving_params(self.api, params, self.device)
-        self.pool = init_paged_cache(self.api, n_pages, page_tokens, self.device)
+        self.params = serving_params(self.api, params, self.device)  # decode's
+        self.params_prefill = (self.params if self.prefill_device == self.device
+                               else serving_params(self.api, params, self.prefill_device))
+        self.prefill_stream = self.decode_stream = None  # the current stream
+        if submeshes is not None and self.device.type == "cuda":
+            self.prefill_stream = (submeshes.prefill_mesh.stream
+                                   or torch.cuda.Stream(device=self.prefill_device))
+            self.decode_stream = (submeshes.decode_mesh.stream
+                                  or torch.cuda.Stream(device=self.device))
+        self.handoff_s: List[float] = []  # each admit's handoff (disaggregated)
+        with torch.cuda.stream(self.decode_stream):
+            self.pool = init_paged_cache(self.api, n_pages, page_tokens, self.device)
         self.tables = np.full((lanes, self.max_pages), SCRATCH_PAGE, np.int64)
         self.lens = np.zeros((lanes,), np.int64)
         self.lane_tok = np.zeros((lanes,), np.int64)
@@ -214,7 +237,9 @@ class ContinuousBatchingEngine:
         """Fresh serving state (pool, tables, allocator, stats)."""
         n_pages = self.alloc.n_pages
         self.alloc = PageAllocator(n_pages, self.page_tokens)
-        self.pool = init_paged_cache(self.api, n_pages, self.page_tokens, self.device)
+        with torch.cuda.stream(self.decode_stream):
+            self.pool = init_paged_cache(self.api, n_pages, self.page_tokens, self.device)
+        self.handoff_s = []
         self.tables[:] = SCRATCH_PAGE
         self.lens[:] = 0
         self.lane_tok[:] = 0
@@ -268,12 +293,18 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         P = req.prompt_len
         n_pf = self.alloc.pages_for(P)
-        logits, cache = self.api.prefill(
-            self.params, self._to_device(req.prompt[None, :].astype(np.int64)),
-            n_pf * self.page_tokens,
-        )
-        first = int(torch.argmax(logits[0]))  # waits for the prefill
-        write_pages(self.pool, pages[:n_pf], cache_to_pages(cache, self.page_tokens))
+        with torch.cuda.stream(self.prefill_stream):
+            logits, cache = self.api.prefill(
+                self.params_prefill,
+                torch.as_tensor(req.prompt[None, :].astype(np.int64), device=self.prefill_device),
+                n_pf * self.page_tokens,
+            )
+            chunks = cache_to_pages(cache, self.page_tokens)
+            first = int(torch.argmax(logits[0]))  # waits for the prefill
+        if self.submeshes is None:
+            write_pages(self.pool, pages[:n_pf], chunks)
+        else:
+            self._handoff(pages[:n_pf], chunks)
         sync(self.device)
         self.stats.prefill_s += time.perf_counter() - t0
         self.stats.prefills += 1
@@ -287,6 +318,24 @@ class ContinuousBatchingEngine:
         self._debug_check()
         return True
 
+    def _handoff(self, pages, chunks) -> None:
+        """The disaggregation handoff: the prefilled pages move to the decode
+        slice's device, ordered after the prefill on the decode stream,
+        and are written into the pool there; timed to the decode stream's
+        end (``handoff_s``)."""
+        t0 = time.perf_counter()
+        with torch.cuda.stream(self.decode_stream):
+            if self.decode_stream is not None:
+                self.decode_stream.wait_stream(self.prefill_stream)
+            moved = tree_map(lambda x: x.to(self.device, non_blocking=True), chunks)
+            if self.decode_stream is not None:  # prefill-stream blocks read here
+                for x in tree_leaves(moved):
+                    x.record_stream(self.decode_stream)
+            write_pages(self.pool, pages, moved)
+        if self.decode_stream is not None:
+            self.decode_stream.synchronize()
+        self.handoff_s.append(time.perf_counter() - t0)
+
     def step(self) -> List[object]:
         """One decode tick over every live lane; returns newly finished
         requests (their lanes already retired)."""
@@ -294,13 +343,14 @@ class ContinuousBatchingEngine:
         if not live:
             return []
         t0 = time.perf_counter()
-        tables = self._to_device(self.tables)
-        lens = self._to_device(self.lens)
-        view = gather_view(self.pool, tables)
-        logits, view = self.api.decode_step(
-            self.params, self._to_device(self.lane_tok[:, None]), view, lens)
-        scatter_token(self.pool, view, tables, lens)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        with torch.cuda.stream(self.decode_stream):
+            tables = self._to_device(self.tables)
+            lens = self._to_device(self.lens)
+            view = gather_view(self.pool, tables)
+            logits, view = self.api.decode_step(
+                self.params, self._to_device(self.lane_tok[:, None]), view, lens)
+            scatter_token(self.pool, view, tables, lens)
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         sync(self.device)
         self.stats.decode_s += time.perf_counter() - t0
         self.stats.decode_steps += 1

@@ -1,11 +1,11 @@
 """KV-cache allocation for the serving engine, in PyTorch.
 
-The port of ``repro/serve/kvcache.py`` without its mesh/rules sharding
-(that waits for the multi-device layer).  Two layers:
+The port of ``repro/serve/kvcache.py``.  Two layers:
 
 - ``init_cache``/``cache_bytes`` — the contiguous cache: one
   (L, batch, capacity, KV, hd) block per k/v leaf.  ``ServingEngine``
-  (fixed-batch) decodes against it directly.
+  (fixed-batch) decodes against it directly; ``dist.sharding.device_put``
+  places it for ``train.step.jit_decode_step``.
 
 - Paged serving (continuous batching): the physical store is a *page pool* —
   the very same ``init_cache`` schema instantiated with ``batch=n_pages`` and

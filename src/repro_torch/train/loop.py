@@ -1,14 +1,20 @@
-"""Fault-tolerant training loop, single device.
+"""Fault-tolerant training loop.
 
-The port of the single-device path of ``repro/train/loop.py``: the data
-pipeline, the train step, synchronous checkpointing every ``ckpt_every``
-steps, restart from the latest checkpoint, fail-stop restart on a step
-failure (``RuntimeError``/``ValueError``/``FloatingPointError``, at most
+The port of ``repro/train/loop.py``: the data pipeline, the train step,
+synchronous checkpointing every ``ckpt_every`` steps, restart from the
+latest checkpoint, fail-stop restart on a step failure
+(``RuntimeError``/``ValueError``/``FloatingPointError``, at most
 ``max_failures`` times) and straggler logging from EMA deadlines.
 
-The reference's mesh argument is gone: the state lives on ``device``
-(default: the card).  Multiplexing (``TrainConfig.bg_step_fn``): once the
-foreground step is issued, ``multiplex.max_inflight`` background steps are
+Without ``mesh`` the state lives on ``device`` (default: the card) and
+the step is ``make_train_step``'s.  With ``mesh`` (a ``DeviceMesh``; every
+rank of it runs ``train`` with its own ``device``) the step is
+``jit_train_step``'s: the state, each batch (every rank draws the same
+global batch and keeps its shard) and restored checkpoints are placed by
+its shardings, and checkpoints are written by rank 0.
+
+Multiplexing (``TrainConfig.bg_step_fn``): once the foreground step is
+issued, ``multiplex.max_inflight`` background steps are
 dispatched while it runs, then the loop waits on the foreground loss.
 With background work the foreground's state, data and step live on a
 stream of their own, of the greatest priority when
@@ -34,11 +40,12 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.multiplex import MultiplexConfig
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.dist.faults import MitigationLog, StepTimer
+from repro_torch.dist.sharding import device_put
 from repro_torch.models.api import get_model
 from repro_torch.models.layers import tree_leaves
 from repro_torch.optim.optimizer import make_optimizer
 from repro_torch.train.state import init_state
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import jit_train_step, make_train_step
 
 _WAITING = {  # TrainConfig field -> the ROADMAP item it waits for
     "coordinator": "Queue 1, item 12 (control plane)",
@@ -46,7 +53,7 @@ _WAITING = {  # TrainConfig field -> the ROADMAP item it waits for
     "transport": "Queue 1, item 12 (control plane)",
     "control_loop": "Queue 1, item 12 (control plane)",
     "lease": "Queue 1, item 12 (control plane)",
-    "apply_reconfig": "Queue 1, item 11 (multi-device)",
+    "apply_reconfig": "Queue 1, item 12 (control plane)",
     "admit_every": "Queue 1, item 12 (control plane)",
 }
 
@@ -86,25 +93,37 @@ class TrainReport:
 
 def train(cfg: ModelConfig, shape: ShapeConfig, tc: TrainConfig,
           fault_injector: Optional[Callable[[int], None]] = None,
-          device: DeviceLike = None) -> TrainReport:
+          device: DeviceLike = None, mesh=None) -> TrainReport:
     """Run ``tc.steps`` steps with checkpoint/restart + straggler monitoring.
-    ``fault_injector(step)`` may raise to simulate failures (tests)."""
+    ``fault_injector(step)`` may raise to simulate failures (tests).  With
+    ``mesh`` the sharded step runs on it (every rank of it calls ``train``)."""
     for name, item in _WAITING.items():
         if getattr(tc, name):
             raise NotImplementedError(f"TrainConfig.{name} is not ported yet (ROADMAP {item})")
     dev = resolve_device(device)
+    if mesh is not None and dev.type != mesh.device_type:
+        raise ValueError(f"device {dev} is not the mesh's device type {mesh.device_type!r}: "
+                         "the state and batches are built on the mesh's device")
     api = get_model(cfg)
     opt = make_optimizer(cfg, total_steps=tc.steps)
-    step_fn = make_train_step(api, opt)
+    if mesh is None:
+        step_fn, st_sh, bt_sh = make_train_step(api, opt), None, None
+    else:
+        step_fn, st_sh, bt_sh = jit_train_step(api, opt, mesh, shape)
     report = TrainReport()
     timer = StepTimer(deadline_factor=tc.straggler_factor)
 
+    def placed(tree, shardings):
+        return tree if shardings is None else device_put(tree, shardings)
+
     def fresh_state():
-        return init_state(api, opt, torch.Generator(device=dev).manual_seed(tc.seed), dev)
+        return placed(init_state(api, opt, torch.Generator(device=dev).manual_seed(tc.seed),
+                                 dev), st_sh)
 
     def restore_latest():
         """(state, step) from the latest checkpoint, the data cursor moved there."""
-        state, meta = ckpt_lib.restore(tc.ckpt_dir, fresh_state())
+        like = init_state(api, opt, torch.Generator(device=dev).manual_seed(tc.seed), dev)
+        state, meta = ckpt_lib.restore(tc.ckpt_dir, like, shardings=st_sh)
         data.restore(meta.get("data", {"seed": tc.seed, "step": meta["step"]}))
         return state, meta["step"]
 
@@ -128,7 +147,7 @@ def train(cfg: ModelConfig, shape: ShapeConfig, tc: TrainConfig,
                 try:
                     if fault_injector is not None:
                         fault_injector(step)
-                    batch = next(data)
+                    batch = placed(next(data), bt_sh)
                     t0 = time.perf_counter()
                     state, metrics = step_fn(state, batch)
                     # multiplexing: dispatch paced background steps while the
@@ -170,6 +189,7 @@ def train(cfg: ModelConfig, shape: ShapeConfig, tc: TrainConfig,
         caller = torch.cuda.current_stream(dev)
         caller.wait_stream(fg_stream)
         for t in tree_leaves(state):
+            t = t.to_local() if hasattr(t, "to_local") else t  # a DTensor's shard
             if isinstance(t, torch.Tensor) and t.device.type == "cuda":
                 t.record_stream(caller)
     report.state = state

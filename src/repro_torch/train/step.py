@@ -1,11 +1,25 @@
-"""train_step / forward factories.
+"""train_step / forward / decode factories, unsharded and sharded.
 
-The port of ``repro/train/step.py::make_train_step``, ``make_forward`` and
-``bg_step_factory``: loss, ``torch.autograd.grad`` over the parameter
-leaves, then ``optimizer.update`` (which clips and writes in place), for
-every family, the encoder-decoder (``frames`` batches) and vision
-(``patch_embeds``) ones included.  The jit and sharding wrappers (``jit_train_step`` and friends) wait for the
-multi-device layer (ROADMAP Queue 1, item 11).
+The port of ``repro/train/step.py``.  ``make_train_step`` builds the full
+step: loss, ``torch.autograd.grad`` over the parameter leaves, an optional
+``grad_transform`` (PowerSGD, ``optim/grad_compression.py``), then
+``optimizer.update`` (which clips and writes in place), for every family,
+the encoder-decoder (``frames`` batches) and vision (``patch_embeds``)
+ones included.
+
+``jit_train_step``, ``jit_forward`` and ``jit_decode_step`` keep the
+reference's names so a reader finds the counterpart, but nothing is
+jitted: each closes the step over a mesh (a ``DeviceMesh``, one process
+per position) and returns ``(fn, state or param shardings, batch
+shardings)``.  Parameters, optimizer state, batches and caches are
+DTensors placed by those shardings (``dist.sharding.device_put``); the
+step runs inside ``fsdp.context(mesh, rules)``, where the models gather
+each parameter at its use site and compute on this rank's local shards,
+and the optimizer updates the DTensor state (whose global-norm clipping
+and Adafactor moments reduce over the sharded axes).  Layouts the port
+does not run (tensor parallelism on 'model' beyond the dense
+``attn_mlp`` family, a decode cache split along its sequence) raise
+``NotImplementedError`` naming ROADMAP item 11b.
 """
 from __future__ import annotations
 
@@ -13,10 +27,21 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.dist import fsdp
+from repro_torch.dist.sharding import (
+    NamedSharding,
+    batch_pspecs,
+    mesh_axis_sizes,
+    param_shardings,
+    pspec,
+    sharding_rules,
+    shardings_of,
+)
 from repro_torch.models.layers import tree_leaves, tree_map
 
 
-def make_train_step(api, optimizer):
+def make_train_step(api, optimizer, grad_transform: Optional[Callable] = None):
     if api.loss is None:
         raise NotImplementedError(f"{api.cfg.name}: this ModelAPI has no loss_fn to train")
 
@@ -29,6 +54,8 @@ def make_train_step(api, optimizer):
         grads = iter(torch.autograd.grad(loss, leaves))
         # tree_leaves and tree_map walk the dict keys in one order
         grads = tree_map(lambda _: next(grads), _sorted(params))
+        if grad_transform is not None:
+            grads = grad_transform(grads)
         new_params, new_opt = optimizer.update(grads, state["opt"], params)
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         return new_state, {k: v.detach() for k, v in metrics.items()}
@@ -56,6 +83,171 @@ def make_forward(api):
     return fwd
 
 
+def make_decode_step(api):
+    def step(params, batch):
+        return api.decode_step(params, batch["token"], batch["cache"], batch["cache_len"])
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Sharded steps
+# ---------------------------------------------------------------------------
+
+
+# The logical axes the dense attn_mlp family's tensor parallelism splits.
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
+
+
+def _check_layout(api, mesh, rules) -> None:
+    """Raise for the layouts the port does not run (ROADMAP item 11b):
+    under a 'model' axis larger than 1, any family but the dense
+    ``attn_mlp`` one, sequence parallelism, a parameter split on 'model'
+    along another logical axis than ``TP_AXES`` (pixtral's
+    ``frontend_proj``), or KV heads split with the query heads whole; on
+    any mesh, a decode cache split along its sequence."""
+    cfg = api.cfg
+    sizes = mesh_axis_sizes(mesh)
+    model = sizes.get("model", 1)
+    dense = cfg.block_type == "attn_mlp" and not cfg.num_encoder_layers
+    if model > 1 and not dense:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over a 'model' axis of {model} for the "
+            f"{cfg.block_type}{' encoder-decoder' if cfg.num_encoder_layers else ''} family "
+            f"is not ported ({fsdp.ITEM_11B})")
+    if model > 1 and cfg.sequence_parallel:
+        raise NotImplementedError(f"{cfg.name}: sequence parallelism ({fsdp.ITEM_11B})")
+    if model > 1:
+        split = set()
+        for s in tree_leaves(api.schema):
+            for name, e in zip(s.axes, pspec(s.axes, s.shape, rules, mesh)):
+                if e is not None and "model" in ((e,) if isinstance(e, str) else e):
+                    split.add(name)
+        if split - set(TP_AXES):
+            raise NotImplementedError(
+                f"{cfg.name}: parameters split over 'model' on {sorted(split - set(TP_AXES))}: "
+                f"only the dense attn_mlp family's {TP_AXES} are ported ({fsdp.ITEM_11B})")
+        if "kv_heads" in split and "heads" not in split:
+            raise NotImplementedError(f"{cfg.name}: KV heads split over 'model' with the "
+                                      f"query heads whole ({fsdp.ITEM_11B})")
+    seq = [a for a in rules.get("act_kv_seq", ()) if sizes.get(a, 1) > 1]
+    if seq:
+        raise NotImplementedError(
+            f"{cfg.name}: a decode cache split along its sequence over {seq} is not "
+            f"ported ({fsdp.ITEM_11B})")
+
+
+def _local(tree):
+    """The local shards of a tree of DTensors (plain 0-d leaves and Python
+    numbers pass: a step counter, a cache length)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(x):
+        if isinstance(x, DTensor):
+            return x.to_local()
+        if isinstance(x, torch.Tensor) and x.dim() > 0:
+            raise TypeError(f"a sharded step takes DTensors (dist.sharding.device_put), "
+                            f"got a plain tensor of shape {tuple(x.shape)}")
+        return x
+
+    return tree_map(one, tree)
+
+
+def _from_local(x: torch.Tensor, mesh, spec: tuple):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x, mesh, NamedSharding(mesh, spec).placements)
+
+
+def _logits_spec(api, rules, mesh, ndim: int) -> tuple:
+    """The spec of this rank's logits: the batch dim split as the batch,
+    the vocabulary over 'model' where the unembedding splits it."""
+    cfg = api.cfg
+    name, vocab_dim = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
+    w = api.schema[name]
+    entry = (pspec(w.axes, w.shape, rules, mesh) + (None,) * 2)[vocab_dim]
+    batch = tuple(rules.get("act_batch", ()))
+    parts = [None if not batch else batch[0] if len(batch) == 1 else batch]
+    parts += [None] * (ndim - 2) + ["model" if entry == "model" else None]
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def jit_train_step(api, optimizer, mesh, shape: ShapeConfig, rules: Optional[dict] = None,
+                   report=None):
+    """Returns ``(fn, state_shardings, batch_shardings)``; ``fn(state,
+    batch) -> (new_state, metrics)`` on a state and batch placed by them.
+    The metrics are plain tensors, equal on every rank (the loss is the
+    global batch's)."""
+    from repro_torch.models.api import input_specs
+    from repro_torch.train.state import state_shardings
+
+    cfg = api.cfg
+    rules = rules or sharding_rules(cfg, mesh, shape)
+    _check_layout(api, mesh, rules)
+    st_sh = state_shardings(api, optimizer, rules, mesh, report)
+    bt_sh = shardings_of(batch_pspecs(cfg, shape, rules, mesh, input_specs(cfg, shape),
+                                      report), mesh)
+    step = make_train_step(api, optimizer)
+
+    def step_with_fsdp(state, batch):
+        with fsdp.context(mesh, rules):
+            return step(state, _local(batch))
+
+    return step_with_fsdp, st_sh, bt_sh
+
+
+def jit_forward(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None, report=None):
+    """Returns ``(fn, param_shardings, batch_shardings)``; ``fn(params,
+    batch)`` gives the logits as a DTensor (batch split as the batch, the
+    vocabulary over 'model' where the unembedding splits it)."""
+    from repro_torch.models.api import input_specs
+
+    cfg = api.cfg
+    rules = rules or sharding_rules(cfg, mesh, shape)
+    _check_layout(api, mesh, rules)
+    p_sh = param_shardings(api.schema, rules, mesh, report)
+    bt_sh = shardings_of(batch_pspecs(cfg, shape, rules, mesh, input_specs(cfg, shape),
+                                      report), mesh)
+    fwd = make_forward(api)
+    spec = _logits_spec(api, rules, mesh, 3)
+
+    @torch.no_grad()
+    def fwd_with_fsdp(params, batch):
+        with fsdp.context(mesh, rules):
+            return _from_local(fwd(params, _local(batch)), mesh, spec)
+
+    return fwd_with_fsdp, p_sh, bt_sh
+
+
+def jit_decode_step(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None,
+                    report=None):
+    """Returns ``(fn, param_shardings, batch_shardings)``; ``fn(params,
+    batch) -> (logits, cache)``, both DTensors, the cache placed as
+    ``batch_shardings["cache"]`` (written in place where the family's
+    ``decode_step`` writes in place)."""
+    from repro_torch.models.api import input_specs
+
+    cfg = api.cfg
+    rules = rules or sharding_rules(cfg, mesh, shape)
+    _check_layout(api, mesh, rules)
+    p_sh = param_shardings(api.schema, rules, mesh, report)
+    bt_sh = shardings_of(batch_pspecs(cfg, shape, rules, mesh, input_specs(cfg, shape),
+                                      report), mesh)
+    spec = _logits_spec(api, rules, mesh, 2)
+    step = make_decode_step(api)
+
+    @torch.no_grad()
+    def decode_with_fsdp(params, batch):
+        with fsdp.context(mesh, rules):
+            logits, cache = step(params, _local(batch))
+        cache = tree_map(lambda x, sh: _from_local(x, mesh, sh.spec), cache, bt_sh["cache"])
+        return _from_local(logits, mesh, spec), cache
+
+    return decode_with_fsdp, p_sh, bt_sh
+
+
 def bg_step_factory(arch: str = "qwen2-1.5b", *, batch: int = 4, seq: int = 8,
                     seed: int = 0, on_loss: Optional[Callable] = None,
                     per_device_batch: Optional[int] = None):
@@ -71,8 +263,9 @@ def bg_step_factory(arch: str = "qwen2-1.5b", *, batch: int = 4, seq: int = 8,
     batch every step reuses (seeded ``seed + 1``) are made on the slice's
     device and stream, and each step is issued on that stream, so a step
     never runs ahead of its state and nothing waits for the rest of the
-    device.  The slice must be one card (a wider one raises, naming the
-    multi-device item).
+    device.  A slice of several ranks (``launch.mesh.rank_slice``) runs
+    ``jit_train_step`` over its ``DeviceMesh``, with the state and batch
+    placed by its shardings; every rank of the slice calls the step.
 
     ``per_device_batch`` sizes the tenant's step to its own chunk width
     (the per-tenant bg step quantum): each step uses
@@ -90,6 +283,7 @@ def bg_step_factory(arch: str = "qwen2-1.5b", *, batch: int = 4, seq: int = 8,
     and shape, so per-device sizing never aliases across chunk widths.)
     """
     from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import device_put
     from repro_torch.models.api import get_model, make_batch
     from repro_torch.optim.optimizer import make_optimizer
     from repro_torch.train.state import init_state
@@ -97,7 +291,6 @@ def bg_step_factory(arch: str = "qwen2-1.5b", *, batch: int = 4, seq: int = 8,
     cfg = get_config(arch).reduced()
     api = get_model(cfg)
     opt = make_optimizer(cfg)
-    train_step = make_train_step(api, opt)
 
     def make_bg_step_fn(mesh):
         dev = mesh.device
@@ -109,6 +302,12 @@ def bg_step_factory(arch: str = "qwen2-1.5b", *, batch: int = 4, seq: int = 8,
                 api, opt, torch.Generator(device=dev).manual_seed(seed), dev)}
             b = make_batch(cfg, b_global, seq, torch.Generator(device=dev).manual_seed(seed + 1),
                            dev)
+            if mesh.mesh is None:
+                train_step = make_train_step(api, opt)
+            else:
+                train_step, st_sh, bt_sh = jit_train_step(
+                    api, opt, mesh.mesh, ShapeConfig("bg", seq, b_global, "train"))
+                holder["state"], b = device_put(holder["state"], st_sh), device_put(b, bt_sh)
 
         def step():
             with torch.cuda.stream(mesh.stream):

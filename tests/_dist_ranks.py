@@ -1,0 +1,265 @@
+"""The port's sharded steps on gloo ranks of the CPU, one process per rank.
+
+    python tests/_dist_ranks.py REF_DIR OUT_DIR MESH_JSON CASES_JSON
+
+Run by ``tests/test_torch_distributed.py``: spawns one process per
+position of the mesh (``MESH_JSON``, e.g. ``[4, 2]`` for (data, model) or
+``[2, 2, 1]`` for (pod, data, model)), which meet through a file under
+``OUT_DIR`` (no port).  Each rank runs every case of ``CASES_JSON`` on the
+inputs ``tests/_dist_reference.py`` wrote to ``REF_DIR``; rank 0 writes
+``<case>-port.npz`` (and, for a shard check, every rank its own shard).
+Imports torch and ``repro_torch`` only.
+"""
+import dataclasses
+import json
+import math
+import os
+import sys
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+STEPS, LR_STEPS = 3, 5
+
+
+def _config(arch):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+
+
+def _mesh(shape):
+    from repro_torch.launch.mesh import make_mesh
+
+    if len(shape) == 3:
+        return make_mesh(shape[1], shape[2], pod=shape[0])
+    return make_mesh(*shape)
+
+
+def _load(ref, name):
+    with np.load(os.path.join(ref, f"{name}-in.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _sub(flat, prefix):
+    return {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+
+
+def _full(tree, prefix):
+    """Every DTensor leaf gathered (a collective: every rank calls it)."""
+    from repro_torch.checkpoint.ckpt import flatten
+
+    return {prefix + k: (v.full_tensor() if hasattr(v, "full_tensor") else v).detach().numpy()
+            for k, v in flatten(tree).items()}
+
+
+def _batch(flat):
+    return {k: torch.as_tensor(v).long() if v.dtype.kind == "i" else torch.as_tensor(v)
+            for k, v in _sub(flat, "batch/").items()}
+
+
+def run_train(name, case, ref, out, rank):
+    from repro_torch.checkpoint.ckpt import params_from_numpy
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.dist.sharding import device_put
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.step import jit_train_step
+
+    cfg = _config(case["arch"])
+    api, opt = get_model(cfg), make_optimizer(cfg, LR_STEPS)
+    mesh = _mesh(case["mesh"])
+    flat = _load(ref, name)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=case.get("seq", 16),
+                                global_batch=case.get("batch", 8), name="t")
+    fn, st_sh, bt_sh = jit_train_step(api, opt, mesh, shape)
+    params = params_from_numpy(_sub(flat, "params/"), device="cpu")
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    state = device_put(state, st_sh)
+    batch = device_put(_batch(flat), bt_sh)
+    losses = []
+    for _ in range(STEPS):
+        state, metrics = fn(state, batch)
+        losses.append(float(metrics["loss"]))
+    res = {"losses": np.array(losses)}
+    res.update(_full(state["params"], "params/"))
+    res.update({k: v for k, v in _full(state["opt"], "opt/").items()
+                if k.startswith("opt/m/") or k.startswith("opt/stats/")})
+    if case.get("shards"):
+        from repro_torch.checkpoint.ckpt import flatten
+
+        leaf = flatten(device_put(params, st_sh["params"]))[case["shards"]]
+        coord = "-".join(map(str, mesh.get_coordinate()))
+        np.save(os.path.join(out, f"{name}-shard-{coord}.npy"),
+                leaf.to_local().detach().numpy())
+    if case.get("ckpt"):
+        from repro_torch.checkpoint import ckpt
+
+        ckpt.save(os.path.join(out, case["ckpt"]), state, step=STEPS, async_=False)
+    if rank == 0:
+        np.savez(os.path.join(out, f"{name}-port.npz"), **res)
+
+
+def run_serve(name, case, ref, out, rank):
+    from repro_torch.checkpoint.ckpt import params_from_numpy
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.dist.sharding import device_put, sharding_rules
+    from repro_torch.models.api import get_model
+    from repro_torch.train.step import jit_decode_step, jit_forward
+
+    cfg = _config(case["arch"])
+    api = get_model(cfg)
+    mesh = _mesh(case["mesh"])
+    flat = _load(ref, name)
+    params = params_from_numpy(_sub(flat, "params/"), device="cpu")
+    B, S, cap = 8, 16, 32
+    fn, p_sh, bt_sh = jit_forward(api, mesh, ShapeConfig("p", S, B, "prefill"))
+    logits = fn(device_put(params, p_sh),
+                device_put({"tokens": torch.as_tensor(flat["tokens"]).long()}, bt_sh))
+    dshape = ShapeConfig("d", cap, B, "decode")
+    rules = dict(sharding_rules(cfg, mesh, dshape), act_kv_seq=())
+    dfn, dp_sh, dbt_sh = jit_decode_step(api, mesh, dshape, rules=rules)
+    dbatch = {"token": torch.as_tensor(flat["token"]).long(),
+              "cache_len": int(flat["cache_len"]),
+              "cache": {k: torch.as_tensor(v) for k, v in _sub(flat, "cache/").items()}}
+    dlogits, cache = dfn(device_put(params, dp_sh), device_put(dbatch, dbt_sh))
+    res = {"logits": logits.full_tensor().numpy(),
+           "decode_logits": dlogits.full_tensor().numpy(),
+           "logits_placements": np.array([str(p) for p in logits.placements])}
+    res.update(_full(cache, "cache/"))
+    if rank == 0:
+        np.savez(os.path.join(out, f"{name}-port.npz"), **res)
+
+
+def run_restore(name, case, ref, out, rank):
+    """The elastic restore: a checkpoint saved on one mesh, placed onto
+    this one by its own shardings."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.dist.sharding import sharding_rules
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.state import abstract_state, state_shardings
+
+    cfg = _config(case["arch"])
+    api, opt = get_model(cfg), make_optimizer(cfg, LR_STEPS)
+    mesh = _mesh(case["mesh"])
+    sh = state_shardings(api, opt, sharding_rules(cfg, mesh), mesh)
+    state, meta = ckpt.restore(os.path.join(out, case["ckpt"]), abstract_state(api, opt),
+                               shardings=sh)
+    res = _full(state["params"], "params/")
+    leaf = state["params"]["layers"]["attn"]["wq"]
+    res["placements"] = np.array([str(p) for p in leaf.placements])
+    res["local_shape"] = np.array(leaf.to_local().shape)
+    res["step"] = np.array(meta["step"])
+    if rank == 0:
+        np.savez(os.path.join(out, f"{name}-port.npz"), **res)
+
+
+def run_raises(name, case, ref, out, rank):
+    """Each listed arch's train step on this mesh must raise
+    NotImplementedError; the messages are recorded."""
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.step import jit_train_step
+
+    mesh = _mesh(case["mesh"])
+    shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=8, name="t")
+    got = {}
+    for arch in case["archs"]:
+        cfg = _config(arch)
+        try:
+            jit_train_step(get_model(cfg), make_optimizer(cfg), mesh, shape)
+            got[arch] = "no error"
+        except NotImplementedError as e:
+            got[arch] = str(e)
+    if rank == 0:
+        with open(os.path.join(out, f"{name}-port.json"), "w") as f:
+            json.dump(got, f)
+
+
+def run_bg_slice(name, case, ref, out, rank):
+    """``bg_step_factory`` on a slice over every rank against the same
+    factory on one CPU position."""
+    from repro_torch.launch.mesh import rank_slice, submesh_from_range
+    from repro_torch.train.step import bg_step_factory
+
+    build = bg_step_factory(case["arch"], batch=8, seq=16, seed=2)
+    sl = rank_slice(0, dist.get_world_size())
+    step = build(sl)
+    sharded = [float(step()) for _ in range(STEPS)]
+    plain_step = build(submesh_from_range(0, 1, devices=[torch.device("cpu")]))
+    plain = [float(plain_step()) for _ in range(STEPS)]
+    if rank == 0:
+        with open(os.path.join(out, f"{name}-port.json"), "w") as f:
+            json.dump({"sharded": sharded, "plain": plain, "shape": list(sl.shape),
+                       "mesh": list(sl.mesh.shape)}, f)
+
+
+def run_remesh(name, case, ref, out, rank):
+    from repro_torch.launch.mesh import remesh_for_pool
+
+    got = {}
+    for key, pool in case["pools"].items():
+        m = remesh_for_pool(pool)
+        got[key] = {"shape": list(m.shape), "ranks": m.mesh.flatten().tolist(),
+                    "names": list(m.mesh_dim_names)}
+    if rank == 0:
+        with open(os.path.join(out, f"{name}-port.json"), "w") as f:
+            json.dump(got, f)
+
+
+def run_powersgd(name, case, ref, out, rank):
+    """``powersgd_allreduce`` over the world: rank r holds the reference's
+    gradient shard r and starts from its Q; ``case["iters"]`` rounds with
+    error feedback, each rank saving its running mean of the results."""
+    from repro_torch.optim.grad_compression import powersgd_allreduce
+
+    flat = _load(ref, name)
+    g = {"w": torch.as_tensor(flat["g_global"][rank])}
+    state = {"w": {"q": torch.as_tensor(flat["q"]), "err": torch.zeros_like(g["w"])}}
+    total = torch.zeros_like(g["w"])
+    for _ in range(case["iters"]):
+        approx, state = powersgd_allreduce(g, state, dist.group.WORLD, rank=case["rank"])
+        total = total + approx["w"]
+    np.save(os.path.join(out, f"{name}-avg-{rank}.npy"), (total / case["iters"]).numpy())
+
+
+RUN = {"train": run_train, "powersgd": run_powersgd, "serve": run_serve, "restore": run_restore,
+       "raises": run_raises, "bg_slice": run_bg_slice, "remesh": run_remesh}
+
+
+def _rank(rank, world, ref, out, cases):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(out, "rendezvous"),
+                            rank=rank, world_size=world)
+    try:
+        for name, case in cases.items():
+            RUN[case["kind"]](name, case, ref, out, rank)
+            dist.barrier()
+    except Exception:
+        with open(os.path.join(out, f"error-{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def main():
+    ref, out, shape, cases = sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), \
+        json.loads(sys.argv[4])
+    sys.path.insert(0, SRC)
+    os.makedirs(out, exist_ok=True)
+    world = math.prod(shape)
+    mp.start_processes(_rank, args=(world, ref, out, cases), nprocs=world,
+                       start_method="spawn")
+    print("DONE", world)
+
+
+if __name__ == "__main__":
+    main()

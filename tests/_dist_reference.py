@@ -1,0 +1,162 @@
+"""The reference's sharded steps on an Auto-axis mesh of forced host devices.
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
+        python tests/_dist_reference.py OUT_DIR CASES_JSON
+
+Run by ``tests/test_torch_distributed.py`` in a subprocess of its own (the
+device count is fixed when JAX starts).  The mesh is built with
+``jax.sharding.Mesh`` over the devices, whose axes are Auto, so the
+reference's ``fsdp`` constraints apply (``jax.make_mesh`` gives Explicit
+axes, where they raise).  For each case it writes, under ``OUT_DIR``,
+``<case>-in.npz`` (the initial parameters and the batch, which the port
+loads) and ``<case>-out.npz`` (what the port must reproduce).
+"""
+import dataclasses
+import json
+import math
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import Mesh
+
+from repro.checkpoint.ckpt import _flatten
+from repro.configs import TRAIN_4K, ShapeConfig, get_config
+from repro.dist.sharding import sharding_rules
+from repro.models import get_model
+from repro.optim.optimizer import make_optimizer
+from repro.train.state import init_state
+from repro.train.step import jit_decode_step, jit_forward, jit_train_step
+
+STEPS, LR_STEPS = 3, 5  # 3 steps of the cosine schedule over 5 (no warmup)
+
+
+def make_mesh(shape):
+    axes = ("pod", "data", "model")[-len(shape):]
+    return Mesh(np.array(jax.devices()[: math.prod(shape)]).reshape(shape), axes)
+
+
+def config(arch):
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+
+
+def batch_np(cfg, B, S, seed, uneven):
+    """Seeded numpy batch; with ``uneven`` the first rows' labels are
+    mostly -1, so each data shard holds a different count of them."""
+    rng = np.random.default_rng(seed)
+    V = cfg.vocab_size
+    if cfg.num_encoder_layers:
+        S_dec = max(S // 4, 8)
+        b = {"frames": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32),
+             "tokens": rng.integers(0, V, (B, S_dec)).astype(np.int32),
+             "labels": rng.integers(0, V, (B, S_dec)).astype(np.int32)}
+    else:
+        b = {"tokens": rng.integers(0, V, (B, S)).astype(np.int32),
+             "labels": rng.integers(0, V, (B, S)).astype(np.int32)}
+    if uneven:
+        lab = b["labels"]
+        lab[0, :] = -1
+        lab[1, 3:] = -1
+        lab[B - 1, ::3] = -1
+    return b
+
+
+def run_train(name, case, out):
+    cfg = config(case["arch"])
+    api, opt = get_model(cfg), make_optimizer(cfg, LR_STEPS)
+    mesh = make_mesh(tuple(case["mesh"]))
+    B, S = case.get("batch", 8), case.get("seq", 16)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=S, global_batch=B, name="t")
+    fn, st_sh, bt_sh = jit_train_step(api, opt, mesh, shape, donate=False)
+    state0 = init_state(jax.random.PRNGKey(case.get("seed", 0)), api, opt)
+    batch = batch_np(cfg, B, S, case.get("seed", 0) + 1, case.get("uneven", True))
+    inputs = {"params/" + k: np.asarray(v) for k, v in _flatten(state0["params"]).items()}
+    inputs.update({"batch/" + k: v for k, v in batch.items()})
+    np.savez(os.path.join(out, f"{name}-in.npz"), **inputs)
+    state = jax.device_put(state0, st_sh)
+    b = jax.device_put({k: jnp.asarray(v) for k, v in batch.items()}, bt_sh)
+    losses, res = [], {}
+    for i in range(STEPS):
+        state, metrics = fn(state, b)
+        losses.append(float(metrics["loss"]))
+        if i == 0:  # the first step's moments: where the port's tolerance widens
+            res.update({"first/" + k: np.asarray(v) for k, v in _flatten(state["opt"]).items()
+                        if k.startswith("m/") or k.startswith("stats/")})
+    res["losses"] = np.array(losses)
+    res.update({"params/" + k: np.asarray(v) for k, v in _flatten(state["params"]).items()})
+    opt_leaves = _flatten(state["opt"])
+    res.update({"opt/" + k: np.asarray(v) for k, v in opt_leaves.items()
+                if k.startswith("m/") or k.startswith("stats/")})
+    if case.get("shards"):
+        # every device's addressable shard of one leaf, by mesh coordinates
+        leaf = _flatten(state0["params"])[case["shards"]]
+        placed = jax.device_put(leaf, _flatten(st_sh["params"])[case["shards"]])
+        coords = {d.id: idx for idx, d in np.ndenumerate(mesh.devices)}
+        for sh in placed.addressable_shards:
+            key = "-".join(map(str, coords[sh.device.id]))
+            res[f"shard/{key}"] = np.asarray(sh.data)
+    np.savez(os.path.join(out, f"{name}-out.npz"), **res)
+
+
+def run_serve(name, case, out):
+    """``jit_forward`` on a prefill batch and ``jit_decode_step`` on a
+    seeded cache, with ``act_kv_seq`` kept whole (the rules' own decode
+    layout for this config splits the cache's sequence over 'model')."""
+    cfg = config(case["arch"])
+    api = get_model(cfg)
+    mesh = make_mesh(tuple(case["mesh"]))
+    B, S, cap = 8, 16, 32
+    params = api.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    token = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+    cache = {k: rng.standard_normal(s.shape).astype(np.float32)
+             for k, s in api.cache_schema(B, cap).items()}
+    cache_len = 20
+    inputs = {"params/" + k: np.asarray(v) for k, v in _flatten(params).items()}
+    inputs.update({"tokens": tokens, "token": token, "cache_len": np.int32(cache_len)})
+    inputs.update({"cache/" + k: v for k, v in cache.items()})
+    np.savez(os.path.join(out, f"{name}-in.npz"), **inputs)
+
+    shape = ShapeConfig("p", S, B, "prefill")
+    fn, p_sh, bt_sh = jit_forward(api, mesh, shape)
+    logits = fn(jax.device_put(params, p_sh),
+                jax.device_put({"tokens": jnp.asarray(tokens)}, bt_sh))
+    dshape = ShapeConfig("d", cap, B, "decode")
+    rules = dict(sharding_rules(cfg, mesh, dshape), act_kv_seq=())
+    dfn, dp_sh, dbt_sh = jit_decode_step(api, mesh, dshape, rules=rules, donate=False)
+    dbatch = {"token": jnp.asarray(token), "cache_len": jnp.int32(cache_len),
+              "cache": {k: jnp.asarray(v) for k, v in cache.items()}}
+    dlogits, new_cache = dfn(jax.device_put(params, dp_sh), jax.device_put(dbatch, dbt_sh))
+    res = {"logits": np.asarray(logits), "decode_logits": np.asarray(dlogits)}
+    res.update({"cache/" + k: np.asarray(v) for k, v in new_cache.items()})
+    np.savez(os.path.join(out, f"{name}-out.npz"), **res)
+
+
+def run_remesh(name, case, out):
+    """``remesh_for_pool``'s carving of each pool: shape, device ids, axes."""
+    from repro.launch.mesh import remesh_for_pool
+
+    got = {}
+    for key, pool in case["pools"].items():
+        m = remesh_for_pool(pool)
+        got[key] = {"shape": list(m.devices.shape), "ranks": [d.id for d in m.devices.flat],
+                    "names": list(m.axis_names)}
+    with open(os.path.join(out, f"{name}-out.json"), "w") as f:
+        json.dump(got, f)
+
+
+RUN = {"train": run_train, "serve": run_serve, "remesh": run_remesh}
+
+
+def main():
+    out, cases = sys.argv[1], json.loads(sys.argv[2])
+    for name, case in cases.items():
+        RUN[case["kind"]](name, case, out)
+    print("DONE", len(cases))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,396 @@
+"""The port's sharded steps against the reference's sharded steps, on the CPU.
+
+The reference runs once, in a subprocess with 8 forced host devices
+(``tests/_dist_reference.py``), on meshes built with
+``jax.sharding.Mesh`` (Auto axes, where its ``fsdp`` constraints apply).
+It writes each case's initial parameters and batch, which the port loads
+through ``checkpoint.ckpt.params_from_numpy``, and its results.  The port
+runs the same cases on spawned gloo ranks, one spawn per mesh shape
+(``tests/_dist_ranks.py``), meeting through a file under the test's
+temporary directory.
+
+Tolerances (fp32): losses to 1e-5 relative; parameters after 3 steps to a
+tenth of the first step's learning rate, except elements whose gradient
+cancels to rounding noise (the reference's first moment, or Adafactor's
+unfactored second moment, below ``NOISE_FLOOR`` of the leaf's largest
+after the first step or the last:
+Adam's and Adafactor's normalised steps move those by up to ``lr`` in the
+sign of the noise), held to ``2 lr`` a step; moments to 1e-5 (absolute
+and relative, as ``tests/test_torch_train.py`` holds one step); forward
+and decode logits and the written cache to 1e-5 of the largest
+magnitude.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "..", "src")
+LR, STEPS = 3e-4, 3
+LOSS_TOL = 1e-5
+PARAM_ATOL = 0.1 * LR
+MOMENT_TOL = 1e-5
+NOISE_FLOOR = 1e-4
+OUT_TOL = 1e-5
+
+TRAIN = {  # case -> (arch, mesh)
+    "llama-4x2": ("llama3-8b", [4, 2]),
+    "moe-8x1": ("qwen3-moe-30b-a3b", [8, 1]),
+    "qwen72-4x1": ("qwen2-72b", [4, 1]),
+    "rwkv-4x1": ("rwkv6-1.6b", [4, 1]),
+    "zamba-4x1": ("zamba2-2.7b", [4, 1]),
+    "seamless-4x1": ("seamless-m4t-large-v2", [4, 1]),
+    "pod-2x2x1": ("llama3-8b", [2, 2, 1]),
+}
+POOLS = {"7": [0, 1, 2, 3, 5, 6, 7], "6": [0, 1, 2, 3, 4, 5], "5": [7, 6, 5, 4, 3],
+         "2": [3, 6]}
+RAISE_ARCHS = ["rwkv6-1.6b", "qwen3-moe-30b-a3b", "zamba2-2.7b", "seamless-m4t-large-v2",
+               "grok-1-314b"]
+SHARD_LEAF = "layers/attn/wq"
+
+
+def _train_case(name):
+    arch, mesh = TRAIN[name]
+    case = {"kind": "train", "arch": arch, "mesh": mesh}
+    if name == "pod-2x2x1":
+        case["shards"] = SHARD_LEAF
+    if name == "llama-4x2":
+        case["ckpt"] = "ckpt-4x2"
+    return case
+
+
+SPAWNS = [  # (mesh, cases), in order: the restore reads the (4, 2) spawn's checkpoint
+    ([4, 2], {"llama-4x2": _train_case("llama-4x2"),
+              "serve-4x2": {"kind": "serve", "arch": "llama3-8b", "mesh": [4, 2]},
+              "raises-4x2": {"kind": "raises", "mesh": [4, 2], "archs": RAISE_ARCHS}}),
+    ([8, 1], {"moe-8x1": _train_case("moe-8x1"),
+              "remesh": {"kind": "remesh", "pools": POOLS}}),
+    ([4, 1], {**{n: _train_case(n) for n in ("qwen72-4x1", "rwkv-4x1", "zamba-4x1",
+                                            "seamless-4x1")},
+              "restore-2x2": {"kind": "restore", "arch": "llama3-8b", "mesh": [2, 2],
+                              "ckpt": "ckpt-4x2"},
+              "bg-slice": {"kind": "bg_slice", "arch": "qwen2-1.5b"}}),
+    ([2, 2, 1], {"pod-2x2x1": _train_case("pod-2x2x1")}),
+]
+
+
+def _env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra)
+    return env
+
+
+def _check(cmd, env, timeout):
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env)
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-4000:])
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(reference dir, port dir) after every case has run on both sides."""
+    ref = str(tmp_path_factory.mktemp("ref"))
+    port = str(tmp_path_factory.mktemp("port"))
+    ref_cases = {n: _train_case(n) for n in TRAIN}
+    ref_cases["serve-4x2"] = {"kind": "serve", "arch": "llama3-8b", "mesh": [4, 2]}
+    ref_cases["remesh"] = {"kind": "remesh", "pools": POOLS}
+    _check([sys.executable, os.path.join(HERE, "_dist_reference.py"), ref,
+            json.dumps(ref_cases)],
+           _env(XLA_FLAGS="--xla_force_host_platform_device_count=8", JAX_PLATFORMS="cpu"),
+           600)
+    for mesh, cases in SPAWNS:
+        out = os.path.join(port, "x".join(map(str, mesh)))
+        os.makedirs(out)
+        # checkpoints live beside the spawns' own directories
+        cases = {n: (dict(c, ckpt=os.path.join(port, c["ckpt"])) if "ckpt" in c else c)
+                 for n, c in cases.items()}
+        _check([sys.executable, os.path.join(HERE, "_dist_ranks.py"), ref, out,
+                json.dumps(mesh), json.dumps(cases)], _env(), 600)
+    return ref, port
+
+
+def _port_file(port, name, ext="npz"):
+    for mesh, cases in SPAWNS:
+        if name in cases:
+            return os.path.join(port, "x".join(map(str, mesh)), f"{name}-port.{ext}")
+    raise KeyError(name)
+
+
+def _npz(path):
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _noise(ref, key):
+    """Where the reference's step for a parameter was rounding noise, after
+    the first step or the last."""
+    name = key[len("params/"):]
+    out = None
+    for when in ("first/", "opt/"):
+        m = ref.get(f"{when}m/{name}", ref.get(f"{when}stats/{name}/v"))
+        if m is not None:
+            m = np.abs(m)
+            hit = m < NOISE_FLOOR * m.max()
+            out = hit if out is None else out | hit
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN))
+def test_train_step_matches_reference_sharded(runs, name):
+    """3 steps of the port's ``jit_train_step`` on gloo ranks: losses,
+    every parameter and every first moment (Adafactor's statistics) equal
+    the reference's ``jit_train_step`` on the same mesh shape."""
+    ref_dir, port = runs
+    ref = _npz(os.path.join(ref_dir, f"{name}-out.npz"))
+    got = _npz(_port_file(port, name))
+    np.testing.assert_allclose(got["losses"], ref["losses"], rtol=LOSS_TOL)
+    keys = sorted(k for k in ref if k.startswith(("params/", "opt/")))
+    assert keys == sorted(k for k in got if k.startswith(("params/", "opt/")))
+    for k in keys:
+        w, g = ref[k], got[k]
+        assert g.shape == w.shape, k
+        if k.startswith("opt/"):
+            np.testing.assert_allclose(g, w, rtol=MOMENT_TOL, atol=MOMENT_TOL, err_msg=k)
+            continue
+        noise = _noise(ref, k)
+        tol = np.full(w.shape, PARAM_ATOL) if noise is None else np.where(
+            noise, 2 * LR * STEPS, PARAM_ATOL)
+        bad = np.abs(g - w) > tol + MOMENT_TOL * np.abs(w)
+        assert not bad.any(), (k, float(np.abs(g - w)[bad].max()), int(bad.sum()))
+
+
+def test_uneven_labels_are_a_global_mean(runs):
+    """The batches put the masked labels unevenly across the data shards
+    (the (8, 1) mesh gives each rank one row), and the loss the ranks
+    agree on is the global masked mean, which a mean of per-rank means
+    would miss by far more than the tolerance."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import params_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    ref_dir, port = runs
+    inp = _npz(os.path.join(ref_dir, "moe-8x1-in.npz"))
+    labels = inp["batch/labels"]
+    per_row = (labels >= 0).sum(axis=1)
+    assert len(set(per_row.tolist())) > 2  # uneven across the 8 shards
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), dtype="float32")
+    linp = _npz(os.path.join(ref_dir, "llama-4x2-in.npz"))
+    params = params_from_numpy({k[7:]: v for k, v in linp.items() if k.startswith("params/")},
+                               device="cpu")
+    tokens = torch.as_tensor(linp["batch/tokens"]).long()
+    lab = torch.as_tensor(linp["batch/labels"]).long()
+    api = get_model(cfg)
+    with torch.no_grad():
+        glob, _ = api.loss(params, {"tokens": tokens, "labels": lab})
+        rows = [float(api.loss(params, {"tokens": tokens[i:i + 2], "labels": lab[i:i + 2]})[0])
+                for i in range(0, 8, 2)]
+    got = _npz(_port_file(port, "llama-4x2"))["losses"][0]
+    np.testing.assert_allclose(got, float(glob), rtol=LOSS_TOL)
+    assert abs(np.mean(rows) - float(glob)) > 100 * LOSS_TOL * float(glob)
+
+
+def test_moe_groups_follow_the_data_axis(runs):
+    """At (8, 1) the reference splits the MoE capacity into 8 groups; the
+    port's loss matches that, not the one-group loss of the same batch."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import params_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    ref_dir, port = runs
+    inp = _npz(os.path.join(ref_dir, "moe-8x1-in.npz"))
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(), dtype="float32")
+    params = params_from_numpy({k[7:]: v for k, v in inp.items() if k.startswith("params/")},
+                               device="cpu")
+    batch = {k[6:]: torch.as_tensor(v).long() for k, v in inp.items()
+             if k.startswith("batch/")}
+    with torch.no_grad():
+        one_group = float(get_model(cfg).loss(params, batch)[0])
+    ref = _npz(os.path.join(ref_dir, "moe-8x1-out.npz"))["losses"][0]
+    got = _npz(_port_file(port, "moe-8x1"))["losses"][0]
+    np.testing.assert_allclose(got, ref, rtol=LOSS_TOL)
+    assert abs(one_group - ref) > 10 * LOSS_TOL * ref
+
+
+def test_pod_and_data_shard_pod_major(runs):
+    """On a (2, 2, 1) (pod, data, model) mesh the leaf's ``embed`` dim is
+    split over ("pod", "data"): each rank's DTensor shard equals the
+    reference's addressable shard for the device at the same coordinates."""
+    ref_dir, port = runs
+    ref = _npz(os.path.join(ref_dir, "pod-2x2x1-out.npz"))
+    shards = {k[len("shard/"):]: v for k, v in ref.items() if k.startswith("shard/")}
+    assert len(shards) == 4
+    out = os.path.dirname(_port_file(port, "pod-2x2x1"))
+    for coord, want in shards.items():
+        got = np.load(os.path.join(out, f"pod-2x2x1-shard-{coord}.npy"))
+        np.testing.assert_array_equal(got, want, err_msg=coord)
+    assert len({v.tobytes() for v in shards.values()}) == 4
+
+
+@pytest.mark.parametrize("key", ["logits", "decode_logits", "cache/k", "cache/v"])
+def test_forward_and_decode_match_reference_sharded(runs, key):
+    """``jit_forward`` (prefill shape) and ``jit_decode_step`` (a seeded
+    cache, 20 positions filled) of reduced llama3-8b at (4, 2): heads, MLP
+    and vocabulary split over 'model', the one KV head whole; the decode
+    rules' ``act_kv_seq`` kept whole on both sides (splitting the cache's
+    sequence is item 11b)."""
+    ref_dir, port = runs
+    want = _npz(os.path.join(ref_dir, "serve-4x2-out.npz"))[key]
+    got = _npz(_port_file(port, "serve-4x2"))
+    np.testing.assert_allclose(got[key], want, rtol=0, atol=OUT_TOL * np.abs(want).max())
+    if key == "logits":  # batch over 'data', vocabulary over 'model'
+        assert got["logits_placements"].tolist() == ["S(0)", "S(2)"]
+
+
+def test_elastic_checkpoint_restore_across_meshes(runs):
+    """Saved on (4, 2) after training, restored onto (2, 2) through the
+    target mesh's shardings: every parameter equal, placed by (2, 2)'s
+    rules (mirrors the reference's test of the same name)."""
+    _, port = runs
+    saved = _npz(_port_file(port, "llama-4x2"))
+    got = _npz(_port_file(port, "restore-2x2"))
+    assert int(got["step"]) == STEPS
+    keys = [k for k in saved if k.startswith("params/")]
+    assert keys and sorted(keys) == sorted(k for k in got if k.startswith("params/"))
+    for k in keys:
+        np.testing.assert_array_equal(got[k], saved[k], err_msg=k)
+    # wq (L, D, H, hd): embed over data, heads over model on (2, 2)
+    assert got["placements"].tolist() == ["S(1)", "S(2)"]
+    assert got["local_shape"].tolist() == [2, 64, 2, 32]
+
+
+@pytest.mark.parametrize("arch", RAISE_ARCHS)
+def test_item_11b_layouts_raise(runs, arch):
+    """Tensor parallelism over 'model' beyond the dense attn_mlp family is
+    not ported: the step refuses, naming item 11b."""
+    _, port = runs
+    with open(_port_file(port, "raises-4x2", "json")) as f:
+        msg = json.load(f)[arch]
+    assert "item 11b" in msg and "'model' axis of 2" in msg, msg
+
+
+@pytest.mark.parametrize("pool", sorted(POOLS))
+def test_remesh_for_pool_matches_reference(runs, pool):
+    ref_dir, port = runs
+    with open(os.path.join(ref_dir, "remesh-out.json")) as f:
+        want = json.load(f)[pool]
+    with open(_port_file(port, "remesh", "json")) as f:
+        got = json.load(f)[pool]
+    assert got == want
+
+
+def test_bg_step_on_a_rank_slice(runs):
+    """``bg_step_factory`` on a slice over all 4 ranks (its DeviceMesh,
+    the sharded step) trains as the same factory on one CPU position."""
+    _, port = runs
+    with open(_port_file(port, "bg-slice", "json")) as f:
+        got = json.load(f)
+    assert got["shape"] == [4, 1] and got["mesh"] == [4, 1]
+    np.testing.assert_allclose(got["sharded"], got["plain"], rtol=LOSS_TOL)
+    assert got["sharded"][-1] < got["sharded"][0]
+
+
+# -- the loop and the CLI in a world of one, and the CLI on 4 gloo ranks -------
+
+
+@pytest.fixture
+def world_of_one(tmp_path):
+    """A one-rank gloo group and its (1, 1) mesh, torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _small():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("llama3-8b").reduced(), dtype="float32")
+
+
+def _loop_shape():
+    from repro_torch.configs import TRAIN_4K
+
+    return dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=2, name="t")
+
+
+def test_loop_with_a_mesh_equals_the_plain_loop_and_restarts(world_of_one, tmp_path):
+    """``train(..., mesh=)`` on a (1, 1) mesh gives the plain loop's
+    losses bit for bit, and its checkpoint/restart path (DTensor state
+    saved by rank 0, restored through the mesh's shardings) reproduces
+    the clean run."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.train.loop import TrainConfig, train
+
+    cfg, shape = _small(), _loop_shape()
+    plain = train(cfg, shape, TrainConfig(steps=6), device="cpu")
+    sharded = train(cfg, shape, TrainConfig(steps=6), device="cpu", mesh=world_of_one)
+    assert sharded.losses == plain.losses
+    assert isinstance(sharded.state["params"]["embed"], DTensor)
+    fired = []
+
+    def injector(step):
+        if step == 3 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected fault")
+
+    tc = TrainConfig(steps=6, ckpt_dir=str(tmp_path / "ck"), ckpt_every=2)
+    faulty = train(cfg, shape, tc, fault_injector=injector, device="cpu", mesh=world_of_one)
+    assert faulty.restarts == 1
+    np.testing.assert_allclose(faulty.losses, plain.losses[:3] + plain.losses[2:], rtol=1e-6)
+
+
+def test_train_cli_data_model_in_a_world_of_one(capsys):
+    """``--data 1 --model 1`` needs no launcher and prints the same losses
+    as the plain CLI."""
+    from repro_torch.launch import train as cli
+
+    args = ["--arch", "llama3-8b", "--steps", "3", "--batch", "2", "--seq", "16",
+            "--device", "cpu"]
+    cli.main(args)
+    plain = capsys.readouterr().out.splitlines()[-1]
+    cli.main(args + ["--data", "1", "--model", "1"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[-2] == "sharded step on mesh {'data': 1, 'model': 1}"
+    assert out[-1].split(" mean_step")[0] == plain.split(" mean_step")[0]
+    with pytest.raises(SystemExit):
+        cli.main(args + ["--data", "2", "--model", "2"])  # 4 ranks need a launcher
+
+
+def test_train_cli_under_torch_distributed_run(tmp_path):
+    """``python -m torch.distributed.run --nproc-per-node 4 ... --data 2
+    --model 2`` on the CPU (gloo): rank 0 prints the mesh and losses within
+    bf16's tolerance (1e-2 relative: the reduced config computes in bf16,
+    and tensor parallelism sums in another order) of the plain CLI's (the
+    rendezvous takes a free port of its own)."""
+    args = ["-m", "repro_torch.launch.train", "--arch", "llama3-8b", "--steps", "3",
+            "--batch", "4", "--seq", "16", "--device", "cpu"]
+    env = _env(OMP_NUM_THREADS="1")
+    plain = subprocess.run([sys.executable] + args, capture_output=True, text=True,
+                           timeout=300, env=env)
+    assert plain.returncode == 0, plain.stderr[-3000:]
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "4"] + args + ["--data", "2", "--model", "2"],
+                       capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith(("sharded", "done"))]
+    assert lines[0] == "sharded step on mesh {'data': 2, 'model': 2}"
+    done = plain.stdout.splitlines()[-1]
+    got, want = ([float(x) for x in ln.split("loss ")[1].split(" restarts")[0].split(" -> ")]
+                 for ln in (lines[1], done))
+    np.testing.assert_allclose(got, want, rtol=1e-2)
