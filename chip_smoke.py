@@ -260,6 +260,16 @@ one-rank NCCL group; several ranks run in the CPU tests on gloo):
      card]))``: prefill and decode on streams of their own; phase 5's trace
      gives phase 5's tokens exactly; no page leaks; the median handoff.
   A ``slice8: {...}`` line (11a-11e's numbers) comes before ``slice7``.
+  12a. live loop — qwen2-1.5b at full width and depth, 11b's 8 steps of 4 x
+     4096, through ``train(..., mesh=)`` with the live control plane wired
+     (``live_script``: a coordinator of 8 virtual devices, four phantoms
+     that beat once, two ``KVStoreTransport`` ends over a ``TCPStore`` on
+     localhost, the co-hosted ``CoordinatorLoop``, applied reconfiguration
+     and continuous admission), once with the lease and once without it
+     and with a fault at step 6: losses bit-identical to 11b's (the
+     restarted pass included), the reference's event counts
+     (``LIVE_EVENTS``), no re-carve, the heartbeat topic compacted; the
+     median step minus 11b's.  A ``slice9: {...}`` line comes first.
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
@@ -3322,7 +3332,8 @@ def _train_pair(cfg, n, mesh, label):
     the same through the plain step; fails unless every loss is bit-identical
     (world size 1: the same kernels on the same shards).  Returns (launch
     counts of the sharded run, its median step s and peak bytes, the plain
-    run's median and peak, the step times (s) of each)."""
+    run's median and peak, the step times (s) of each, the sharded run's
+    losses)."""
     import torch
 
     from repro_torch.configs import TRAIN_4K
@@ -3353,7 +3364,7 @@ def _train_pair(cfg, n, mesh, label):
           f"{pp / 2**30:.2f} GiB; launches {cs}", flush=True)
     if ls != lp:
         fail(f"{label}: the sharded step's losses {ls} are not the plain step's {lp}")
-    return cs, ss, ps, sp, pp, ts, tp
+    return cs, ss, ps, sp, pp, ts, tp, ls
 
 
 def phase_sharded_train(mesh, smi):
@@ -3368,8 +3379,8 @@ def phase_sharded_train(mesh, smi):
 
     cfg = get_config("qwen2-1.5b")
     n = SHARDED_TRAIN
-    counts, ss, ps, sp, pp, _, _ = _train_pair(cfg, n, mesh,
-                                               f"train {cfg.name} sharded (11b)")
+    counts, ss, ps, sp, pp, _, _, losses = _train_pair(cfg, n, mesh,
+                                                       f"train {cfg.name} sharded (11b)")
     want = {"fwd": n["steps"] * 2 * cfg.num_layers, "bwd": n["steps"] * cfg.num_layers}
     if counts["flash"] != want or any(counts["ssd"].values()):
         fail(f"11b: launches {counts} != flash {want}")
@@ -3380,7 +3391,8 @@ def phase_sharded_train(mesh, smi):
           f"tokens/s), peak {pp / 2**30:.2f} GiB", flush=True)
     return counts["flash"], dict(median_step_ms=ss * 1e3, tokens_per_s=tokens / ss,
                                  peak_gib=ps / 2**30, plain_median_step_ms=sp * 1e3,
-                                 plain_tokens_per_s=tokens / sp, plain_peak_gib=pp / 2**30)
+                                 plain_tokens_per_s=tokens / sp,
+                                 plain_peak_gib=pp / 2**30), losses
 
 
 def phase_sharded_families(mesh, smi):
@@ -3397,8 +3409,8 @@ def phase_sharded_families(mesh, smi):
         cfg = dataclasses.replace(get_config(arch), **cut)
         label = f"{arch} x{cfg.num_layers}" + (f"+{cfg.num_encoder_layers}"
                                                if cfg.num_encoder_layers else "")
-        counts, _, ps, _, pp, ts, tp = _train_pair(cfg, FAMILY_TRAIN, mesh,
-                                                             f"11c {label}")
+        counts, _, ps, _, pp, ts, tp, _ = _train_pair(cfg, FAMILY_TRAIN, mesh,
+                                                      f"11c {label}")
         need = {"rwkv6-1.6b": ["wkv"], "zamba2-2.7b": ["ssd", "flash"]}.get(arch, ["flash"])
         if any(counts[k]["fwd"] == 0 or counts[k]["bwd"] == 0 for k in need):
             fail(f"11c {label}: the sharded step launched {counts}, none of {need}")
@@ -3554,6 +3566,201 @@ def phase_disaggregated(cfg, smi, tokens5, stats5):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the live control plane (phase 12a)
+# ---------------------------------------------------------------------------
+
+LIVE_STEPS = 8  # 12a: 11b's run, through the live loop
+LIVE_PHANTOMS = (4, 5, 6, 7)  # virtual workers that beat once, then fall silent
+# 12a's two runs: every control-plane field with the lease; then the same
+# without the lease, and a RuntimeError at step 6 (no checkpoint: the loop
+# restarts fresh).  The reference cannot take the fault with the lease: the
+# bootstrap joins every healthy id, ids 1-7 are detected in one pump, the
+# pool becomes [0], and the fail-stop report of worker 0 empties it (its
+# planner raises IndexError on 0 devices); before the detection, the
+# re-plans that follow it drop id 0 and the one-rank re-carve raises
+LIVE_RUNS = {"lease": dict(lease=True, fault_step=None),
+             "fail-stop": dict(lease=False, fault_step=6)}
+# the event counts the reference's loop gives on each run's script
+# (tests/test_torch_live_script.py holds the reference to them on the CPU)
+LIVE_EVENTS = {
+    "lease": {"join": 0, "straggler_worker": 7, "failure_detected": 7, "replan": 7,
+              "reconfig": 7, "failure": 0, "coordinator_failover": 1},
+    "fail-stop": {"join": 4, "straggler_worker": 4, "failure_detected": 4, "replan": 5,
+                  "reconfig": 4, "failure": 1, "coordinator_failover": 0},
+}
+
+
+def live_script(m, cfg, client, run):
+    """Phase 12a's control plane for one run of ``LIVE_RUNS``, built from
+    the modules in ``m`` (a namespace of the port's classes; the CPU test
+    passes the reference's): ``ClusterCoordinator(8, virtual_devices=True)``
+    on a scripted clock with ``cfg``'s ``TRAIN_4K`` graph as the
+    foreground, ``HeartbeatMonitor(1, timeout=5)``, worker and coordinator
+    ends that are two ``KVStoreTransport``s over ``client``,
+    ``CoordinatorLoop(gc_every=2)``, the lease when the run has one,
+    ``apply_reconfig`` and ``admit_every=4``; the phantoms beat once.  The
+    clock advances one unit per call of the injector, the failed call
+    included, so it never goes back when the loop restarts.  Returns
+    (TrainConfig, injector, coordinator end)."""
+    spec = LIVE_RUNS[run]
+    clk = {"t": 0.0}
+
+    def clock():
+        return clk["t"]
+
+    worker_end = m.KVStoreTransport(f"live-{run}", client=client, uid="worker")
+    coord_end = m.KVStoreTransport(f"live-{run}", client=client, uid="coordinator")
+    coord = m.ClusterCoordinator(8, clock=clock, virtual_devices=True)
+    coord.submit_foreground(m.Job(cfg.name, "foreground", m.build_lm_graph(cfg, m.TRAIN_4K)))
+    mon = m.HeartbeatMonitor(1, timeout=5.0, clock=clock)
+    loop = m.CoordinatorLoop(coord_end, mon, coordinator=coord, gc_every=2)
+    lease = m.CoordinatorLease(coord_end, 0, timeout=5.0, clock=clock) if spec["lease"] else None
+    for w in LIVE_PHANTOMS:
+        m.WorkerClient(worker_end, w).beat(0)
+    fired = []
+
+    def injector(step):
+        clk["t"] += 1.0
+        if step == spec["fault_step"] and not fired:
+            fired.append(step)
+            raise RuntimeError(f"injected fault at step {step}")
+
+    tc = m.TrainConfig(steps=LIVE_STEPS, seed=0, max_failures=1, coordinator=coord,
+                       heartbeat=mon, transport=worker_end, control_loop=loop, lease=lease,
+                       apply_reconfig=True, admit_every=4)
+    return tc, injector, coord_end
+
+
+def live_counts(report) -> dict:
+    return {k: report.mitigations.count(k) for k in LIVE_EVENTS["lease"]}
+
+
+def phase_live_loop(mesh, smi, losses11b, median11b_ms):
+    """Phase 12a: qwen2-1.5b at full width and depth, 11b's 8 steps of 4 x
+    4096 with 11b's seed, through ``train(..., mesh=)`` on the (1, 1) mesh
+    with the live control plane wired (``live_script``), the two
+    ``KVStoreTransport`` ends over one ``TCPStore`` on localhost (the
+    multi-host transport).  Each run: every loss bit-identical to 11b's at
+    the same step (the fail-stop run's restarted pass included: the control
+    plane touches no arithmetic), the event counts equal to the
+    reference's, no re-carve (the pool maps onto the one rank), the
+    heartbeat topic compacted, 56 forward and 28 backward flash launches a
+    step.  The control plane runs on the host after each step's loss is
+    read, outside the step time the loop records, while the card waits:
+    its cost is the host time of its calls (the beat, the lease tick, the
+    pump, the reconfiguration poll, admission), timed here by wrapping
+    them, per step; beside it the median step period (from one injector
+    call to the next) minus the median step, and the median step minus
+    11b's."""
+    import datetime
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.core.coordinator import ClusterCoordinator, Job
+    from repro_torch.dist.faults import HeartbeatMonitor
+    from repro_torch.dist.transport import (
+        HEARTBEAT_TOPIC,
+        CoordinatorLease,
+        CoordinatorLoop,
+        KVStoreTransport,
+        WorkerClient,
+    )
+    from repro_torch.models.graph import build_lm_graph
+    from repro_torch.train.loop import TrainConfig, train
+
+    m = types.SimpleNamespace(
+        KVStoreTransport=KVStoreTransport, ClusterCoordinator=ClusterCoordinator, Job=Job,
+        build_lm_graph=build_lm_graph, TRAIN_4K=TRAIN_4K, HeartbeatMonitor=HeartbeatMonitor,
+        CoordinatorLoop=CoordinatorLoop, CoordinatorLease=CoordinatorLease,
+        WorkerClient=WorkerClient, TrainConfig=TrainConfig)
+    cfg = get_config("qwen2-1.5b")
+    n = SHARDED_TRAIN
+    shape = dataclasses.replace(TRAIN_4K, seq_len=n["seq"], global_batch=n["batch"],
+                                name="smoke")
+    store = dist.TCPStore("localhost", 0, 1, True, timeout=datetime.timedelta(seconds=30))
+    out, launches = {}, {"fwd": 0, "bwd": 0}
+    for run, spec in LIVE_RUNS.items():
+        tc, injector, coord_end = live_script(m, cfg, store, run)
+        spent, calls = [], []  # control-plane seconds; injector call times
+        for obj, name in ((tc.transport, "publish"), (tc.transport, "poll"),
+                          (tc.control_loop, "pump"), (tc.control_loop, "bootstrap_from_log"),
+                          (tc.coordinator, "readmit"), (tc.lease, "tick")):
+            if obj is not None:
+                setattr(obj, name, _timed(getattr(obj, name), spent))
+
+        def timed_injector(step, inner=injector):
+            calls.append(time.perf_counter())
+            inner(step)
+
+        _free_card()
+        _reset_counts()
+        rep = train(cfg, shape, tc, fault_injector=timed_injector, device="cuda", mesh=mesh)
+        counts = _counts()
+        want = (losses11b if spec["fault_step"] is None
+                else losses11b[:spec["fault_step"]] + losses11b)
+        got = live_counts(rep)
+        lw = coord_end.low_water(HEARTBEAT_TOPIC)
+        backlog = len(coord_end.poll(HEARTBEAT_TOPIC, lw))
+        med = float(np.median(rep.step_times)) * 1e3
+        period = float(np.median(np.diff(calls))) * 1e3
+        plane = 1e3 * sum(d for _, d in spent) / len(rep.losses)
+        # each call's time, by the step period (injector call to injector
+        # call) it fell in: the control plane's median and largest share
+        by_step = np.zeros(len(calls))
+        for t, d in spent:
+            by_step[max(0, int(np.searchsorted(calls, t)) - 1)] += d
+        plane_med, plane_max = 1e3 * float(np.median(by_step)), 1e3 * float(by_step.max())
+        print(f"  12a {run}: losses {[round(x, 5) for x in rep.losses]}; events {got}, the "
+              f"reference's {LIVE_EVENTS[run]}; remeshes {rep.remeshes}; heartbeat low-water "
+              f"{lw}, backlog {backlog}; median step {med:.1f} ms (steps "
+              f"{[round(t * 1e3, 1) for t in rep.step_times]}), median period {period:.1f} ms; "
+              f"control plane {plane:.3f} ms a step (median {plane_med:.3f}, largest "
+              f"{plane_max:.3f}; {len(spent)} calls); launches {counts['flash']}", flush=True)
+        if rep.losses != want:
+            fail(f"12a {run}: losses {rep.losses} are not 11b's {want}")
+        if got != LIVE_EVENTS[run]:
+            fail(f"12a {run}: events {got} != the reference's {LIVE_EVENTS[run]}")
+        if rep.remeshes != 0 or rep.left_mesh:
+            fail(f"12a {run}: re-carved {rep.remeshes} times on a pool of one rank")
+        if lw == 0 or backlog > 4:
+            fail(f"12a {run}: heartbeat topic not compacted (low-water {lw}, backlog {backlog})")
+        steps = len(rep.losses)
+        if counts["flash"] != {"fwd": steps * 2 * cfg.num_layers, "bwd": steps * cfg.num_layers}:
+            fail(f"12a {run}: {steps} steps launched {counts['flash']}")
+        for k in launches:
+            launches[k] += counts["flash"][k]
+        out[run] = dict(events=got, median_step_ms=med, step_minus_11b_ms=med - median11b_ms,
+                        median_period_ms=period, period_minus_step_ms=period - med,
+                        control_plane_ms_per_step=plane, control_plane_median_ms=plane_med,
+                        control_plane_max_ms=plane_max, control_plane_calls=len(spent),
+                        heartbeat_low_water=lw, heartbeat_backlog=backlog, steps=steps)
+        del rep
+    del store
+    _free_card()
+    print(f"live loop on {smi}: qwen2-1.5b, 4 x 4096; control plane a step (mean), median period "
+          f"minus median step, median step minus 11b's ({median11b_ms:.1f} ms): " + "; ".join(
+              f"{k} {v['control_plane_ms_per_step']:.3f} ms (median "
+              f"{v['control_plane_median_ms']:.3f}), {v['period_minus_step_ms']:+.1f} "
+              f"ms, {v['step_minus_11b_ms']:+.1f} ms" for k, v in out.items()), flush=True)
+    return launches, out
+
+
+def _timed(fn, spent):
+    """``fn``, adding (start, host seconds) of each call to ``spent``."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent.append((t0, time.perf_counter() - t0))
+
+    return call
+
+
 def _require_flash_sm90(label, rows, d=128):
     """Fails unless a profiled step ran the ``wgmma`` flash forward and
     both backward kernels at head dim ``d`` (and no fp32 FMA flash kernel)."""
@@ -3625,10 +3832,11 @@ def main() -> None:
     px_train, px_train_stats = phase_pixtral_train(smi)
     vgg_stats = phase_vgg(smi)
     mesh, mesh_rules = phase_mesh()
-    sharded, sharded_stats = phase_sharded_train(mesh, smi)
+    sharded, sharded_stats, losses11b = phase_sharded_train(mesh, smi)
     fam_counts, fam_stats = phase_sharded_families(mesh, smi)
     psgd = phase_powersgd(smi)
     disagg, disagg_stats = phase_disaggregated(cfg, smi, tokens5, stats5)
+    live, live_stats = phase_live_loop(mesh, smi, losses11b, sharded_stats["median_step_ms"])
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -3654,7 +3862,8 @@ def main() -> None:
                                  "train qwen2-1.5b sharded (11b)": sharded["fwd"],
                                  **{f"train {k} sharded (11c)": c["flash"]["fwd"]
                                     for k, c in fam_counts.items() if c["flash"]["fwd"]},
-                                 "serve llama3-8b disaggregated (11e)": disagg}
+                                 "serve llama3-8b disaggregated (11e)": disagg,
+                                 "train qwen2-1.5b live loop (12a)": live["fwd"]}
     # seamless's token-by-token serving (10d) decodes through
     # ``decode_attention``, plain PyTorch on every device as the reference has
     # no decode kernel: no flash launch, so no entry
@@ -3673,7 +3882,8 @@ def main() -> None:
                                      "train qwen2-1.5b sharded (11b)": sharded["bwd"],
                                      **{f"train {k} sharded (11c)": c["flash"]["bwd"]
                                         for k, c in fam_counts.items()
-                                        if c["flash"]["bwd"]}}
+                                        if c["flash"]["bwd"]},
+                                     "train qwen2-1.5b live loop (12a)": live["bwd"]}
     for rec in (flash, flash_bwd):
         rec["launches"] = sum(rec["launches_by_path"].values())
         # launches made to hold the capped kernels against the plain version
@@ -3689,6 +3899,7 @@ def main() -> None:
         rec["launches"] = sum(rec["launches_by_path"].values())
     slice8 = dict(mesh=mesh_rules, sharded_train=sharded_stats, families=fam_stats,
                   powersgd=psgd, disaggregated_serve=disagg_stats)
+    print(f"slice9: {json.dumps(dict(live_loop=live_stats))}")
     print(f"slice8: {json.dumps(slice8)}")
     print(f"slice7: {json.dumps(dict(seamless_train=sm_train_stats, seamless_serve=sm_serve, pixtral_serve=px_stats, pixtral_train=px_train_stats, vgg16=vgg_stats))}")
     print(f"planning: {json.dumps(planning)}")

@@ -1,7 +1,10 @@
 """Static analysis over the burst-parallel runtime, the port of
-``repro/analysis``: the plan verifier (``verify``).  The other passes
-(``shardcheck``, ``protocheck``, ``lint``) are not ported yet (ROADMAP
+``repro/analysis``: the plan verifier (``verify``), the transport
+protocol's model checker (``protocheck``) and the trace schema validator
+(``tracecheck``).  ``shardcheck`` and ``lint`` are not ported yet (ROADMAP
 Queue 1, item 13)."""
+from repro_torch.analysis.protocheck import MUTANTS, CheckReport, explore  # noqa: F401
+from repro_torch.analysis.tracecheck import check_paths, check_trace_file  # noqa: F401
 from repro_torch.analysis.verify import (  # noqa: F401
     PlanVerificationError,
     Violation,

@@ -16,6 +16,7 @@ pure function of (graph, G, amp_limit).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
@@ -87,11 +88,20 @@ class ClusterCoordinator:
 
     def __init__(self, num_devices: int, hw: Optional[Hardware] = None, *,
                  clock: Optional[Callable[[], float]] = None,
-                 virtual_devices: bool = False):
+                 virtual_devices: bool = False,
+                 verify_plans: Optional[bool] = None):
         self.num_devices = num_devices
         self.hw = hw or Hardware()
         self._clock = clock or time.time
         self.virtual_devices = virtual_devices
+        # every installed/re-planned plan goes through the static verifier
+        # (repro_torch.analysis.verify) — O(layers + stages) pure metadata,
+        # so it is on by default; REPRO_VERIFY_PLANS=0 (or
+        # verify_plans=False) turns it off for hot replay loops that
+        # re-plan thousands of times
+        if verify_plans is None:
+            verify_plans = os.environ.get("REPRO_VERIFY_PLANS", "1") != "0"
+        self.verify_plans = verify_plans
         self.healthy = set(range(num_devices))
         self.jobs: Dict[str, Job] = {}
         self.events: List[ClusterEvent] = []
@@ -166,11 +176,10 @@ class ClusterCoordinator:
                           context: str) -> None:
         """Statically verify a just-installed plan against the current pool
         (range disjointness, coverage, amp limits, survivor-pool exactness
-        — ``repro_torch.analysis.verify``; O(layers + stages) metadata, so
-        every installed plan is checked).  Raises ``PlanVerificationError``
-        so a planner regression fails at install time instead of surfacing
-        as silent throughput loss."""
-        if plan is None:
+        — ``repro_torch.analysis.verify``).  Gated by ``verify_plans``;
+        raises ``PlanVerificationError`` so a planner regression fails at
+        install time instead of surfacing as silent throughput loss."""
+        if plan is None or not self.verify_plans:
             return
         from repro_torch.analysis.verify import verify_plan_or_raise
 

@@ -452,8 +452,13 @@ class ExecutableCache:
 
     @staticmethod
     def key(signature: str, mesh) -> tuple:
-        """``mesh`` is a ``launch.mesh.DeviceSlice``."""
-        return (signature, tuple(mesh.ids), tuple(mesh.shape))
+        """``mesh`` is a ``launch.mesh.DeviceSlice`` (keyed on its position
+        ids) or a ``DeviceMesh`` (keyed on its ranks, which the
+        coordinator's ``evict_stale`` reads as device ids)."""
+        if hasattr(mesh, "ids"):
+            return (signature, tuple(mesh.ids), tuple(mesh.shape))
+        return (signature, tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+                tuple(mesh.mesh.shape))
 
     def __len__(self) -> int:
         return len(self.entries)

@@ -3,7 +3,7 @@
   python -m repro_torch.launch.train --arch ARCH [--steps N] [--batch B]
       [--seq S] [--ckpt-dir DIR] [--amp-limit A] [--device cuda|cpu]
       [--bg-arch qwen2-1.5b [--bg-arch minicpm-2b ...]]
-      [--data N --model M]
+      [--data N --model M] [--hb-timeout S] [--admit-every N]
 
 Mirrors ``repro/launch/train.py --smoke``: first the burst plan of the
 FULL config (``TRAIN_4K`` on 256 devices, ``--amp-limit``), what
@@ -32,8 +32,14 @@ job's steps are paced beside the foreground's, the first --bg-arch the
 highest-priority tenant.  The foreground holds this process's card, so
 on a one-card host every tenant takes the reference's same-device branch:
 it shares the card, on a stream of its own of the least priority while
-the foreground's has the greatest.  The control plane the reference wires
-here waits for ROADMAP Queue 1, item 12.
+the foreground's has the greatest.
+
+The live control plane is co-hosted, as in the reference: the worker
+beats over a fake transport pair, a ``CoordinatorLoop`` consumes the beats
+into a ``HeartbeatMonitor(1, timeout=--hb-timeout)`` and drives the
+coordinator, so a silent worker is detected from live beats, and tenant
+admission is re-swept every ``--admit-every`` steps (0 disables it).
+Under ``--data N --model M`` the control plane is rank 0's.
 """
 from __future__ import annotations
 
@@ -170,6 +176,12 @@ def main(argv=None):
     ap.add_argument("--data", type=int, default=None,
                     help="data axis of the mesh (with --model): the sharded step")
     ap.add_argument("--model", type=int, default=None, help="model axis of the mesh")
+    ap.add_argument("--hb-timeout", type=float, default=10.0,
+                    help="heartbeat timeout (s) before a silent worker is "
+                         "declared failed by the live control plane")
+    ap.add_argument("--admit-every", type=int, default=5,
+                    help="re-sweep tenant admission every N steps "
+                         "(continuous admission; 0 disables)")
     args = ap.parse_args(argv)
     if (args.data is None) != (args.model is None):
         ap.error("--data and --model go together")
@@ -229,6 +241,8 @@ def _run(args, device, mesh):
 
     from repro_torch.configs import TRAIN_4K, get_config
     from repro_torch.core.coordinator import ClusterCoordinator, Job
+    from repro_torch.dist.faults import HeartbeatMonitor
+    from repro_torch.dist.transport import CoordinatorLoop, fake_transport_pair
     from repro_torch.models.graph import build_lm_graph
     from repro_torch.train.loop import TrainConfig, train
 
@@ -261,11 +275,24 @@ def _run(args, device, mesh):
 
     shape = dataclasses.replace(TRAIN_4K, seq_len=args.seq, global_batch=args.batch,
                                 name="cli")
-    report = train(cfg.reduced(), shape,
-                   TrainConfig(steps=args.steps, ckpt_dir=args.ckpt_dir, bg_step_fn=bg_fn),
-                   device=device, mesh=mesh)
+    tc = TrainConfig(steps=args.steps, ckpt_dir=args.ckpt_dir, bg_step_fn=bg_fn)
+    if lead:
+        # live control plane: this entrypoint co-hosts both sides — the
+        # worker beats over the transport, the CoordinatorLoop consumes
+        # them, so a stalled worker is detected from live beats (handle_failure
+        # + re-plan + reconfig event) instead of only via the fail-stop path.
+        # Multi-host runs swap the fake pair for KVStoreTransport over a store
+        worker_end, coord_end = fake_transport_pair()
+        hb = HeartbeatMonitor(1, timeout=args.hb_timeout)
+        tc = dataclasses.replace(
+            tc, coordinator=coord, heartbeat=hb, transport=worker_end,
+            control_loop=CoordinatorLoop(coord_end, hb, coordinator=coord),
+            admit_every=max(0, args.admit_every))
+    report = train(cfg.reduced(), shape, tc, device=device, mesh=mesh)
     if not lead:
         return
+    print(f"control plane: worker 0 last beat at step {hb.last[0][1]}, "
+          f"{len(coord.healthy)} of {coord.num_devices} devices healthy")
     if mesh is not None:
         print(f"sharded step on mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     print(f"done on {args.device}: steps={report.steps_done} loss "

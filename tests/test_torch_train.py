@@ -257,16 +257,6 @@ def test_loop_loss_decreases_and_gives_up_after_max_failures():
               device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("coordinator", object()), ("heartbeat", object()),
-    ("transport", object()), ("control_loop", object()), ("lease", object()),
-    ("apply_reconfig", True), ("admit_every", 5)])
-def test_loop_refuses_unported_options(field, value):
-    tc = TrainConfig(steps=1, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(port_config(_cfg()), _shape(), tc, device="cpu")
-
-
 def test_step_timer_and_log():
     timer, log = StepTimer(deadline_factor=2.0, warmup_steps=3), MitigationLog()
     for dt in (1.0, 1.0, 1.0):
