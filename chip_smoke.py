@@ -270,6 +270,25 @@ one-rank NCCL group; several ranks run in the CPU tests on gloo):
      restarted pass included), the reference's event counts
      (``LIVE_EVENTS``), no re-carve, the heartbeat topic compacted; the
      median step minus 11b's.  A ``slice9: {...}`` line comes first.
+Slice 10, the dry-run and the example entry points (after 12a; a
+``slice10: {...}`` line comes before ``slice9``):
+  13a. dry-run prediction — in a process of its own, 11b's cell
+     (qwen2-1.5b, full width and depth, 4 x 4096, the (1, 1) mesh) run
+     once as rank 0 of a fake world of one on fake cuda tensors
+     (``launch.dryrun.run_step``): its FLOPs, peak bytes and collective
+     bytes (0 on one rank); 56 + 28 flash operators.
+  13b. the same step for real through ``jit_train_step`` on the card under
+     the same counters (``launch.op_analysis.analyze_step``): FLOPs equal
+     to 13a's exactly; ``max_memory_allocated`` net of what was allocated
+     before the state within ``DRYRUN_PEAK_TOL`` of 13a's peak; the
+     achieved TFLOP/s of the counted FLOPs over 11b's median step.
+  13c. the dry-run CLI, a process a cell: llama3-8b ``train_4k`` on the
+     (16, 16) production mesh (256 fake ranks) writes its record; a cell
+     the port refuses (qwen3-moe-30b-a3b ``train_4k``) exits non-zero
+     naming item 11b; the wall time of each.
+  13d. ``launch.burst_plan_demo``, ``launch.train_lm`` (the ~100M config,
+     ``TRAIN_LM_STEPS`` steps: losses fall) and ``launch.serve_lm`` for
+     qwen2-1.5b and rwkv6-1.6b on the card, launches from the counters.
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
@@ -505,8 +524,7 @@ def phase_kernels(prompt_lens):
                                              enable_gqa=True).transpose(1, 2)
     lib_err = float((fa.flash_attention(q, k, v, causal=True).float()
                      - lib_out.float()).abs().max())
-    pairs = S * (S + 1) // 2  # live (query, key) pairs of causal attention
-    flops = 4 * B * H * d * pairs  # Q.K^T and P.V, 2 operations per multiply-add
+    flops = fa.flops_fwd(B, S, S, H, d, True, 0)  # the registered operator's formula
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())  # q, k, v in; o out
     bound_s = max(flops / PEAK_FLOPS["bfloat16"], nbytes / PEAK_BYTES)
     bound_by = "operations" if flops / PEAK_FLOPS["bfloat16"] >= nbytes / PEAK_BYTES else "bytes"
@@ -716,17 +734,14 @@ def phase_wkv6(sweep=WKV_SWEEP):
                             reps=5)
     del o, leaves
     torch.cuda.empty_cache()
-    L = wk.KCHUNK
-    blocks = B * H * (S // L)  # (chunk, head, b) blocks of the chunked form
     elem = 2 * B * S * H * N  # bytes of one bf16 (B, S, H, N) tensor
     fwd_bytes = 5 * elem + 4 * H * N + 4 * B * H * N * N  # r k v w in, o out; u; final state
     bwd_bytes = 9 * elem + 2 * 4 * H * N  # r k v w do in, dr dk dv dw out; u, du
-    # the chunked form: forward own state, A, A v, rdec S_in; backward D,
-    # A, A^T do, kdec G_out and the walk's dr, dk, dw products (x 2 L N^2 each)
-    fwd_ops = blocks * (4 * L * N * N + 2 * L * L * N)
-    bwd_ops = blocks * (10 * L * N * N + 2 * L * L * N)
-    steps = B * S * H  # (b, t, h) steps of the fp32 route's recurrence
-    rec_ops = {"wkv6_fwd": steps * (5 * N * N + 4 * N), "wkv6_bwd": steps * 14 * N * N}
+    # the registered operators' formulas: the chunked form's, and the fp32
+    # route's recurrence
+    fwd_ops, bwd_ops = wk.chunk_flops(B, S, H, N), wk.chunk_flops(B, S, H, N, backward=True)
+    rec_ops = {"wkv6_fwd": wk.recurrence_flops(B, S, H, N),
+               "wkv6_bwd": wk.recurrence_flops(B, S, H, N, backward=True)}
     records = []
     for name, ms, plain_ms, nbytes, ops in (
             ("wkv6_fwd", fwd_ms, plain_fwd_ms, fwd_bytes, fwd_ops),
@@ -864,9 +879,10 @@ def phase_ssd(sweep=SSD_SWEEP):
                             reps=5)
     del y, leaves
     torch.cuda.empty_cache()
-    L = 128  # the TPU kernel's chunk: its matmul form is the least work for the function
-    fwd_ops = B * H * (S // L) * (2 * L * L * N + 2 * L * L * P + 4 * L * N * P)
-    bwd_ops = 2 * fwd_ops  # two products per forward product
+    # the registered operators' formula: the chunked form at the TPU kernel's
+    # chunk, the least work for the function
+    fwd_ops = ss.chunk_flops(B, S, H, P, N)
+    bwd_ops = ss.chunk_flops(B, S, H, P, N, backward=True)
     big, small = 2 * B * S * H * P, 2 * B * S * N  # bytes of a bf16 x / Bm
     state = 4 * B * H * P * N
     fwd_bytes = 2 * big + 4 * B * S * H + 4 * H + 2 * small + state  # x, dt, A, Bm, Cm in; y, state out
@@ -1056,12 +1072,9 @@ def _flash_times(sl, seed, softcap=0.0):
           f"|plain|), tol {FLASH_BWD_TOL['bfloat16']})", flush=True)
     del got, want
     torch.cuda.empty_cache()
-    # live (query, key) pairs: all of them without the causal mask, else
-    # those of causal attention, cut by the window
-    pairs = (S * Skv if not causal else
-             sum(min(i + 1, W) if W else i + 1 for i in range(S)))
-    fwd_ops = 4 * B * H * d * pairs
-    bwd_ops = 10 * B * H * d * pairs  # 5 products: S, dP, dV, dK, dQ (2.5x the forward)
+    # the registered operators' formulas over the live (query, key) pairs
+    fwd_ops = fa.flops_fwd(B, S, Skv, H, d, causal, W)
+    bwd_ops = fa.flops_bwd(B, S, Skv, H, d, causal, W)
     t_bytes = 2 * (q.numel() + k.numel() + v.numel())
     fwd_bytes = t_bytes + 2 * q.numel() + 4 * B * H * S  # o, lse out
     bwd_bytes = 2 * t_bytes + 4 * q.numel() + 4 * B * H * S  # q k v o dO in, dq dk dv out, lse
@@ -1140,7 +1153,7 @@ def phase_flash_bwd(sweep=FLASH_BWD_SWEEP, cross=FLASH_BWD_CROSS):
     B, S, H, KV, d, W = (sl[x] for x in ("B", "S", "H", "KV", "d", "window"))
     q, k, v = _inputs(B, S, S, H, KV, d, "bfloat16", seed=77)
     with torch.no_grad():
-        o, lse = fa._forward(q, k, v, True, W, 0.0, want_lse=True)
+        o, lse = fa._fwd_op(q, k, v, True, W, 0.0, True)
         want_o, want_lse = fa.flash_attention_plain(q, k, v, causal=True, window=W,
                                                     return_lse=True)
     torch.cuda.synchronize()
@@ -1316,18 +1329,18 @@ class _FlashShapes:
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
 
-        self.fa, self.orig = fa, fa._forward
+        self.fa, self.orig = fa, fa._fwd_op
 
         def recording(q, k, v, causal, window, softcap, want_lse):
             self.seen.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
                            q.shape[3], str(q.dtype).split(".")[-1], bool(causal), int(window)))
             return self.orig(q, k, v, causal, window, softcap, want_lse)
 
-        fa._forward = recording
+        fa._fwd_op = recording
         return self
 
     def __exit__(self, *exc):
-        self.fa._forward = self.orig
+        self.fa._fwd_op = self.orig
 
     def check_swept(self, label):
         missing_f = sorted(self.seen - SWEPT_FWD)
@@ -3749,6 +3762,209 @@ def phase_live_loop(mesh, smi, losses11b, median11b_ms):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Slice 10: the dry-run and the example entry points (13a-13d)
+# ---------------------------------------------------------------------------
+
+# 13b's max_memory_allocated (net of what was allocated before its state was
+# built) against 13a's predicted peak: the tolerance PERF.md states, about 70 MB
+# of a 65.6 GiB peak, where the gap read 3.67 MB in two runs
+DRYRUN_PEAK_TOL = 0.001
+DRYRUN_CELLS = (  # 13c: (arch, shape, what the CLI must do)
+    ("llama3-8b", "train_4k", "record"),
+    ("qwen3-moe-30b-a3b", "train_4k", "refuse"),  # 'model' axis of 16, MoE: item 11b
+)
+TRAIN_LM_STEPS = 60  # 13d: launch.train_lm's ~100M config on the card
+
+
+def _dryrun_shape():
+    from repro_torch.configs import TRAIN_4K
+
+    n = SHARDED_TRAIN
+    return dataclasses.replace(TRAIN_4K, seq_len=n["seq"], global_batch=n["batch"],
+                               name="smoke")
+
+
+def dryrun_qwen2(device="cuda"):
+    """13a's cell, run in a process of its own: qwen2-1.5b at full width and
+    depth, 11b's 4 x 4096, as rank 0 of a fake world of one on the (1, 1)
+    mesh, on fake ``device`` tensors; prints ``dryrun13a: {record}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_step
+    from repro_torch.launch.mesh import fake_world, make_mesh
+
+    with fake_world(1, device):
+        rec = run_step(get_config("qwen2-1.5b"), _dryrun_shape(), make_mesh(1, 1), device)
+    print("dryrun13a: " + json.dumps(rec), flush=True)
+
+
+def phase_dryrun_predict():
+    """Phase 13a: the dry-run's prediction of 11b's step, in a fresh
+    process (a fake process group cannot share this one, which holds the
+    NCCL group of phases 11-12): FLOPs, peak bytes, collective bytes (0 on
+    one rank), 56 + 28 flash operators."""
+    _free_card()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", "import chip_smoke as c; c.dryrun_qwen2('cuda')"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    line = [x for x in r.stdout.splitlines() if x.startswith("dryrun13a: ")]
+    if r.returncode != 0 or not line:
+        fail(f"13a dry-run failed (exit {r.returncode}): {r.stderr[-3000:]}")
+    rec = json.loads(line[0][len("dryrun13a: "):])
+    kernel_ops = rec["collective_diag"].get("n_kernel_ops", 0)
+    print(f"13a dry-run of qwen2-1.5b, 4 x 4096 on a fake (1, 1) mesh of fake cuda tensors "
+          f"({wall:.1f} s with the process start, the step {rec['run_s']} s): predicted peak "
+          f"{rec['peak_bytes']} bytes ({rec['peak_bytes'] / 2**30:.2f} GiB; arguments "
+          f"{rec['argument_bytes'] / 2**30:.2f} GiB), {rec['flops']} FLOP "
+          f"({rec['flops'] / 1e12:.2f} TFLOP; {rec['flops_by_op']}), collective bytes "
+          f"{rec['collective_bytes_total']}, {kernel_ops} kernel operators", flush=True)
+    if rec["collective_bytes_total"] != 0 or rec["flops"] <= 0 or kernel_ops != 84:
+        fail(f"13a: one rank must move no collective bytes and run 56 + 28 flash operators: {rec}")
+    return dict(rec, wall_s=wall)
+
+
+def phase_dryrun_check(mesh, smi, pred, median11b_ms):
+    """Phase 13b: one real step of 13a's cell through ``jit_train_step`` on
+    the card, under the same counters (``launch.op_analysis``): its FLOPs
+    equal 13a's exactly; ``torch.cuda.max_memory_allocated``, net of what
+    was allocated before the state was built, within ``DRYRUN_PEAK_TOL`` of
+    13a's peak; the achieved TFLOP/s of the counted FLOPs over 11b's median
+    step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import device_put
+    from repro_torch.launch.op_analysis import analyze_step
+    from repro_torch.models.api import get_model, make_batch
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import jit_train_step
+
+    cfg, shape = get_config("qwen2-1.5b"), _dryrun_shape()
+    api, opt = get_model(cfg), make_optimizer(cfg)
+    fn, st_sh, bt_sh = jit_train_step(api, opt, mesh, shape)
+    _free_card()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = device_put(init_state(api, opt, gen, "cuda"), st_sh)
+    batch = device_put(make_batch(cfg, shape.global_batch, shape.seq_len, gen, "cuda"), bt_sh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    costs = analyze_step(fn, state, batch)
+    loss = float(costs.out[1]["loss"])
+    counted_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = _counts()["flash"]
+    del state, batch
+    costs.out = None  # the new state: the same DTensors
+    _free_card()
+    off = peak / pred["peak_bytes"] - 1
+    tflops = costs.flops / (median11b_ms * 1e-3) / 1e12
+    print(f"13b one counted step on {smi}: loss {loss:.5f}; {costs.flops} FLOP (13a "
+          f"{pred['flops']}: equal {costs.flops == pred['flops']}); max_memory_allocated "
+          f"{peak} bytes net ({peak / 2**30:.2f} GiB), {100 * off:+.4f}% from 13a's "
+          f"{pred['peak_bytes']} (tolerance {100 * DRYRUN_PEAK_TOL:g}%); the counters' own "
+          f"peak on the card {costs.peak_bytes} bytes; bytes written {costs.bytes_written} "
+          f"(13a {pred['bytes_written']}); collective bytes {costs.collective_bytes}; flash "
+          f"launches {launches}; the counted step {counted_s * 1e3:.1f} ms; achieved "
+          f"{tflops:.1f} TFLOP/s of the counted FLOPs over 11b's median step "
+          f"{median11b_ms:.1f} ms", flush=True)
+    if costs.flops != pred["flops"]:
+        fail(f"13b: the real step counts {costs.flops} FLOP, the dry-run {pred['flops']}: "
+             f"{costs.flops_by_op} against {pred['flops_by_op']}")
+    if abs(off) > DRYRUN_PEAK_TOL or not math.isfinite(loss):
+        fail(f"13b: peak {peak} is {100 * off:+.4f}% from the predicted {pred['peak_bytes']}, "
+             f"or the loss {loss} is not finite")
+    if launches != {"fwd": 2 * cfg.num_layers, "bwd": cfg.num_layers} or costs.collective_bytes:
+        fail(f"13b: flash launches {launches} or collective bytes {costs.collective_bytes}")
+    return launches, dict(flops=costs.flops, predicted_flops=pred["flops"], peak_bytes=peak,
+                          predicted_peak_bytes=pred["peak_bytes"], peak_off=off,
+                          tracker_peak_bytes=costs.peak_bytes,
+                          bytes_written=costs.bytes_written, tflops_per_s=tflops,
+                          counted_step_ms=counted_s * 1e3, dryrun_wall_s=pred["wall_s"],
+                          dryrun_step_s=pred["run_s"])
+
+
+def phase_dryrun_cli():
+    """Phase 13c: the dry-run CLI, each cell a process of its own, as a user
+    runs it: llama3-8b ``train_4k`` on the (16, 16) production mesh (256
+    fake ranks, fake cuda tensors) writes its record; a cell the port
+    refuses (qwen3-moe-30b-a3b ``train_4k``: MoE on a 'model' axis of 16)
+    exits non-zero naming item 11b.  The wall time of each."""
+    out = os.path.join(ROOT, "build", "dryrun13c.jsonl")
+    if os.path.exists(out):
+        os.remove(out)
+    stats = {}
+    for arch, shape, want in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                            "--shape", shape, "--mesh", "single", "--out", out],
+                           cwd=ROOT, capture_output=True, text=True, timeout=900,
+                           env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        wall = time.perf_counter() - t0
+        if want == "record":
+            with open(out) as f:
+                recs = [json.loads(x) for x in f]
+            if r.returncode != 0 or len(recs) != 1:
+                fail(f"13c {arch} {shape}: exit {r.returncode}, {len(recs)} records: "
+                     f"{r.stderr[-3000:]}")
+            rec = recs[0]
+            print(f"13c dryrun {arch} {shape} single ({rec['n_devices']} fake ranks, "
+                  f"{rec['device']}): {wall:.1f} s wall (the step {rec['run_s']} s); peak "
+                  f"{rec['peak_bytes'] / 2**30:.2f} GiB per device, {rec['flops'] / 1e12:.2f} "
+                  f"TFLOP, collective bytes {rec['collective_bytes']}", flush=True)
+            stats[arch] = dict(wall_s=wall, **{k: rec[k] for k in (
+                "peak_bytes", "flops", "collective_bytes", "run_s", "device")})
+        else:
+            msg = r.stderr.strip().splitlines()[-1] if r.stderr.strip() else ""
+            print(f"13c dryrun {arch} {shape} single: exit {r.returncode} in {wall:.1f} s: "
+                  f"{msg}", flush=True)
+            if r.returncode == 0 or "item 11b" not in r.stderr:
+                fail(f"13c: the refused cell {arch} {shape} did not fail naming item 11b "
+                     f"(exit {r.returncode}): {r.stderr[-2000:]}")
+            stats[arch] = dict(wall_s=wall, refused=msg)
+    return stats
+
+
+def phase_examples(smi):
+    """Phase 13d: the example entry points on the card: ``burst_plan_demo``
+    (the planner only), ``train_lm`` with its ~100M config (losses fall),
+    ``serve_lm`` for qwen2-1.5b and rwkv6-1.6b; their kernel launches read
+    from the counters."""
+    import shutil
+
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.launch import burst_plan_demo, serve_lm, train_lm
+
+    t0 = time.perf_counter()
+    burst_plan_demo.main([])
+    launches, stats = {}, {"burst_plan_demo_s": time.perf_counter() - t0}
+    ckpt = os.path.join(ROOT, "build", "train_lm13d")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rep = train_lm.main(["--steps", str(TRAIN_LM_STEPS), "--ckpt-dir", ckpt])
+    stats["train_lm_s"] = time.perf_counter() - t0
+    launches["train_lm"] = _counts()["flash"]
+    if not (np.isfinite(rep.losses).all() and rep.losses[-1] < rep.losses[0]):
+        fail(f"13d train_lm: losses not finite and falling: {rep.losses}")
+    stats["train_lm"] = dict(first_loss=rep.losses[0], last_loss=rep.losses[-1],
+                             median_step_ms=float(np.median(rep.step_times)) * 1e3)
+    for arch in ("qwen2-1.5b", "rwkv6-1.6b"):
+        _reset_counts()
+        out, eng = serve_lm.main(["--arch", arch])
+        launches[f"serve_lm {arch}"] = dict(_counts(), wkv=dict(wk.launches))
+        if out.shape != (4, 24) or not ((0 <= out) & (out < eng.cfg.vocab_size)).all():
+            fail(f"13d serve_lm {arch}: tokens {out.shape} outside the vocabulary")
+        stats[f"serve_lm {arch}"] = dict(prefill_ms=eng.stats.prefill_s * 1e3,
+                                         tokens_per_s=eng.stats.tokens_per_s)
+    print(f"13d examples on {smi}: launches {launches}; {stats}", flush=True)
+    return launches, stats
+
+
 def _timed(fn, spent):
     """``fn``, adding (start, host seconds) of each call to ``spent``."""
     def call(*args, **kwargs):
@@ -3837,9 +4053,16 @@ def main() -> None:
     psgd = phase_powersgd(smi)
     disagg, disagg_stats = phase_disaggregated(cfg, smi, tokens5, stats5)
     live, live_stats = phase_live_loop(mesh, smi, losses11b, sharded_stats["median_step_ms"])
+    t13 = time.perf_counter()
+    pred13 = phase_dryrun_predict()
+    counted13, dryrun_stats = phase_dryrun_check(mesh, smi, pred13,
+                                                 sharded_stats["median_step_ms"])
     import torch.distributed as dist
 
     dist.destroy_process_group()
+    cli13 = phase_dryrun_cli()
+    ex_launches, ex_stats = phase_examples(smi)
+    ex_stats["phase13_s"] = time.perf_counter() - t13
     bg = {k: alone[k] + bg_mux[k] + bg_exec[k] for k in ("fwd", "bwd")}
     flash["launches_by_path"] = {"serve llama3-8b": serve_launches,
                                  "train zamba2-2.7b": counts["flash"]["fwd"],
@@ -3863,7 +4086,12 @@ def main() -> None:
                                  **{f"train {k} sharded (11c)": c["flash"]["fwd"]
                                     for k, c in fam_counts.items() if c["flash"]["fwd"]},
                                  "serve llama3-8b disaggregated (11e)": disagg,
-                                 "train qwen2-1.5b live loop (12a)": live["fwd"]}
+                                 "train qwen2-1.5b live loop (12a)": live["fwd"],
+                                 "train qwen2-1.5b one counted step (13b)": counted13["fwd"],
+                                 "train_lm llama-100m (13d)": ex_launches["train_lm"]["fwd"],
+                                 **{f"{k} reduced (13d)": c["flash"]["fwd"]
+                                    for k, c in ex_launches.items()
+                                    if k.startswith("serve_lm") and c["flash"]["fwd"]}}
     # seamless's token-by-token serving (10d) decodes through
     # ``decode_attention``, plain PyTorch on every device as the reference has
     # no decode kernel: no flash launch, so no entry
@@ -3883,7 +4111,11 @@ def main() -> None:
                                      **{f"train {k} sharded (11c)": c["flash"]["bwd"]
                                         for k, c in fam_counts.items()
                                         if c["flash"]["bwd"]},
-                                     "train qwen2-1.5b live loop (12a)": live["bwd"]}
+                                     "train qwen2-1.5b live loop (12a)": live["bwd"],
+                                     "train qwen2-1.5b one counted step (13b)":
+                                         counted13["bwd"],
+                                     "train_lm llama-100m (13d)":
+                                         ex_launches["train_lm"]["bwd"]}
     for rec in (flash, flash_bwd):
         rec["launches"] = sum(rec["launches_by_path"].values())
         # launches made to hold the capped kernels against the plain version
@@ -3895,10 +4127,13 @@ def main() -> None:
                                  (ssd_bwd, "ssd", "bwd", "train zamba2-2.7b")):
         rec["launches_by_path"] = {first: rec["launches"], **{
             f"train {k} sharded (11c)": c[fam][key] for k, c in fam_counts.items()
-            if c[fam][key]}}
+            if c[fam][key]}, **{
+            f"{k} reduced (13d)": c[fam][key] for k, c in ex_launches.items()
+            if k.startswith("serve_lm") and c[fam][key]}}
         rec["launches"] = sum(rec["launches_by_path"].values())
     slice8 = dict(mesh=mesh_rules, sharded_train=sharded_stats, families=fam_stats,
                   powersgd=psgd, disaggregated_serve=disagg_stats)
+    print(f"slice10: {json.dumps(dict(dryrun=dryrun_stats, dryrun_cli=cli13, examples=ex_stats))}")
     print(f"slice9: {json.dumps(dict(live_loop=live_stats))}")
     print(f"slice8: {json.dumps(slice8)}")
     print(f"slice7: {json.dumps(dict(seamless_train=sm_train_stats, seamless_serve=sm_serve, pixtral_serve=px_stats, pixtral_train=px_train_stats, vgg16=vgg_stats))}")

@@ -28,10 +28,18 @@ gives dq, dk and dv
 to run); autograd through ``flash_attention_plain`` is its plain
 version.
 
+Each C entry is a registered operator, ``repro_torch::flash_attention_fwd``
+and ``repro_torch::flash_attention_bwd``: the real implementation (CUDA
+tensors) checks the pointers the kernels read and launches; a fake one
+(fake and meta tensors: ``launch/dryrun.py``) returns empty outputs of the
+right shapes; a FLOP formula (``flops_fwd``, ``flops_bwd``, the operation
+count of ``PERF.md``'s bound column) serves ``torch.utils.flop_counter``.
+
 ``flash_attention`` is the wrapper: a CUDA tensor launches the kernels (or
 the wrapper raises) through ``FlashAttentionFunction`` whenever an input
-needs a gradient, so the output always carries autograd; a CPU tensor
-takes ``flash_attention_plain``.  ``launches`` counts kernel launches per
+needs a gradient, so the output always carries autograd; a meta or fake
+tensor takes the same operators' fake implementation; a CPU tensor takes
+``flash_attention_plain``.  ``launches`` counts kernel launches per
 direction and nothing else.
 """
 from __future__ import annotations
@@ -39,7 +47,10 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
+
+from repro_torch.kernels import _library
 
 NEG_INF = -1.0e30
 HEAD_DIMS = (32, 64, 80, 128)
@@ -120,10 +131,10 @@ def _check(q, k, v, causal, window, softcap) -> None:
         raise ValueError("q, k, v must share one dtype")
 
 
-def _check_kernel(q, k, v) -> None:
-    """What the CUDA kernels take; anything else raises (no fallback).  A
-    pure function of the tensors' layouts: TMA (bf16) reads 16-byte-aligned
-    bases and strides, and the grid's second axis holds B x heads."""
+def _check_layout(q, k, v) -> None:
+    """The layouts the CUDA kernels take, read from shapes, strides and
+    dtypes alone (so fake and meta tensors are checked too); anything else
+    raises (no fallback).  The grid's second axis holds B x heads."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
@@ -133,30 +144,101 @@ def _check_kernel(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel needs contiguous {name}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention kernel needs 16-byte aligned {name}")
     if q.shape[0] * q.shape[2] > _MAX_GRID_Y:
         raise ValueError(f"flash_attention kernel takes B x heads <= {_MAX_GRID_Y}, "
                          f"not {q.shape[0] * q.shape[2]}")
 
 
-def _forward(q, k, v, causal, window, softcap, want_lse):
-    """Launch the forward kernel -> ``(o, lse or None)``."""
+def _check_kernel(q, k, v) -> None:
+    """What the CUDA kernels take: the layout, and TMA's (bf16) 16-byte
+    aligned bases, which only a tensor with memory behind it has."""
+    _check_layout(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel needs 16-byte aligned {name}")
+
+
+def attention_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The live (query, key) pairs: query i sees keys ``[lo, hi)``, ``hi =
+    min(i + 1, Skv)`` when causal (else ``Skv``) and ``lo = i - window + 1``
+    with a window."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i + 1, Skv) if causal else np.full_like(i, Skv)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flops_fwd(B: int, Sq: int, Skv: int, H: int, d: int, causal: bool, window: int) -> int:
+    """The forward's operations: Q.K^T and P.V over the live pairs, 2 a
+    multiply-add (the cap adds no product)."""
+    return 4 * B * H * d * attention_pairs(Sq, Skv, causal, window)
+
+
+def flops_bwd(B: int, Sq: int, Skv: int, H: int, d: int, causal: bool, window: int) -> int:
+    """The backward's: 5 products (S, dP, dV, dK, dQ), 2.5x the forward."""
+    return 10 * B * H * d * attention_pairs(Sq, Skv, causal, window)
+
+
+def _fwd(q, k, v, causal, window, softcap, want_lse):
+    """Launch the forward kernel -> ``(o, lse)``; ``lse`` is empty unless
+    ``want_lse``."""
+    _check_kernel(q, k, v)
     B, Sq, H, d = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
-    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-           if want_lse else None)
+    lse = torch.empty((B, H, Sq) if want_lse else (0,), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype], B, Sq, Skv, H,
+        lse.data_ptr() if want_lse else None, _DTYPE_CODE[q.dtype], B, Sq, Skv, H,
         KV, d, *strides, int(bool(causal)), int(window), float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: {_error(err)}")
     launches["fwd"] += 1
     return o, lse
+
+
+def _fwd_fake(q, k, v, causal, window, softcap, want_lse):
+    B, Sq, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, Sq) if want_lse else (0,),
+                                            dtype=torch.float32)
+
+
+_fwd_op = _library.define(
+    "flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+    "float softcap, bool want_lse) -> (Tensor, Tensor)", _fwd, _fwd_fake,
+    lambda q, k, v, causal, window, softcap, want_lse, **_:
+    flops_fwd(q[0], q[1], k[1], q[2], q[3], causal, window))
+
+
+def _bwd(q, k, v, o, do, lse, causal, window, softcap):
+    """Launch the backward kernels (a ``rowsum(dO * O)`` pre-pass, then
+    dk/dv and dq) -> ``(dq, dk, dv)``."""
+    B, Sq, H, d = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if do.data_ptr() % 16:  # TMA and the pre-pass read 16-byte-aligned rows
+        do = do.clone()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rowdot = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rowdot.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, Sq, Skv, H, KV, d, int(bool(causal)),
+        int(window), float(softcap), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: {_error(err)}")
+    launches["bwd"] += 1
+    return dq, dk, dv
+
+
+_bwd_op = _library.define(
+    "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, Tensor lse, "
+    "bool causal, int window, float softcap) -> (Tensor, Tensor, Tensor)", _bwd,
+    lambda q, k, v, *_: (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)),
+    lambda q, k, v, o, do, lse, causal, window, softcap, **_:
+    flops_bwd(q[0], q[1], k[1], q[2], q[3], causal, window))
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -166,7 +248,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap=0.0):
-        o, lse = _forward(q, k, v, causal, window, softcap, want_lse=True)
+        o, lse = _fwd_op(q, k, v, causal, window, softcap, True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         return o
@@ -174,22 +256,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        B, Sq, H, d = q.shape
-        Skv, KV = k.shape[1], k.shape[2]
         do = do.to(q.dtype).contiguous()
-        if do.data_ptr() % 16:  # TMA and the pre-pass read 16-byte-aligned rows
-            do = do.clone()
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        rowdot = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rowdot.data_ptr(),
-            _DTYPE_CODE[q.dtype], B, Sq, Skv, H, KV, d, int(bool(ctx.causal)),
-            int(ctx.window), float(ctx.softcap), stream)
-        if err != 0:
-            raise RuntimeError(f"flash_attention backward kernel launch failed: {_error(err)}")
-        launches["bwd"] += 1
+        dq, dk, dv = _bwd_op(q, k, v, o, do, lse, ctx.causal, ctx.window, ctx.softcap)
         return dq, dk, dv, None, None, None
 
 
@@ -198,16 +266,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Attention, with an optional logit softcap (0: none).  CUDA tensors
     launch the kernels on the current stream (no synchronisation): through
     ``FlashAttentionFunction`` when grad mode is on and an input requires
-    grad, else the forward alone.  CPU tensors take the plain version."""
+    grad, else the forward alone.  Meta tensors take the same path through
+    the operators' fake implementation.  CPU tensors take the plain
+    version."""
     _check(q, k, v, causal, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    _check_kernel(q, k, v)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu (or meta, which models the "
+                         f"card), not {q.device}")
+    _check_layout(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, causal, window, softcap)
-    return _forward(q, k, v, causal, window, softcap, want_lse=False)[0]
+    return _fwd_op(q, k, v, causal, window, softcap, False)[0]
 
 
 _fns = None

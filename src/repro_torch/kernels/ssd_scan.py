@@ -33,11 +33,19 @@ in fp32.  Any ``S >= 1``.
   difference of cumulative sums: at strong decays that difference cancels,
   and its gradient for ``A`` was off by 5e-4 against an fp64 oracle.
 
+Each C entry is a registered operator, ``repro_torch::ssd_chunk_fwd``/
+``_bwd`` (bf16) and ``repro_torch::ssd_fwd``/``_bwd`` (fp32): the real
+implementation (CUDA tensors) checks the pointers the kernels read and
+launches; a fake one (fake and meta tensors: ``launch/dryrun.py``) returns
+empty outputs of the right shapes; a FLOP formula (``chunk_flops``,
+``recurrence_flops``) serves ``torch.utils.flop_counter``.
+
 ``ssd`` is the wrapper: CUDA tensors go through ``SSDFunction`` (the
-forward kernels, and the backward kernels under autograd) or raise; CPU
-tensors take ``ssd_plain`` and autograd through it.  ``launches`` counts
-calls that launch kernels, one per direction however many kernels a
-direction runs, and nothing else.
+forward kernels, and the backward kernels under autograd) or raise; meta
+and fake tensors take the same path through the operators' fake
+implementation; CPU tensors take ``ssd_plain`` and autograd through it.
+``launches`` counts calls that launch kernels, one per direction however
+many kernels a direction runs, and nothing else.
 """
 from __future__ import annotations
 
@@ -46,6 +54,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import _library
 
 HEAD_DIMS = (32, 64)  # P the kernels take
 STATE_DIMS = (16, 32, 64)  # N the kernels take
@@ -234,8 +244,10 @@ def _check(x, dt, A, Bm, Cm, init_state) -> None:
         raise ValueError(f"ssd inputs on different devices: {devs}")
 
 
-def _check_kernel(x, dt, A, Bm, Cm, init_state) -> None:
-    """What the CUDA kernels take; anything else raises (no fallback)."""
+def _check_layout(x, dt, A, Bm, Cm, init_state) -> None:
+    """The layouts the CUDA kernels take, read from shapes, strides and
+    dtypes alone (so fake and meta tensors are checked too); anything else
+    raises (no fallback)."""
     if x.dtype not in _DTYPES or len({x.dtype, Bm.dtype, Cm.dtype}) != 1:
         raise TypeError(f"ssd kernel takes x, Bm, Cm of one dtype, float32 or bfloat16, "
                         f"not {(x.dtype, Bm.dtype, Cm.dtype)}")
@@ -252,25 +264,182 @@ def _check_kernel(x, dt, A, Bm, Cm, init_state) -> None:
     for name, t in named.items():
         if not t.is_contiguous():
             raise ValueError(f"ssd kernel needs contiguous {name}")
-        if x.dtype == torch.bfloat16 and name in _VECTOR_READ and t.data_ptr() % 16:
-            raise ValueError(f"ssd kernel needs {name} 16-byte aligned")
     if x.dtype == torch.bfloat16 and x.shape[0] * x.shape[2] > 65535:
         raise ValueError(f"ssd bf16 kernels take B x H <= 65535, not {x.shape[0] * x.shape[2]}")
+
+
+def _check_kernel(x, dt, A, Bm, Cm, init_state) -> None:
+    """What the CUDA kernels take: the layout, and the 16-byte aligned
+    bases the bf16 kernels read 16 bytes at a time from, which only a
+    tensor with memory behind it has."""
+    _check_layout(x, dt, A, Bm, Cm, init_state)
+    if x.dtype == torch.bfloat16:
+        named = dict(x=x, Bm=Bm, Cm=Cm, init_state=init_state)
+        for name in _VECTOR_READ:
+            if named[name] is not None and named[name].data_ptr() % 16:
+                raise ValueError(f"ssd kernel needs {name} 16-byte aligned")
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (a copy if it is not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` (contiguous) 16-byte aligned: a copy if it is not."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _call(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"ssd kernel {name} failed: CUDA error {err}")
+
+
+def chunk_flops(B: int, S: int, H: int, P: int, N: int, backward: bool = False) -> int:
+    """The operations of the chunked form at the TPU kernel's chunk of 128
+    steps, its matmul form and the least work for the function: per chunk
+    ``C B^T``, its product with ``X``, and the state in and out (``2 L^2 N
+    + 2 L^2 P + 4 L N P``), taken per step; the backward does two products
+    per forward product."""
+    L = 128
+    fwd = B * H * S * (2 * L * (N + P) + 4 * N * P)
+    return 2 * fwd if backward else fwd
+
+
+def recurrence_flops(B: int, S: int, H: int, P: int, N: int, backward: bool = False) -> int:
+    """The fp32 recurrence's operations per (b, t, h) step: the state's
+    decay and rank-1 update and ``S C`` (``5 P N``); the backward, which
+    recomputes the states, ``14 P N``."""
+    return B * S * H * P * N * (14 if backward else 5)
+
+
+def _state_shapes(x, Bm):
+    Bsz, S, H, P = x.shape
+    return (Bsz, H, P, Bm.shape[2]), (Bsz, -(-S // CHUNK), H)
+
+
+def _chunk_fwd(x, dt, A, Bm, Cm, init_state):
+    """The bf16 forward kernels -> ``(y, final_state, Sp, tot)``: ``Sp``,
+    the state entering each chunk, and ``tot``, each chunk's summed decay,
+    are saved for the backward."""
+    _check_kernel(x, dt, A, Bm, Cm, init_state)
+    Bsz, S, H, P = x.shape
+    N, nc = Bm.shape[2], -(-S // CHUNK)
+    f32, dev = torch.float32, x.device
+    y = torch.empty_like(x)
+    sT = torch.empty((Bsz, H, P, N), dtype=f32, device=dev)
+    Sp = torch.empty((Bsz, nc, H, P, N), dtype=f32, device=dev)
+    tot = torch.empty((Bsz, nc, H), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _call("forward", _lib().ssd_chunk_fwd(
+        _ptr(x), _ptr(dt), _ptr(A), _ptr(Bm), _ptr(Cm), _ptr(init_state), _ptr(y), _ptr(sT),
+        _ptr(Sp), _ptr(tot), Bsz, S, H, P, N, stream))
+    launches["fwd"] += 1
+    return y, sT, Sp, tot
+
+
+def _chunk_fwd_fake(x, dt, A, Bm, Cm, init_state):
+    state, (Bsz, nc, H) = _state_shapes(x, Bm)
+    f32 = torch.float32
+    return (torch.empty_like(x), x.new_empty(state, dtype=f32),
+            x.new_empty((Bsz, nc) + state[1:], dtype=f32), x.new_empty((Bsz, nc, H), dtype=f32))
+
+
+def _chunk_bwd(x, dt, A, Bm, Cm, dy, dsT, Sp, tot, want_ds0):
+    """The bf16 backward kernels -> ``(dx, ddt, dA, dBm, dCm, ds0)``;
+    ``ds0`` is empty unless ``want_ds0``."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[2]
+    dev, f32 = x.device, torch.float32
+    dy, dsT = _aligned(dy), _aligned(dsT)
+    dx, dBm, dCm = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    ddt, dA = torch.empty_like(dt), torch.empty_like(A)
+    ds0 = torch.empty((Bsz, H, P, N) if want_ds0 else (0,), dtype=f32, device=dev)
+    G = torch.empty_like(Sp)
+    dBC_part = torch.empty((2, -(-H // HEAD_GROUP), Bsz, S, N), dtype=f32, device=dev)
+    dA_part = torch.empty((Bsz, Sp.shape[1], H), dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _call("backward", _lib().ssd_chunk_bwd(
+        _ptr(x), _ptr(dt), _ptr(A), _ptr(Bm), _ptr(Cm), _ptr(dy), _ptr(dsT), _ptr(Sp),
+        _ptr(tot), _ptr(dx), _ptr(ddt), _ptr(dA), _ptr(dBm), _ptr(dCm),
+        _ptr(ds0) if want_ds0 else None, _ptr(G), _ptr(dBC_part), _ptr(dA_part),
+        Bsz, S, H, P, N, stream))
+    launches["bwd"] += 1
+    return dx, ddt, dA, dBm, dCm, ds0
+
+
+def _fwd(x, dt, A, Bm, Cm, init_state):
+    """The fp32 recurrence -> ``(y, final_state)``."""
+    _check_kernel(x, dt, A, Bm, Cm, init_state)
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[2]
+    y = torch.empty_like(x)
+    sT = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _call("forward", _lib().ssd_fwd(
+        _ptr(x), _ptr(dt), _ptr(A), _ptr(Bm), _ptr(Cm), _ptr(init_state), _ptr(y), _ptr(sT),
+        Bsz, S, H, P, N, stream))
+    launches["fwd"] += 1
+    return y, sT
+
+
+def _fwd_fake(x, dt, A, Bm, Cm, init_state):
+    state, _ = _state_shapes(x, Bm)
+    return torch.empty_like(x), x.new_empty(state, dtype=torch.float32)
+
+
+def _bwd(x, dt, A, Bm, Cm, init_state, dy, dsT, want_ds0):
+    """The fp32 recurrence's backward (recomputing its states from
+    checkpoints) -> ``(dx, ddt, dA, dBm, dCm, ds0)``."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[2]
+    dev, f32 = x.device, torch.float32
+    dy, dsT = _aligned(dy), _aligned(dsT)
+    dx, dBm, dCm = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    ddt, dA = torch.empty_like(dt), torch.empty_like(A)
+    ds0 = torch.empty((Bsz, H, P, N) if want_ds0 else (0,), dtype=f32, device=dev)
+    dB_part = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
+    dC_part = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
+    dA_part = torch.empty((Bsz, H), dtype=torch.float64, device=dev)
+    ckpt = torch.empty((Bsz * H, -(-S // SEG), P, N), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _call("backward", _lib().ssd_bwd(
+        _ptr(x), _ptr(dt), _ptr(A), _ptr(Bm), _ptr(Cm), _ptr(init_state), _ptr(dy),
+        _ptr(dsT), _ptr(dx), _ptr(ddt), _ptr(dA), _ptr(dBm), _ptr(dCm),
+        _ptr(ds0) if want_ds0 else None, _ptr(dB_part), _ptr(dC_part), _ptr(dA_part),
+        _ptr(ckpt), Bsz, S, H, P, N, stream))
+    launches["bwd"] += 1
+    return dx, ddt, dA, dBm, dCm, ds0
+
+
+def _bwd_fake(x, dt, A, Bm, Cm, want_ds0):
+    state, _ = _state_shapes(x, Bm)
+    return (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
+            torch.empty_like(Bm), torch.empty_like(Cm),
+            x.new_empty(state if want_ds0 else (0,), dtype=torch.float32))
+
+
+def _flops(count, backward):
+    return lambda x, dt, A, Bm, *_, **__: count(*x, Bm[2], backward=backward)
+
+
+_INPUTS = "Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm"
+_GRADS = "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)"
+_chunk_fwd_op = _library.define(
+    f"ssd_chunk_fwd({_INPUTS}, Tensor? init_state) -> (Tensor, Tensor, Tensor, Tensor)",
+    _chunk_fwd, _chunk_fwd_fake, _flops(chunk_flops, False))
+_chunk_bwd_op = _library.define(
+    f"ssd_chunk_bwd({_INPUTS}, Tensor dy, Tensor? dsT, Tensor Sp, Tensor tot, "
+    f"bool want_ds0) -> {_GRADS}", _chunk_bwd,
+    lambda x, dt, A, Bm, Cm, dy, dsT, Sp, tot, want_ds0: _bwd_fake(x, dt, A, Bm, Cm, want_ds0),
+    _flops(chunk_flops, True))
+_fwd_op = _library.define(
+    f"ssd_fwd({_INPUTS}, Tensor? init_state) -> (Tensor, Tensor)", _fwd, _fwd_fake,
+    _flops(recurrence_flops, False))
+_bwd_op = _library.define(
+    f"ssd_bwd({_INPUTS}, Tensor? init_state, Tensor dy, Tensor? dsT, bool want_ds0) "
+    f"-> {_GRADS}", _bwd,
+    lambda x, dt, A, Bm, Cm, init_state, dy, dsT, want_ds0:
+    _bwd_fake(x, dt, A, Bm, Cm, want_ds0), _flops(recurrence_flops, True))
 
 
 class SSDFunction(torch.autograd.Function):
@@ -282,24 +451,10 @@ class SSDFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, init_state):
-        Bsz, S, H, P = x.shape
-        N = Bm.shape[2]
-        dev = x.device
-        y = torch.empty_like(x)
-        sT = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ins = (_ptr(x), _ptr(dt), _ptr(A), _ptr(Bm), _ptr(Cm), _ptr(init_state))
         if x.dtype == torch.bfloat16:
-            nc = -(-S // CHUNK)
-            Sp = torch.empty((Bsz, nc, H, P, N), dtype=torch.float32, device=dev)
-            tot = torch.empty((Bsz, nc, H), dtype=torch.float32, device=dev)
-            _call("forward", _lib().ssd_chunk_fwd(*ins, _ptr(y), _ptr(sT), _ptr(Sp), _ptr(tot),
-                                                  Bsz, S, H, P, N, stream))
-            saved = (Sp, tot)
+            y, sT, *saved = _chunk_fwd_op(x, dt, A, Bm, Cm, init_state)
         else:
-            _call("forward", _lib().ssd_fwd(*ins, _ptr(y), _ptr(sT), Bsz, S, H, P, N, stream))
-            saved = ()
-        launches["fwd"] += 1
+            (y, sT), saved = _fwd_op(x, dt, A, Bm, Cm, init_state), ()
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, A, Bm, Cm, init_state, *saved)
         return y, sT
@@ -307,52 +462,27 @@ class SSDFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dsT):
         x, dt, A, Bm, Cm, init_state, *saved = ctx.saved_tensors
-        Bsz, S, H, P = x.shape
-        N = Bm.shape[2]
-        dev = x.device
-        dy = torch.zeros_like(x) if dy is None else _aligned(dy.to(x.dtype))
-        dsT = None if dsT is None else _aligned(dsT.float())
-        dx, dBm, dCm = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
-        ddt = torch.empty_like(dt)
-        dA = torch.empty_like(A)
-        f32 = torch.float32
-        ds0 = (torch.empty_like(init_state)
-               if init_state is not None and ctx.needs_input_grad[5] else None)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        outs = (_ptr(dx), _ptr(ddt), _ptr(dA), _ptr(dBm), _ptr(dCm), _ptr(ds0))
+        dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
+        dsT = None if dsT is None else dsT.float().contiguous()
+        want_ds0 = init_state is not None and ctx.needs_input_grad[5]
         if x.dtype == torch.bfloat16:
-            Sp, tot = saved
-            nc = Sp.shape[1]
-            G = torch.empty_like(Sp)
-            dBC_part = torch.empty((2, -(-H // HEAD_GROUP), Bsz, S, N), dtype=f32, device=dev)
-            dA_part = torch.empty((Bsz, nc, H), dtype=torch.float64, device=dev)
-            _call("backward", _lib().ssd_chunk_bwd(
-                _ptr(x), _ptr(dt), _ptr(A), _ptr(Bm), _ptr(Cm), _ptr(dy), _ptr(dsT), _ptr(Sp),
-                _ptr(tot), *outs, _ptr(G), _ptr(dBC_part), _ptr(dA_part), Bsz, S, H, P, N,
-                stream))
+            *grads, ds0 = _chunk_bwd_op(x, dt, A, Bm, Cm, dy, dsT, *saved, want_ds0)
         else:
-            dB_part = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
-            dC_part = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
-            dA_part = torch.empty((Bsz, H), dtype=torch.float64, device=dev)
-            ckpt = torch.empty((Bsz * H, -(-S // SEG), P, N), dtype=f32, device=dev)
-            _call("backward", _lib().ssd_bwd(
-                _ptr(x), _ptr(dt), _ptr(A), _ptr(Bm), _ptr(Cm), _ptr(init_state), _ptr(dy),
-                _ptr(dsT), *outs, _ptr(dB_part), _ptr(dC_part), _ptr(dA_part), _ptr(ckpt),
-                Bsz, S, H, P, N, stream))
-        launches["bwd"] += 1
-        return dx, ddt, dA, dBm, dCm, ds0
+            *grads, ds0 = _bwd_op(x, dt, A, Bm, Cm, init_state, dy, dsT, want_ds0)
+        return (*grads, ds0 if want_ds0 else None)
 
 
 def ssd(x, dt, A, Bm, Cm, init_state: Optional[torch.Tensor] = None) -> tuple:
     """SSD scan -> ``(y, final_state)``.  CUDA tensors launch the kernels on
-    the current stream (no synchronisation) or raise; CPU tensors take
-    ``ssd_plain``."""
+    the current stream (no synchronisation) or raise; meta tensors take the
+    operators' fake implementation; CPU tensors take ``ssd_plain``."""
     _check(x, dt, A, Bm, Cm, init_state)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, Bm, Cm, init_state)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd runs on cuda or cpu, not {x.device}")
-    _check_kernel(x, dt, A, Bm, Cm, init_state)
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd runs on cuda or cpu (or meta, which models the "
+                         f"card), not {x.device}")
+    _check_layout(x, dt, A, Bm, Cm, init_state)
     return SSDFunction.apply(x, dt, A, Bm, Cm, init_state)
 
 

@@ -36,11 +36,19 @@ chunk 64).  Every version here keeps every exponent non-positive:
   (``exp(sum_{j<m<t} log w_m)`` for a pair ``j < t``), never a difference
   of cumulative sums, so autograd through it is free of cancellation too.
 
+Each C entry is a registered operator, ``repro_torch::wkv6_chunk_fwd``/
+``_bwd`` (bf16) and ``repro_torch::wkv6_fwd``/``_bwd`` (fp32): the real
+implementation (CUDA tensors) checks the pointers the kernels read and
+launches; a fake one (fake and meta tensors: ``launch/dryrun.py``) returns
+empty outputs of the right shapes; a FLOP formula (``chunk_flops``,
+``recurrence_flops``) serves ``torch.utils.flop_counter``.
+
 ``wkv6`` is the wrapper: CUDA tensors go through ``WKV6Function`` (the
-forward kernels, and the backward kernels under autograd) or raise; CPU
-tensors take ``wkv6_plain`` and autograd through it.  ``launches`` counts
-calls that launch kernels, one per direction however many kernels a
-direction runs, and nothing else.
+forward kernels, and the backward kernels under autograd) or raise; meta
+and fake tensors take the same path through the operators' fake
+implementation; CPU tensors take ``wkv6_plain`` and autograd through it.
+``launches`` counts calls that launch kernels, one per direction however
+many kernels a direction runs, and nothing else.
 """
 from __future__ import annotations
 
@@ -49,6 +57,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import _library
 
 W_MIN = 1e-6  # the decay clip of the reference (log(clip(w, 1e-6, 1)))
 HEAD_SIZES = (32, 64)  # K = V the kernels take
@@ -265,8 +275,10 @@ def _check(r, k, v, w, u, init_state) -> None:
         raise ValueError(f"wkv6 inputs on different devices: {devs}")
 
 
-def _check_kernel(r, k, v, w, u, init_state) -> None:
-    """What the CUDA kernels take; anything else raises (no fallback)."""
+def _check_layout(r, k, v, w, u, init_state) -> None:
+    """The layouts the CUDA kernels take, read from shapes, strides and
+    dtypes alone (so fake and meta tensors are checked too); anything else
+    raises (no fallback)."""
     if r.dtype not in _DTYPE_CODE or len({r.dtype, k.dtype, v.dtype, w.dtype}) != 1:
         raise TypeError(f"wkv6 kernel takes r, k, v, w of one dtype, float32 or "
                         f"bfloat16, not {(r.dtype, k.dtype, v.dtype, w.dtype)}")
@@ -275,34 +287,185 @@ def _check_kernel(r, k, v, w, u, init_state) -> None:
     K, V = r.shape[3], v.shape[3]
     if K != V or K not in HEAD_SIZES:
         raise ValueError(f"wkv6 kernel takes K = V in {HEAD_SIZES}, not K={K} V={V}")
-    named = dict(r=r, k=k, v=v, w=w, u=u)
-    if init_state is not None:
-        if init_state.dtype != torch.float32:
-            raise TypeError(f"wkv6 kernel takes a float32 init_state, not {init_state.dtype}")
-        named["init_state"] = init_state
-    for name, t in named.items():
+    if init_state is not None and init_state.dtype != torch.float32:
+        raise TypeError(f"wkv6 kernel takes a float32 init_state, not {init_state.dtype}")
+    for name, t in _named(r, k, v, w, u, init_state).items():
         if not t.is_contiguous():
             raise ValueError(f"wkv6 kernel needs contiguous {name}")
-        # the bf16 kernels read these (and write the final state) 16 bytes at a time
-        if r.dtype == torch.bfloat16 and name != "u" and t.data_ptr() % 16:
-            raise ValueError(f"wkv6 kernel needs {name} 16-byte aligned")
     if r.dtype == torch.bfloat16 and r.shape[0] * r.shape[2] > 65535:
         raise ValueError(f"wkv6 bf16 kernels take B x H <= 65535, not {r.shape[0] * r.shape[2]}")
+
+
+def _named(r, k, v, w, u, init_state) -> dict:
+    named = dict(r=r, k=k, v=v, w=w, u=u)
+    if init_state is not None:
+        named["init_state"] = init_state
+    return named
+
+
+def _check_kernel(r, k, v, w, u, init_state) -> None:
+    """What the CUDA kernels take: the layout and, for bf16, 16-byte
+    aligned bases for every input but ``u`` (read, and the final state
+    written, 16 bytes at a time), which only a tensor with memory behind it
+    has."""
+    _check_layout(r, k, v, w, u, init_state)
+    if r.dtype == torch.bfloat16:
+        for name, t in _named(r, k, v, w, u, init_state).items():
+            if name != "u" and t.data_ptr() % 16:
+                raise ValueError(f"wkv6 kernel needs {name} 16-byte aligned")
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (a copy if it is not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` (contiguous) 16-byte aligned: a copy if it is not."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _call(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"wkv6 {name} kernel launch failed: CUDA error {err}")
+
+
+def chunk_flops(B: int, S: int, H: int, N: int, backward: bool = False) -> int:
+    """The operations of the bf16 kernels' chunked form (chunks of
+    ``KCHUNK``), taken per step: forward, the chunk's own state, ``A``,
+    ``A v`` and ``rdec S_in`` (``4 L N^2 + 2 L^2 N`` a chunk); backward
+    ``D``, ``A``, ``A^T do``, ``kdec G_out`` and the walk's ``dr``, ``dk``,
+    ``dw`` products (``10 L N^2 + 2 L^2 N``)."""
+    L = KCHUNK
+    return B * H * S * ((10 if backward else 4) * N * N + 2 * L * N)
+
+
+def recurrence_flops(B: int, S: int, H: int, N: int, backward: bool = False) -> int:
+    """The fp32 recurrence's operations per (b, t, h) step: ``5 N^2 + 4 N``
+    forward, ``14 N^2`` backward (which recomputes the states)."""
+    return B * S * H * (14 * N * N if backward else 5 * N * N + 4 * N)
+
+
+def _shapes(r, v):
+    B, S, H, N = r.shape
+    return (B, H, N, v.shape[3]), (B, -(-S // KCHUNK), H)
+
+
+def _chunk_fwd(r, k, v, w, u, init_state):
+    """The bf16 forward kernels (``u`` fp32) -> ``(o, final_state, Sp,
+    tot)``: ``Sp``, the state entering each chunk, and ``tot``, each
+    chunk's sum of ``log w``, are saved for the backward."""
+    _check_kernel(r, k, v, w, u, init_state)
+    B, S, H, N = r.shape
+    nc = -(-S // KCHUNK)
+    f32, dev = torch.float32, r.device
+    o = torch.empty_like(v)
+    sT = torch.empty((B, H, N, N), dtype=f32, device=dev)
+    Sp = torch.empty((B, nc, H, N, N), dtype=f32, device=dev)
+    tot = torch.empty((B, nc, H, N), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _call("forward", _lib().wkv6_chunk_fwd(
+        _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(init_state), _ptr(o), _ptr(sT),
+        _ptr(Sp), _ptr(tot), B, S, H, N, stream))
+    launches["fwd"] += 1
+    return o, sT, Sp, tot
+
+
+def _chunk_fwd_fake(r, k, v, w, u, init_state):
+    state, (B, nc, H) = _shapes(r, v)
+    f32 = torch.float32
+    return (torch.empty_like(v), r.new_empty(state, dtype=f32),
+            r.new_empty((B, nc) + state[1:], dtype=f32),
+            r.new_empty((B, nc, H, r.shape[3]), dtype=f32))
+
+
+def _chunk_bwd(r, k, v, w, u, do, dsT, Sp, tot, want_ds0):
+    """The bf16 backward kernels -> ``(dr, dk, dv, dw, du, ds0)``, ``du``
+    fp32; ``ds0`` is empty unless ``want_ds0``."""
+    B, S, H, N = r.shape
+    dev = r.device
+    do, dsT = _aligned(do), _aligned(dsT)
+    dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
+    du = torch.empty((H, N), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, N, N) if want_ds0 else (0,), dtype=torch.float32, device=dev)
+    G = torch.empty_like(Sp)
+    du_part = torch.empty(tot.shape, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _call("backward", _lib().wkv6_chunk_bwd(
+        _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(do), _ptr(dsT), _ptr(Sp),
+        _ptr(tot), _ptr(dr), _ptr(dk), _ptr(dv), _ptr(dw), _ptr(du),
+        _ptr(ds0) if want_ds0 else None, _ptr(G), _ptr(du_part), B, S, H, N, stream))
+    launches["bwd"] += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+def _fwd(r, k, v, w, u, init_state):
+    """The fp32 recurrence (``u`` fp32) -> ``(o, final_state)``."""
+    _check_kernel(r, k, v, w, u, init_state)
+    B, S, H, N = r.shape
+    o = torch.empty_like(v)
+    sT = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    _call("forward", _lib().wkv6_fwd(
+        _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(init_state), _ptr(o), _ptr(sT),
+        _DTYPE_CODE[r.dtype], B, S, H, N, stream))
+    launches["fwd"] += 1
+    return o, sT
+
+
+def _fwd_fake(r, k, v, w, u, init_state):
+    state, _ = _shapes(r, v)
+    return torch.empty_like(v), r.new_empty(state, dtype=torch.float32)
+
+
+def _bwd(r, k, v, w, u, init_state, do, dsT, want_ds0):
+    """The fp32 recurrence's backward (recomputing its states from
+    checkpoints) -> ``(dr, dk, dv, dw, du, ds0)``."""
+    B, S, H, N = r.shape
+    dev = r.device
+    do, dsT = _aligned(do), _aligned(dsT)
+    dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
+    du = torch.empty((H, N), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, N, N) if want_ds0 else (0,), dtype=torch.float32, device=dev)
+    du_part = torch.empty((B, H, N), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((B * H, -(-S // SEG), N, N), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _call("backward", _lib().wkv6_bwd(
+        _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(init_state), _ptr(do), _ptr(dsT),
+        _ptr(dr), _ptr(dk), _ptr(dv), _ptr(dw), _ptr(du), _ptr(ds0) if want_ds0 else None,
+        _ptr(du_part), _ptr(ckpt), _DTYPE_CODE[r.dtype], B, S, H, N, stream))
+    launches["bwd"] += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+def _bwd_fake(r, k, v, w, want_ds0):
+    state, (_, _, H) = _shapes(r, v)
+    return (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(w), r.new_empty((H, r.shape[3]), dtype=torch.float32),
+            r.new_empty(state if want_ds0 else (0,), dtype=torch.float32))
+
+
+def _flops(count, backward):
+    return lambda r, *_, **__: count(*r, backward=backward)
+
+
+_INPUTS = "Tensor r, Tensor k, Tensor v, Tensor w, Tensor u"
+_GRADS = "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)"
+_chunk_fwd_op = _library.define(
+    f"wkv6_chunk_fwd({_INPUTS}, Tensor? init_state) -> (Tensor, Tensor, Tensor, Tensor)",
+    _chunk_fwd, _chunk_fwd_fake, _flops(chunk_flops, False))
+_chunk_bwd_op = _library.define(
+    f"wkv6_chunk_bwd({_INPUTS}, Tensor do, Tensor? dsT, Tensor Sp, Tensor tot, "
+    f"bool want_ds0) -> {_GRADS}", _chunk_bwd,
+    lambda r, k, v, w, u, do, dsT, Sp, tot, want_ds0: _bwd_fake(r, k, v, w, want_ds0),
+    _flops(chunk_flops, True))
+_fwd_op = _library.define(
+    f"wkv6_fwd({_INPUTS}, Tensor? init_state) -> (Tensor, Tensor)", _fwd, _fwd_fake,
+    _flops(recurrence_flops, False))
+_bwd_op = _library.define(
+    f"wkv6_bwd({_INPUTS}, Tensor? init_state, Tensor do, Tensor? dsT, bool want_ds0) "
+    f"-> {_GRADS}", _bwd,
+    lambda r, k, v, w, u, init_state, do, dsT, want_ds0: _bwd_fake(r, k, v, w, want_ds0),
+    _flops(recurrence_flops, True))
 
 
 class WKV6Function(torch.autograd.Function):
@@ -315,25 +478,11 @@ class WKV6Function(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, init_state):
-        B, S, H, N = r.shape
-        dev = r.device
         u32 = u.float().contiguous()
-        o = torch.empty_like(v)
-        sT = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ins = (_ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u32), _ptr(init_state))
         if r.dtype == torch.bfloat16:
-            nc = -(-S // KCHUNK)
-            Sp = torch.empty((B, nc, H, N, N), dtype=torch.float32, device=dev)
-            tot = torch.empty((B, nc, H, N), dtype=torch.float32, device=dev)
-            _call("forward", _lib().wkv6_chunk_fwd(*ins, _ptr(o), _ptr(sT), _ptr(Sp), _ptr(tot),
-                                                   B, S, H, N, stream))
-            saved = (Sp, tot)
+            o, sT, *saved = _chunk_fwd_op(r, k, v, w, u32, init_state)
         else:
-            _call("forward", _lib().wkv6_fwd(*ins, _ptr(o), _ptr(sT), _DTYPE_CODE[r.dtype],
-                                             B, S, H, N, stream))
-            saved = ()
-        launches["fwd"] += 1
+            (o, sT), saved = _fwd_op(r, k, v, w, u32, init_state), ()
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, w, u32, init_state, *saved)
         ctx.u_dtype = u.dtype
@@ -342,44 +491,27 @@ class WKV6Function(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dsT):
         r, k, v, w, u32, init_state, *saved = ctx.saved_tensors
-        B, S, H, N = r.shape
-        dev = r.device
-        do = torch.zeros_like(v) if do is None else _aligned(do.to(r.dtype))
-        dsT = None if dsT is None else _aligned(dsT.float())
-        dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
-        du = torch.empty((H, N), dtype=torch.float32, device=dev)
-        ds0 = (torch.empty_like(init_state)
-               if init_state is not None and ctx.needs_input_grad[5] else None)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        outs = (_ptr(dr), _ptr(dk), _ptr(dv), _ptr(dw), _ptr(du), _ptr(ds0))
+        do = torch.zeros_like(v) if do is None else do.to(r.dtype).contiguous()
+        dsT = None if dsT is None else dsT.float().contiguous()
+        want_ds0 = init_state is not None and ctx.needs_input_grad[5]
         if r.dtype == torch.bfloat16:
-            Sp, tot = saved
-            G = torch.empty_like(Sp)
-            du_part = torch.empty(tot.shape, dtype=torch.float64, device=dev)
-            _call("backward", _lib().wkv6_chunk_bwd(
-                _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u32), _ptr(do), _ptr(dsT), _ptr(Sp),
-                _ptr(tot), *outs, _ptr(G), _ptr(du_part), B, S, H, N, stream))
+            dr, dk, dv, dw, du, ds0 = _chunk_bwd_op(r, k, v, w, u32, do, dsT, *saved, want_ds0)
         else:
-            du_part = torch.empty((B, H, N), dtype=torch.float32, device=dev)
-            ckpt = torch.empty((B * H, -(-S // SEG), N, N), dtype=torch.float32, device=dev)
-            _call("backward", _lib().wkv6_bwd(
-                _ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u32), _ptr(init_state), _ptr(do),
-                _ptr(dsT), *outs, _ptr(du_part), _ptr(ckpt), _DTYPE_CODE[r.dtype], B, S, H, N,
-                stream))
-        launches["bwd"] += 1
-        return dr, dk, dv, dw, du.to(ctx.u_dtype), ds0
+            dr, dk, dv, dw, du, ds0 = _bwd_op(r, k, v, w, u32, init_state, do, dsT, want_ds0)
+        return dr, dk, dv, dw, du.to(ctx.u_dtype), ds0 if want_ds0 else None
 
 
 def wkv6(r, k, v, w, u, init_state: Optional[torch.Tensor] = None) -> tuple:
     """WKV-6 -> ``(o, final_state)``.  CUDA tensors launch the kernels on
-    the current stream (no synchronisation) or raise; CPU tensors take
-    ``wkv6_plain``."""
+    the current stream (no synchronisation) or raise; meta tensors take the
+    operators' fake implementation; CPU tensors take ``wkv6_plain``."""
     _check(r, k, v, w, u, init_state)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u, init_state)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
-    _check_kernel(r, k, v, w, u, init_state)
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"wkv6 runs on cuda or cpu (or meta, which models the "
+                         f"card), not {r.device}")
+    _check_layout(r, k, v, w, u, init_state)
     return WKV6Function.apply(r, k, v, w, u, init_state)
 
 

@@ -7,7 +7,10 @@ names (``pod``, ``data``, ``model``): gloo on the CPU, NCCL on cards.
 ``make_mesh`` builds one over every rank (or a list of ranks);
 ``make_production_mesh`` builds the reference's (16, 16) or (2, 16, 16)
 mesh, or an ``AbstractMesh`` of that shape when the world is smaller, for
-the rules to read.  ``pow2_mesh_shape``/``largest_pow2_mesh`` and
+the rules to read.  ``fake_world`` is a process group whose collectives
+move nothing, where this process plays rank 0 of a world of any size: the
+meshes built on it are of the device type a dry-run models
+(``launch/dryrun.py``).  ``pow2_mesh_shape``/``largest_pow2_mesh`` and
 ``remesh_for_pool`` are the elastic re-carving over a surviving pool of
 ranks, and ``split_mesh_for_serving`` the prefill/decode carving.
 
@@ -34,6 +37,7 @@ when a step asks for their device (ROADMAP item 11b).
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -58,6 +62,37 @@ class AbstractMesh:
     def devices(self) -> np.ndarray:
         return np.zeros(self.shape, dtype=np.int8)
 
+    def __repr__(self) -> str:
+        return "x".join(f"{a}={n}" for a, n in zip(self.axis_names, self.shape))
+
+
+# the device types the meshes of the innermost ``fake_world`` are built on
+_FAKE_DEVICE_TYPE: List[str] = []
+
+
+@contextmanager
+def fake_world(world_size: int, device_type: str):
+    """A fake process group of ``world_size`` ranks in which this process is
+    rank 0: its collectives return at once and move nothing
+    (``torch.testing._internal.distributed.fake_pg``), so a step runs as
+    rank 0 of a world no machine here has.  The meshes built on it are of
+    ``device_type``, the device a dry-run models; for ``meta`` they are CPU
+    meshes holding meta tensors (DTensor asks a mesh's device module how
+    many devices a host has, and meta has none).  The group is destroyed
+    on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs a process without a process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    _FAKE_DEVICE_TYPE.append("cpu" if device_type == "meta" else device_type)
+    try:
+        yield
+    finally:
+        _FAKE_DEVICE_TYPE.pop()
+        dist.destroy_process_group()
+
 
 def _world() -> int:
     import torch.distributed as dist
@@ -69,9 +104,14 @@ def _world() -> int:
 
 
 def _device_type() -> str:
+    """The device type of this process group's meshes: cards under NCCL,
+    the modelled device in a ``fake_world``, else the CPU (gloo)."""
     import torch.distributed as dist
 
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    backend = dist.get_backend()
+    if backend == "fake":
+        return _FAKE_DEVICE_TYPE[-1] if _FAKE_DEVICE_TYPE else "cpu"
+    return "cuda" if backend == "nccl" else "cpu"
 
 
 def _rank_mesh(ranks: Sequence[int], shape: Tuple[int, ...], names: Tuple[str, ...]):

@@ -1,0 +1,204 @@
+"""Operation analysis of one step: FLOPs, bytes written, collective traffic
+and peak memory, counted as the step runs.
+
+The counterpart of ``repro/launch/hlo_analysis.py``.  The reference parses
+the compiled HLO text; the port compiles nothing, so it counts the
+operators the step dispatches, one call under ``torch.utils.flop_counter``
+and a dispatch mode of its own:
+
+  - FLOPs from ``FlopCounterMode``: the matrix products, convolutions and
+    library attention it knows, plus the port's kernels, whose registered
+    operators carry their own formulas (``kernels/flash_attention.py``,
+    ``ssd_scan.py``, ``wkv6.py``: the counts of ``PERF.md``'s bound column);
+  - bytes written: the output bytes of every operator that is not a view
+    or an alias of its input (an in-place operator writes its output, so it
+    counts), the local shard of a DTensor;
+  - collective operand bytes per kind, the reference's kinds:
+    ``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all`` and
+    ``collective-permute`` (send/recv and broadcast), from both the
+    functional collectives (``_c10d_functional.*``, DTensor's
+    redistribution) and the in-place ``c10d.*_`` operators
+    ``torch.distributed`` issues (``dist/fsdp.py``);
+  - the peak of live device memory: the bytes of every storage off the
+    CPU alive at once, the arguments' included, each rounded up to the
+    512-byte blocks of PyTorch's CUDA caching allocator, so the peak
+    compares with ``torch.cuda.max_memory_allocated``;
+  - ``diag``: operator, collective and kernel-operator counts.
+
+Shapes are those each rank holds, so every number is per device and per
+call.  Eager execution runs every layer, so the reference's trip-count
+multiplier for scanned layers has nothing to do here: each layer's
+operators are dispatched, and counted, once per execution (a rematerialised
+layer's forward twice).  The same counters run on fake tensors (the
+dry-run, ``launch/dryrun.py``) and on real ones (``chip_smoke.py`` phase
+13b), so the two counts compare operator for operator.
+"""
+from __future__ import annotations
+
+import weakref
+from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+BLOCK = 512  # the CUDA caching allocator's rounding of every block
+
+# collective operators -> (the reference's kind, index of the operand argument)
+_COLLECTIVES = {
+    "all_gather_into_tensor": ("all-gather", 0),
+    "all_gather_into_tensor_coalesced": ("all-gather", 0),
+    "allgather_": ("all-gather", 1),
+    "allgather_coalesced_": ("all-gather", 1),
+    "allgather_into_tensor_coalesced_": ("all-gather", 1),
+    "_allgather_base_": ("all-gather", 1),
+    "all_reduce": ("all-reduce", 0),
+    "all_reduce_coalesced": ("all-reduce", 0),
+    "allreduce_": ("all-reduce", 0),
+    "allreduce_coalesced_": ("all-reduce", 0),
+    "reduce_scatter_tensor": ("reduce-scatter", 0),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", 0),
+    "reduce_scatter_": ("reduce-scatter", 1),
+    "_reduce_scatter_base_": ("reduce-scatter", 1),
+    "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 1),
+    "all_to_all_single": ("all-to-all", 0),
+    "alltoall_": ("all-to-all", 1),
+    "alltoall_base_": ("all-to-all", 1),
+    "send": ("collective-permute", 0),
+    "recv_": ("collective-permute", 0),
+    "broadcast": ("collective-permute", 0),
+    "broadcast_": ("collective-permute", 0),
+}
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
+
+
+@dataclass
+class OpCosts:
+    """What one call dispatched, per device."""
+
+    flops: int = 0
+    flops_by_op: Dict[str, int] = field(default_factory=dict)
+    bytes_written: int = 0
+    collectives: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
+    peak_bytes: int = 0
+    argument_bytes: List[int] = field(default_factory=list)  # each argument's, exact
+    output_bytes: int = 0  # the result's storages off the CPU that no argument holds
+    diag: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
+    out: Any = None  # the call's result
+
+    @property
+    def collective_bytes(self) -> int:
+        return int(sum(self.collectives.values()))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (what this rank holds), else ``t``."""
+    inner = getattr(t, "_local_tensor", None)
+    return inner if isinstance(inner, torch.Tensor) else t
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    t = _local(t)
+    return t.numel() * t.element_size()
+
+
+def _writes(func, i: int) -> bool:
+    """Whether output ``i`` of ``func`` is written by it: a fresh output,
+    or one that aliases an input and is written (in place, ``out=``);
+    not a view or another alias."""
+    returns = func._schema.returns
+    alias = returns[min(i, len(returns) - 1)].alias_info if returns else None
+    return alias is None or alias.is_write
+
+
+class _Counter(TorchDispatchMode):
+    """Bytes written, collectives, live storages and their peak."""
+
+    def __init__(self, costs: OpCosts):
+        super().__init__()
+        self.costs = costs
+        self.live: Dict[int, int] = {}  # storage key -> rounded bytes
+        self.refs: Dict[int, weakref.ref] = {}
+        self.current = 0
+
+    def track(self, t: torch.Tensor) -> None:
+        t = _local(t)
+        if t.device.type == "cpu":  # host memory (a step counter), not the device's
+            return
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self.live:
+            return
+        n = -(-st.nbytes() // BLOCK) * BLOCK
+        self.live[key] = n
+        self.refs[key] = weakref.ref(st, lambda _, k=key: self._free(k))
+        self.current += n
+        self.costs.peak_bytes = max(self.costs.peak_bytes, self.current)
+
+    def _free(self, key: int) -> None:
+        self.current -= self.live.pop(key, 0)
+        self.refs.pop(key, None)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        costs = self.costs
+        costs.diag["n_ops"] += 1
+        ns, name = func.namespace, func._schema.name.split("::")[-1]
+        if ns == "repro_torch":
+            costs.diag["n_kernel_ops"] += 1
+        if ns in _COLLECTIVE_NAMESPACES and name in _COLLECTIVES:
+            kind, arg = _COLLECTIVES[name]
+            operand = args[arg] if len(args) > arg else None
+            costs.collectives[kind] += sum(_nbytes(t) for t in _tensors(operand))
+            costs.diag["n_collective_ops"] += 1
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        for i, t in enumerate(outs):
+            if isinstance(t, torch.Tensor):
+                if _writes(func, i):
+                    costs.bytes_written += _nbytes(t)
+                self.track(t)
+        return out
+
+    def close(self) -> None:
+        self.refs.clear()  # later frees are no longer this call's
+
+
+def analyze_step(fn: Callable, *args) -> OpCosts:
+    """Run ``fn(*args)`` once under the counters and return its costs;
+    ``OpCosts.out`` is the call's result.  The storages of ``args`` count
+    as live from the start; ``argument_bytes`` are the bytes each argument
+    holds (a DTensor's local shard, host scalars included) and
+    ``output_bytes`` those of the result's device storages that are not an
+    argument's (an update in place writes into its argument)."""
+    costs = OpCosts(argument_bytes=[sum(_nbytes(t) for t in _tensors(a)) for a in args])
+    counter = _Counter(costs)
+    for t in _tensors(args):
+        counter.track(t)
+    held = {_local(t).untyped_storage()._cdata for t in _tensors(args)}
+    flop_counter = FlopCounterMode(display=False)
+    try:
+        with flop_counter, counter:
+            costs.out = fn(*args)
+    finally:
+        counter.close()
+    costs.output_bytes = sum(
+        _nbytes(t) for t in _tensors(costs.out)
+        if _local(t).device.type != "cpu" and _local(t).untyped_storage()._cdata not in held)
+    costs.flops = int(flop_counter.get_total_flops())
+    costs.flops_by_op = {str(op): int(n) for op, n in
+                         flop_counter.get_flop_counts().get("Global", {}).items()}
+    costs.collectives = dict(costs.collectives)
+    costs.diag = dict(costs.diag)
+    return costs

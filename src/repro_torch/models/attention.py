@@ -106,8 +106,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
 
 def attend(q, k, v, *, causal=True, window=0, softcap=0.0, block_q=512,
            min_blocked_len=2048):
-    """Shape-dispatching attention used by the model forward passes."""
-    if q.device.type == "cuda":
+    """Shape-dispatching attention used by the model forward passes: the
+    flash kernels on the card (and on meta tensors, which model it)."""
+    if q.device.type in ("cuda", "meta"):
         return ops.attention(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.shape[1] >= min_blocked_len:
         return blocked_attention(

@@ -99,8 +99,10 @@ def adamw(
             "m": tree_map(zeros, params),
             "v": tree_map(zeros, params),
             # on the host: the schedule reads it every update, and reading
-            # a device scalar would wait for the step's stream each time
-            "count": torch.zeros((), dtype=torch.int32),
+            # a device scalar would wait for the step's stream each time.
+            # ``torch.tensor`` keeps it a real value under FakeTensorMode
+            # (launch/dryrun.py), where ``float(count)`` must still work
+            "count": torch.tensor(0, dtype=torch.int32),
         }
 
     @torch.no_grad()
@@ -178,7 +180,7 @@ def adafactor(
             return {"v": torch.zeros_like(p, dtype=torch.float32)}
 
         # the count on the host, as adamw's
-        return {"stats": tree_map(st, params), "count": torch.zeros((), dtype=torch.int32)}
+        return {"stats": tree_map(st, params), "count": torch.tensor(0, dtype=torch.int32)}
 
     @torch.no_grad()
     def update(grads, state, params):

@@ -230,8 +230,73 @@ def run_powersgd(name, case, ref, out, rank):
     np.save(os.path.join(out, f"{name}-avg-{rank}.npy"), (total / case["iters"]).numpy())
 
 
+def primitive_collectives(world):
+    """``(fn, args, expected)``: one call of each collective the port's
+    steps issue, in-place (``torch.distributed``) and functional, on
+    tensors of known sizes, and the operand bytes each kind must count: an
+    all-gather's operand is this rank's piece, a reduce-scatter's the whole
+    input, an all-to-all's its input, a broadcast's its tensor.  Every
+    dtype and size differs, so a count taken from an output or of the
+    wrong tensor differs from ``expected``."""
+    import torch.distributed._functional_collectives as funcol
+
+    group = dist.group.WORLD
+    a = torch.ones(3, 5)                                # fp32: 60 bytes
+    g = torch.ones(2, 7, dtype=torch.float64)           # 112; gathered: world x
+    rs = torch.ones(world * 3, 4)                       # world x 48; scattered: 48
+    x = torch.ones(world * 2, 3, dtype=torch.float16)   # world x 12
+    b = torch.ones(5, dtype=torch.int64)                # 40
+
+    def fn(a, g, rs, x, b):
+        dist.all_reduce(a)
+        dist.all_gather_into_tensor(g.new_empty(world * 2, 7), g)
+        dist.all_gather([torch.empty_like(g) for _ in range(world)], g)
+        dist.reduce_scatter_tensor(rs.new_empty(3, 4), rs)
+        dist.all_to_all_single(torch.empty_like(x), x)
+        dist.broadcast(b, 0)
+        outs = [funcol.all_reduce(a, "sum", group), funcol.all_gather_tensor(g, 0, group),
+                funcol.reduce_scatter_tensor(rs, "sum", 0, group)]
+        return [funcol.wait_tensor(o) for o in outs]
+
+    expected = {"all-reduce": 2 * 60, "all-gather": 3 * 112,
+                "reduce-scatter": 2 * world * 48, "all-to-all": world * 12,
+                "collective-permute": 40}
+    return fn, (a, g, rs, x, b), expected
+
+
+def run_collectives(name, case, ref, out, rank):
+    """One train step of ``case["arch"]`` (fp32, 8 x 16) under
+    ``launch.op_analysis.analyze_step``, then ``primitive_collectives``;
+    rank 0 writes the collective bytes it counted, by kind, and the
+    collective operator count of the step, and the primitives' bytes."""
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.dist.sharding import device_put
+    from repro_torch.launch.op_analysis import analyze_step
+    from repro_torch.models.api import get_model, make_batch
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import jit_train_step
+
+    cfg = _config(case["arch"])
+    api, opt = get_model(cfg), make_optimizer(cfg)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=8, name="t")
+    fn, st_sh, bt_sh = jit_train_step(api, opt, _mesh(case["mesh"]), shape)
+    gen = torch.Generator().manual_seed(0)
+    state = device_put(init_state(api, opt, gen, "cpu"), st_sh)
+    batch = device_put(make_batch(cfg, 8, 16, gen, "cpu"), bt_sh)
+    costs = analyze_step(fn, state, batch)
+    prim_fn, prim_args, _ = primitive_collectives(dist.get_world_size())
+    prim = analyze_step(prim_fn, *prim_args)
+    if rank == 0:
+        with open(os.path.join(out, f"{name}-port.json"), "w") as f:
+            json.dump({"collectives": costs.collectives,
+                       "n_collective_ops": costs.diag.get("n_collective_ops", 0),
+                       "primitives": prim.collectives, "world": dist.get_world_size()}, f)
+
+
 RUN = {"train": run_train, "powersgd": run_powersgd, "serve": run_serve, "restore": run_restore,
-       "raises": run_raises, "bg_slice": run_bg_slice, "remesh": run_remesh}
+       "raises": run_raises, "bg_slice": run_bg_slice, "remesh": run_remesh,
+       "collectives": run_collectives}
 
 
 def _rank(rank, world, ref, out, cases):

@@ -67,7 +67,8 @@ def _train_case(name):
 SPAWNS = [  # (mesh, cases), in order: the restore reads the (4, 2) spawn's checkpoint
     ([4, 2], {"llama-4x2": _train_case("llama-4x2"),
               "serve-4x2": {"kind": "serve", "arch": "llama3-8b", "mesh": [4, 2]},
-              "raises-4x2": {"kind": "raises", "mesh": [4, 2], "archs": RAISE_ARCHS}}),
+              "raises-4x2": {"kind": "raises", "mesh": [4, 2], "archs": RAISE_ARCHS},
+              "collectives-4x2": {"kind": "collectives", "arch": "llama3-8b", "mesh": [4, 2]}}),
     ([8, 1], {"moe-8x1": _train_case("moe-8x1"),
               "remesh": {"kind": "remesh", "pools": POOLS}}),
     ([4, 1], {**{n: _train_case(n) for n in ("qwen72-4x1", "rwkv-4x1", "zamba-4x1",
@@ -275,6 +276,97 @@ def test_item_11b_layouts_raise(runs, arch):
     with open(_port_file(port, "raises-4x2", "json")) as f:
         msg = json.load(f)[arch]
     assert "item 11b" in msg and "'model' axis of 2" in msg, msg
+
+
+def test_fake_group_counts_the_gloo_ranks_collectives(runs):
+    """``launch.op_analysis`` on rank 0 of a fake (4, 2) process group (the
+    dry-run's ``run_step``, fake meta tensors) counts the collective bytes,
+    by kind, that it counts on rank 0 of 8 gloo ranks running the same
+    step."""
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.launch.dryrun import run_step
+    from repro_torch.launch.mesh import fake_world, make_mesh
+
+    _, port = runs
+    with open(_port_file(port, "collectives-4x2", "json")) as f:
+        gloo = json.load(f)
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), dtype="float32")
+    shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=8, name="t")
+    with fake_world(8, "meta"):
+        rec = run_step(cfg, shape, make_mesh(4, 2), "meta")
+    assert rec["collective_bytes"] == gloo["collectives"]
+    assert rec["collective_diag"]["n_collective_ops"] == gloo["n_collective_ops"] > 0
+    assert set(gloo["collectives"]) == {"all-gather", "all-reduce", "reduce-scatter"}
+
+
+def test_gloo_ranks_count_known_collective_operand_bytes(runs):
+    """On the same 8 gloo ranks, one call of each collective on tensors of
+    known sizes counts each kind's operand bytes: an all-gather's own
+    piece, a reduce-scatter's whole input
+    (``_dist_ranks.primitive_collectives``)."""
+    import _dist_ranks
+
+    _, port = runs
+    with open(_port_file(port, "collectives-4x2", "json")) as f:
+        gloo = json.load(f)
+    assert gloo["world"] == 8
+    assert gloo["primitives"] == _dist_ranks.primitive_collectives(8)[2]
+
+
+def test_step_collective_bytes_equal_the_analytic_count(runs):
+    """The collective bytes of reduced llama3-8b's train step on the (4, 2)
+    gloo ranks (fp32, 8 x 16), counted from the sharding specs and the
+    model's structure alone:
+
+      - all-gather: each leaf split over 'data' gathers this rank's piece
+        at its use, the layers' twice (``remat_policy`` 'full' recomputes
+        each layer's forward in the backward), the embedding and the head
+        once;
+      - reduce-scatter: each such leaf's gradient once, in its gathered
+        (tensor-parallel only) layout;
+      - all-reduce, of (B/4, S, D) activations: the embedding's
+        vocab-parallel sum, each layer's attention and MLP row-parallel
+        sums, the attention's again in the recompute (which stops at the
+        last tensor the backward saved, before the MLP's sum), the
+        gradients of each layer's two column-parallel inputs and of the
+        head's input; of (B/4, S, KV, dh): the K and V projections'
+        gradients (the KV heads are whole on every rank); of (B/4, S): the
+        vocab-parallel cross-entropy's max, sum of exponentials and target
+        logit; two scalars for the global mean; the norms' gradients."""
+    import math
+
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.dist.sharding import pspec, sharding_rules
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.api import get_model
+
+    _, port = runs
+    with open(_port_file(port, "collectives-4x2", "json")) as f:
+        gloo = json.load(f)
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), dtype="float32")
+    shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=8, name="t")
+    dp, tp = 4, 2
+    mesh = AbstractMesh((dp, tp), ("data", "model"))
+    rules = sharding_rules(cfg, mesh, shape)
+    api = get_model(cfg)
+    axes = flatten(api.axes())
+    gather = scatter = 0
+    for key, leaf in flatten(api.abstract()).items():
+        spec = pspec(axes[key], leaf.shape, rules, mesh)
+        names = {a for p in spec if p for a in ((p,) if isinstance(p, str) else p)}
+        if "data" not in names:
+            continue
+        gathered = math.prod(leaf.shape) * leaf.dtype.itemsize // (tp if "model" in names else 1)
+        assert cfg.remat_policy == "full"
+        gather += (2 if key.startswith("layers/") else 1) * gathered // dp
+        scatter += gathered
+    B, S, D, L = shape.global_batch // dp, shape.seq_len, cfg.d_model, cfg.num_layers
+    reduce = 4 * ((1 + 2 * L + L + 2 * L + 1) * B * S * D
+                  + 2 * L * B * S * cfg.num_kv_heads * cfg.d_head
+                  + 3 * B * S + 2 + (2 * L + 1) * D)
+    assert gloo["collectives"] == {"all-gather": gather, "reduce-scatter": scatter,
+                                   "all-reduce": reduce}
 
 
 @pytest.mark.parametrize("pool", sorted(POOLS))

@@ -69,3 +69,19 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("entry,argv", [
+    ("serve_lm", []), ("train_lm", ["--fast", "--steps", "1"]),
+])
+def test_example_entry_points_need_a_card_unless_told_cpu(monkeypatch, entry, argv):
+    """``launch.serve_lm`` and ``launch.train_lm`` run on the card by default
+    and raise before any work without one (``--device cpu`` runs them on the
+    CPU, ``tests/test_torch_examples.py``).  The dry-run and the planner
+    demo need no card."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"repro_torch.launch.{entry}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)

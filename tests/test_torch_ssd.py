@@ -197,9 +197,18 @@ def test_kernel_input_checks_raise(case, err):
 
 
 def test_other_devices_raise():
+    """A device other than cuda, cpu and meta (which models the card: the
+    registered operators' fake implementation gives the outputs' shapes)
+    raises."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
     arrs = [t.to("meta") for t in _t(_inputs(1, 4, 1, 32, 16))]
+    y, sT = ss.ssd(*arrs)
+    assert (y.device.type, tuple(y.shape), tuple(sT.shape)) == ("meta", (1, 4, 1, 32),
+                                                                 (1, 1, 32, 16))
+    mode = FakeTensorMode()
     with pytest.raises(ValueError, match="cuda or cpu"):
-        ss.ssd(*arrs)
+        ss.ssd(*(FakeTensor(mode, t, torch.device("xpu")) for t in arrs))
 
 
 @pytest.mark.parametrize("bad", ["dt_shape", "A_shape", "C_shape", "state_shape"])

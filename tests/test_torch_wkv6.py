@@ -239,9 +239,18 @@ def test_wrapper_constants_match_the_cuda_source():
 
 
 def test_other_devices_raise():
-    r, k, v, w, u = (x.to("meta") for x in _t(_inputs(1, 4, 1, 32, 32)))
+    """A device other than cuda, cpu and meta (which models the card: the
+    registered operators' fake implementation gives the outputs' shapes)
+    raises."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+    arrs = [x.to("meta") for x in _t(_inputs(1, 4, 1, 32, 32))]
+    o, sT = wk.wkv6(*arrs)
+    assert (o.device.type, tuple(o.shape), tuple(sT.shape)) == ("meta", (1, 4, 1, 32),
+                                                                (1, 1, 32, 32))
+    mode = FakeTensorMode()
     with pytest.raises(ValueError, match="cuda or cpu"):
-        wk.wkv6(r, k, v, w, u)
+        wk.wkv6(*(FakeTensor(mode, t, torch.device("xpu")) for t in arrs))
 
 
 @pytest.mark.parametrize("bad", ["u_shape", "v_shape", "state_shape"])
