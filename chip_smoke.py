@@ -284,11 +284,24 @@ Slice 10, the dry-run and the example entry points (after 12a; a
      achieved TFLOP/s of the counted FLOPs over 11b's median step.
   13c. the dry-run CLI, a process a cell: llama3-8b ``train_4k`` on the
      (16, 16) production mesh (256 fake ranks) writes its record; a cell
-     the port refuses (qwen3-moe-30b-a3b ``train_4k``) exits non-zero
+     the port refuses (seamless-m4t-large-v2 ``train_4k``) exits non-zero
      naming item 11b; the wall time of each.
   13d. ``launch.burst_plan_demo``, ``launch.train_lm`` (the ~100M config,
      ``TRAIN_LM_STEPS`` steps: losses fall) and ``launch.serve_lm`` for
      qwen2-1.5b and rwkv6-1.6b on the card, launches from the counters.
+Slice 11, tensor parallelism over 'model' (after 13d; a ``slice11: {...}``
+line comes before ``slice10``):
+  14a. each kernel at the shapes a rank of the (16, 16) mesh gives it at
+     ``train_4k`` (``TP_FLASH``, ``TP_SSD``, ``TP_WKV``), bf16 forward and
+     backward against its plain version with phase 3's tolerances; single
+     calls and calls back to back beside the plain version, the library
+     call (SDPA, or ``flex_attention`` with the cap) and the bound; the
+     rows go into each kernel record's ``tp_rank``.
+  14b. rank 0's step of each ``TP_CELLS`` cell at full width (grok-1 cut
+     in depth) on real CUDA tensors as rank 0 of a fake 256-rank world,
+     under ``launch.op_analysis``'s counters: FLOPs equal to the dry-run's
+     of the same cell exactly, ``max_memory_allocated`` net within
+     ``DRYRUN_PEAK_TOL`` of its peak; each cell's step time and launches.
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
@@ -457,6 +470,24 @@ def _time_ms(fn, reps=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _loop_ms(fn, calls=20, warmup=3):
+    """Mean time of ``calls`` calls issued back to back between two CUDA
+    events (the window holds the kernels alone when the host runs ahead)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def _rate(name, ops, ms, bound_ms):
@@ -668,25 +699,38 @@ def _routes(prefix, fn, make_inputs, chunked, recurrence):
         print(f"{prefix.rstrip('_')} {dtype} route runs: {', '.join(ran)}", flush=True)
 
 
-def phase_wkv6(sweep=WKV_SWEEP):
-    """Phase 3b: which kernels each route runs, then both WKV-6 kernels
-    against ``wkv6_plain``, then their times at the slice shape."""
+def _wkv_bytes(B, S, H, N):
+    """Bytes the bf16 WKV-6 forward and backward must move, each input
+    read once and each output written once."""
+    elem = 2 * B * S * H * N  # bytes of one bf16 (B, S, H, N) tensor
+    fwd = 5 * elem + 4 * H * N + 4 * B * H * N * N  # r k v w in, o out; u; final state
+    bwd = 9 * elem + 2 * 4 * H * N  # r k v w do in, dr dk dv dw out; u, du
+    return fwd, bwd
+
+
+def phase_wkv6(sweep=WKV_SWEEP, timed=(WKV_SLICE,), routes=True):
+    """Phase 3b: which kernels each route runs (``routes``), then both
+    WKV-6 kernels against ``wkv6_plain`` at each ``timed`` shape (bf16,
+    the decays from the model's formula) and over ``sweep``, then their
+    single-call and back-to-back times at each ``timed`` shape.  Returns
+    the fwd and bwd records of each timed shape, in one list."""
     import torch
 
     from repro_torch.kernels import wkv6 as wk
 
-    _routes("wkv6_", wk.wkv6, lambda dt: _wkv_inputs(2, 200, 4, 64, dt, 0.0, True, seed=7),
-            WKV_CHUNKED, WKV_RECURRENCE)
+    if routes:
+        _routes("wkv6_", wk.wkv6,
+                lambda dt: _wkv_inputs(2, 200, 4, 64, dt, 0.0, True, seed=7),
+                WKV_CHUNKED, WKV_RECURRENCE)
     names = ["o", "final_state", "dr", "dk", "dv", "dw", "du", "d_init_state"]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     used = {"float32": 0.0, "bfloat16": 0.0}  # largest share of an element's tolerance
     where = {"float32": "", "bfloat16": ""}
     by_name = {}
     n = 0
-    sl = WKV_SLICE
-    main_path = [(sl["B"], sl["S"], sl["H"], sl["N"], None, False, "bfloat16")]
+    main_path = [(sl["B"], sl["S"], sl["H"], sl["N"], None, False, "bfloat16") for sl in timed]
     cases = [(2, S, 4, N, dec, init, dtype)
-             for S, N, dec, init, dtype in itertools.product(*sweep.values())]
+             for S, N, dec, init, dtype in itertools.product(*sweep.values())] if sweep else []
     for B, S, H, N, dec, init, dtype in main_path + cases:
         ins = _wkv_inputs(B, S, H, N, dtype, dec, init, seed=100 + n)
         g = torch.Generator(device="cuda").manual_seed(n)
@@ -699,7 +743,8 @@ def phase_wkv6(sweep=WKV_SWEEP):
                      got, want, WKV_TOL[dtype], worst, used, where, dtype, by_name=by_name)
         n += 1
     print(f"kernels: wkv6 forward and backward match wkv6_plain on {n} cases "
-          f"(o, final state, dr, dk, dv, dw, du, d init_state; 1 at the slice shape); "
+          f"(o, final state, dr, dk, dv, dw, du, d init_state; {len(timed)} at the timed "
+          f"shapes); "
           f"max abs err fp32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}; largest "
           f"share of an element's tolerance (tol + tol |plain|, tol fp32 {WKV_TOL['float32']}, "
           f"bf16 {WKV_TOL['bfloat16']}): fp32 {used['float32']:.3g} ({where['float32']}), "
@@ -711,60 +756,64 @@ def phase_wkv6(sweep=WKV_SWEEP):
         print(f"  largest share of the tolerance by output, {dtype}: "
               + ", ".join(f"{k} {v:.3g}" for k, v in per.items()), flush=True)
 
-    B, S, H, N = (sl[x] for x in ("B", "S", "H", "N"))
-    r, k, v, w, u, _ = _wkv_inputs(B, S, H, N, "bfloat16", None, False, seed=7)
-    do = torch.randn(v.shape, device="cuda").to(v.dtype)
-    with torch.no_grad():
-        fwd_ms = _time_ms(lambda: wk.wkv6(r, k, v, w, u))
-        plain_fwd_ms = _time_ms(lambda: wk.wkv6_plain(r, k, v, w, u), reps=5)
-    leaves = [x.detach().requires_grad_() for x in (r, k, v, w, u)]
-    o, _ = wk.wkv6(*leaves)
-    bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
-    first = torch.autograd.grad(o, leaves, do, retain_graph=True)
-    second = torch.autograd.grad(o, leaves, do, retain_graph=True)
-    same = [torch.equal(a, b) for a, b in zip(first, second)]
-    print(f"wkv6 backward at the slice shape, two calls bit-identical: "
-          + ", ".join(f"{k} {v}" for k, v in zip(("dr", "dk", "dv", "dw", "du"), same)),
-          flush=True)
-    if not all(same):
-        fail("wkv6 backward is not deterministic at the slice shape")
-    del o, first, second
-    o, _ = wk.wkv6_plain(*leaves)
-    plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
-                            reps=5)
-    del o, leaves
-    torch.cuda.empty_cache()
-    elem = 2 * B * S * H * N  # bytes of one bf16 (B, S, H, N) tensor
-    fwd_bytes = 5 * elem + 4 * H * N + 4 * B * H * N * N  # r k v w in, o out; u; final state
-    bwd_bytes = 9 * elem + 2 * 4 * H * N  # r k v w do in, dr dk dv dw out; u, du
-    # the registered operators' formulas: the chunked form's, and the fp32
-    # route's recurrence
-    fwd_ops, bwd_ops = wk.chunk_flops(B, S, H, N), wk.chunk_flops(B, S, H, N, backward=True)
-    rec_ops = {"wkv6_fwd": wk.recurrence_flops(B, S, H, N),
-               "wkv6_bwd": wk.recurrence_flops(B, S, H, N, backward=True)}
     records = []
-    for name, ms, plain_ms, nbytes, ops in (
-            ("wkv6_fwd", fwd_ms, plain_fwd_ms, fwd_bytes, fwd_ops),
-            ("wkv6_bwd", bwd_ms, plain_bwd_ms, bwd_bytes, bwd_ops)):
-        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["bfloat16"]
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        rec_ms = max(t_bytes, rec_ops[name] / FP32_PEAK) * 1e3
-        print(f"{name} B={B} S={S} H={H} N={N} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library none, bound {max(t_bytes, t_ops) * 1e3:.4f} ms ({bound_by}; "
-              f"{ops / 1e9:.2f} GFLOP of the chunked form at 989 TFLOP/s = "
-              f"{t_ops * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
-              f"{t_bytes * 1e3:.4f} ms; the fp32 recurrence's bound {rec_ms:.4f} ms, "
-              f"{rec_ops[name] / 1e9:.2f} GFLOP at {FP32_PEAK / 1e12:.0f} TFLOP/s)", flush=True)
-        records.append(dict(
-            name=name, route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
-            replaces="src/repro/kernels/wkv6.py:24", max_abs_err=max(worst.values()),
-            max_abs_err_fp32=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
-            tol_share_fp32=used["float32"], tol_share_bf16=used["bfloat16"],
-            tol_share_by_output=shares, deterministic=all(same),
-            cases=n, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by=bound_by, library_ms=None, shape=WKV_SLICE,
-            **_rate(name, ops, ms, max(t_bytes, t_ops) * 1e3),
-        ))
+    for sl in timed:
+        B, S, H, N = (sl[x] for x in ("B", "S", "H", "N"))
+        r, k, v, w, u, _ = _wkv_inputs(B, S, H, N, "bfloat16", None, False, seed=7)
+        do = torch.randn(v.shape, device="cuda").to(v.dtype)
+        with torch.no_grad():
+            fwd_ms = _time_ms(lambda: wk.wkv6(r, k, v, w, u))
+            fwd_loop = _loop_ms(lambda: wk.wkv6(r, k, v, w, u))
+            plain_fwd_ms = _time_ms(lambda: wk.wkv6_plain(r, k, v, w, u), reps=5)
+        leaves = [x.detach().requires_grad_() for x in (r, k, v, w, u)]
+        o, _ = wk.wkv6(*leaves)
+        bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+        bwd_loop = _loop_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+        first = torch.autograd.grad(o, leaves, do, retain_graph=True)
+        second = torch.autograd.grad(o, leaves, do, retain_graph=True)
+        same = [torch.equal(a, b) for a, b in zip(first, second)]
+        print(f"wkv6 backward at B={B} S={S} H={H} N={N}, two calls bit-identical: "
+              + ", ".join(f"{k} {v}" for k, v in zip(("dr", "dk", "dv", "dw", "du"), same)),
+              flush=True)
+        if not all(same):
+            fail(f"wkv6 backward is not deterministic at B={B} S={S} H={H} N={N}")
+        del o, first, second
+        o, _ = wk.wkv6_plain(*leaves)
+        plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
+                                reps=5)
+        del o, leaves
+        torch.cuda.empty_cache()
+        fwd_bytes, bwd_bytes = _wkv_bytes(B, S, H, N)
+        # the registered operators' formulas: the chunked form's, and the fp32
+        # route's recurrence
+        fwd_ops, bwd_ops = wk.chunk_flops(B, S, H, N), wk.chunk_flops(B, S, H, N, backward=True)
+        rec_ops = {"wkv6_fwd": wk.recurrence_flops(B, S, H, N),
+                   "wkv6_bwd": wk.recurrence_flops(B, S, H, N, backward=True)}
+        for name, ms, loop_ms, plain_ms, nbytes, ops in (
+                ("wkv6_fwd", fwd_ms, fwd_loop, plain_fwd_ms, fwd_bytes, fwd_ops),
+                ("wkv6_bwd", bwd_ms, bwd_loop, plain_bwd_ms, bwd_bytes, bwd_ops)):
+            t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["bfloat16"]
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            rec_ms = max(t_bytes, rec_ops[name] / FP32_PEAK) * 1e3
+            print(f"{name} B={B} S={S} H={H} N={N} bf16: kernel {ms:.4f} ms single, "
+                  f"{loop_ms:.4f} ms back to back, plain {plain_ms:.4f} ms, "
+                  f"library none, bound {max(t_bytes, t_ops) * 1e3:.4f} ms ({bound_by}; "
+                  f"{ops / 1e9:.2f} GFLOP of the chunked form at 989 TFLOP/s = "
+                  f"{t_ops * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+                  f"{t_bytes * 1e3:.4f} ms; the fp32 recurrence's bound {rec_ms:.4f} ms, "
+                  f"{rec_ops[name] / 1e9:.2f} GFLOP at {FP32_PEAK / 1e12:.0f} TFLOP/s)",
+                  flush=True)
+            records.append(dict(
+                name=name, route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
+                replaces="src/repro/kernels/wkv6.py:24", max_abs_err=max(worst.values()),
+                max_abs_err_fp32=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
+                tol_share_fp32=used["float32"], tol_share_bf16=used["bfloat16"],
+                tol_share_by_output=shares, deterministic=all(same),
+                cases=n, ms=ms, loop_ms=loop_ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops) * 1e3, bound_by=bound_by, library_ms=None,
+                shape=dict(sl),
+                **_rate(name, ops, ms, max(t_bytes, t_ops) * 1e3),
+            ))
     return records
 
 
@@ -813,25 +862,40 @@ SSD_CHUNKED = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_out
 SSD_RECURRENCE = ("ssd_fwd_kernel", "ssd_bwd_kernel")
 
 
-def phase_ssd(sweep=SSD_SWEEP):
-    """Phase 3c: both SSD kernels against ``ssd_plain``, then their times at
-    the slice shape."""
+def _ssd_bytes(B, S, H, P, N):
+    """Bytes the bf16 SSD forward and backward must move, each input read
+    once and each output written once."""
+    big, small = 2 * B * S * H * P, 2 * B * S * N  # bytes of a bf16 x / Bm
+    state = 4 * B * H * P * N
+    fwd = 2 * big + 4 * B * S * H + 4 * H + 2 * small + state  # x, dt, A, Bm, Cm in; y, state out
+    bwd = 3 * big + 8 * B * S * H + 8 * H + 4 * small  # x dy dx; dt ddt; A dA; Bm Cm dBm dCm
+    return fwd, bwd
+
+
+def phase_ssd(sweep=SSD_SWEEP, timed=(SSD_SLICE,), routes=True):
+    """Phase 3c: which kernels each route runs (``routes``), then both SSD
+    kernels against ``ssd_plain`` at each ``timed`` shape (bf16, dt and A
+    from the model's formula) and over ``sweep``, then their single-call
+    and back-to-back times at each ``timed`` shape.  Returns the fwd and
+    bwd records of each timed shape, in one list."""
     import torch
 
     from repro_torch.kernels import ssd_scan as ss
 
-    _routes("ssd_", ss.ssd, lambda dt: _ssd_inputs(2, 200, 4, 64, 64, dt, 0.0, True, seed=7),
-            SSD_CHUNKED, SSD_RECURRENCE)
+    if routes:
+        _routes("ssd_", ss.ssd,
+                lambda dt: _ssd_inputs(2, 200, 4, 64, 64, dt, 0.0, True, seed=7),
+                SSD_CHUNKED, SSD_RECURRENCE)
     names = ["y", "final_state", "dx", "ddt", "dA", "dBm", "dCm", "d_init_state"]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     used = {"float32": 0.0, "bfloat16": 0.0}
     where = {"float32": "", "bfloat16": ""}
     by_name = {}
     n = 0
-    sl = SSD_SLICE
-    main_path = [(sl["B"], sl["S"], sl["H"], sl["P"], sl["N"], None, False, "bfloat16")]
+    main_path = [(sl["B"], sl["S"], sl["H"], sl["P"], sl["N"], None, False, "bfloat16")
+                 for sl in timed]
     cases = [(2, S, 4, P, N, a, init, dtype)
-             for S, (P, N), a, init, dtype in itertools.product(*sweep.values())]
+             for S, (P, N), a, init, dtype in itertools.product(*sweep.values())] if sweep else []
     for B, S, H, P, N, a_log, init, dtype in main_path + cases:
         ins = _ssd_inputs(B, S, H, P, N, dtype, a_log, init, seed=300 + n)
         g = torch.Generator(device="cuda").manual_seed(n)
@@ -845,7 +909,8 @@ def phase_ssd(sweep=SSD_SWEEP):
                      by_name=by_name)
         n += 1
     print(f"kernels: ssd forward and backward match ssd_plain on {n} cases "
-          f"(y, final state, dx, ddt, dA, dBm, dCm, d init_state; 1 at the slice shape); "
+          f"(y, final state, dx, ddt, dA, dBm, dCm, d init_state; {len(timed)} at the timed "
+          f"shapes); "
           f"max abs err fp32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}; largest "
           f"share of an element's tolerance (tol + tol |plain|, tol fp32 {SSD_TOL['float32']}, "
           f"bf16 {SSD_TOL['bfloat16']}): fp32 {used['float32']:.3g} ({where['float32']}), "
@@ -856,58 +921,60 @@ def phase_ssd(sweep=SSD_SWEEP):
         print(f"  largest share of the tolerance by output, {dtype}: "
               + ", ".join(f"{k} {v:.3g}" for k, v in per.items()), flush=True)
 
-    B, S, H, P, N = (sl[x] for x in ("B", "S", "H", "P", "N"))
-    x, dt, A, Bm, Cm, _ = _ssd_inputs(B, S, H, P, N, "bfloat16", None, False, seed=8)
-    dy = torch.randn(x.shape, device="cuda").to(x.dtype)
-    with torch.no_grad():
-        fwd_ms = _time_ms(lambda: ss.ssd(x, dt, A, Bm, Cm))
-        plain_fwd_ms = _time_ms(lambda: ss.ssd_plain(x, dt, A, Bm, Cm), reps=5)
-    leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
-    y, _ = ss.ssd(*leaves)
-    bwd_ms = _time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
-    first = torch.autograd.grad(y, leaves, dy, retain_graph=True)
-    second = torch.autograd.grad(y, leaves, dy, retain_graph=True)
-    same = [torch.equal(a, b) for a, b in zip(first, second)]
-    print(f"ssd backward at the slice shape, two calls bit-identical: "
-          + ", ".join(f"{k} {v}" for k, v in zip(("dx", "ddt", "dA", "dBm", "dCm"), same)),
-          flush=True)
-    if not all(same):
-        fail("ssd backward is not deterministic at the slice shape")
-    del y, first, second
-    y, _ = ss.ssd_plain(*leaves)
-    plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
-                            reps=5)
-    del y, leaves
-    torch.cuda.empty_cache()
-    # the registered operators' formula: the chunked form at the TPU kernel's
-    # chunk, the least work for the function
-    fwd_ops = ss.chunk_flops(B, S, H, P, N)
-    bwd_ops = ss.chunk_flops(B, S, H, P, N, backward=True)
-    big, small = 2 * B * S * H * P, 2 * B * S * N  # bytes of a bf16 x / Bm
-    state = 4 * B * H * P * N
-    fwd_bytes = 2 * big + 4 * B * S * H + 4 * H + 2 * small + state  # x, dt, A, Bm, Cm in; y, state out
-    bwd_bytes = 3 * big + 8 * B * S * H + 8 * H + 4 * small  # x dy dx; dt ddt; A dA; Bm Cm dBm dCm
     records = []
-    for name, ms, plain_ms, nbytes, ops in (
-            ("ssd_fwd", fwd_ms, plain_fwd_ms, fwd_bytes, fwd_ops),
-            ("ssd_bwd", bwd_ms, plain_bwd_ms, bwd_bytes, bwd_ops)):
-        t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["bfloat16"]
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"{name} B={B} S={S} H={H} P={P} N={N} bf16: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library none, bound {max(t_bytes, t_ops) * 1e3:.4f} ms "
-              f"({bound_by}; {ops / 1e9:.2f} GFLOP of the chunked form at 989 TFLOP/s = "
-              f"{t_ops * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
-              f"{t_bytes * 1e3:.4f} ms)", flush=True)
-        records.append(dict(
-            name=name, route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-            replaces="src/repro/kernels/ssd_scan.py:28", max_abs_err=max(worst.values()),
-            max_abs_err_fp32=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
-            tol_share_fp32=used["float32"], tol_share_bf16=used["bfloat16"],
-            tol_share_by_output=shares, deterministic=all(same),
-            cases=n, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by=bound_by, library_ms=None, shape=SSD_SLICE,
-            **_rate(name, ops, ms, max(t_bytes, t_ops) * 1e3),
-        ))
+    for sl in timed:
+        B, S, H, P, N = (sl[x] for x in ("B", "S", "H", "P", "N"))
+        x, dt, A, Bm, Cm, _ = _ssd_inputs(B, S, H, P, N, "bfloat16", None, False, seed=8)
+        dy = torch.randn(x.shape, device="cuda").to(x.dtype)
+        with torch.no_grad():
+            fwd_ms = _time_ms(lambda: ss.ssd(x, dt, A, Bm, Cm))
+            fwd_loop = _loop_ms(lambda: ss.ssd(x, dt, A, Bm, Cm))
+            plain_fwd_ms = _time_ms(lambda: ss.ssd_plain(x, dt, A, Bm, Cm), reps=5)
+        leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        y, _ = ss.ssd(*leaves)
+        bwd_ms = _time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
+        bwd_loop = _loop_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True))
+        first = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        second = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        same = [torch.equal(a, b) for a, b in zip(first, second)]
+        print(f"ssd backward at B={B} S={S} H={H} P={P} N={N}, two calls bit-identical: "
+              + ", ".join(f"{k} {v}" for k, v in zip(("dx", "ddt", "dA", "dBm", "dCm"), same)),
+              flush=True)
+        if not all(same):
+            fail(f"ssd backward is not deterministic at B={B} S={S} H={H} P={P} N={N}")
+        del y, first, second
+        y, _ = ss.ssd_plain(*leaves)
+        plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+                                reps=5)
+        del y, leaves
+        torch.cuda.empty_cache()
+        # the registered operators' formula: the chunked form at the TPU kernel's
+        # chunk, the least work for the function
+        fwd_ops = ss.chunk_flops(B, S, H, P, N)
+        bwd_ops = ss.chunk_flops(B, S, H, P, N, backward=True)
+        fwd_bytes, bwd_bytes = _ssd_bytes(B, S, H, P, N)
+        for name, ms, loop_ms, plain_ms, nbytes, ops in (
+                ("ssd_fwd", fwd_ms, fwd_loop, plain_fwd_ms, fwd_bytes, fwd_ops),
+                ("ssd_bwd", bwd_ms, bwd_loop, plain_bwd_ms, bwd_bytes, bwd_ops)):
+            t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["bfloat16"]
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            print(f"{name} B={B} S={S} H={H} P={P} N={N} bf16: kernel {ms:.4f} ms single, "
+                  f"{loop_ms:.4f} ms back to back, plain {plain_ms:.4f} ms, library none, "
+                  f"bound {max(t_bytes, t_ops) * 1e3:.4f} ms "
+                  f"({bound_by}; {ops / 1e9:.2f} GFLOP of the chunked form at 989 TFLOP/s = "
+                  f"{t_ops * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+                  f"{t_bytes * 1e3:.4f} ms)", flush=True)
+            records.append(dict(
+                name=name, route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:28", max_abs_err=max(worst.values()),
+                max_abs_err_fp32=worst["float32"], max_abs_err_bf16=worst["bfloat16"],
+                tol_share_fp32=used["float32"], tol_share_bf16=used["bfloat16"],
+                tol_share_by_output=shares, deterministic=all(same),
+                cases=n, ms=ms, loop_ms=loop_ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops) * 1e3, bound_by=bound_by, library_ms=None,
+                shape=dict(sl),
+                **_rate(name, ops, ms, max(t_bytes, t_ops) * 1e3),
+            ))
     return records
 
 
@@ -996,11 +1063,12 @@ def _flash_times(sl, seed, softcap=0.0):
     the plain version, the library call (``scaled_dot_product_attention``;
     with a cap, ``flex_attention`` with the tanh score_mod, and the same
     kernels without the cap too; autograd through it for the backward) and
-    the card's bound; fails unless two backward calls give bit-identical
-    dq, dk, dv and the output and gradients agree with autograd through
-    ``flash_attention_plain`` (``FLASH_BWD_TOL``).  Returns ((fwd record,
-    bwd record), the determinism flags, the backward's max abs err against
-    the library's)."""
+    the card's bound; the kernels' times are single calls (``ms``) and
+    calls back to back (``loop_ms``); fails unless two backward calls give
+    bit-identical dq, dk, dv and the output and gradients agree with
+    autograd through ``flash_attention_plain`` (``FLASH_BWD_TOL``).
+    Returns ((fwd record, bwd record), the determinism flags, the
+    backward's max abs err against the library's)."""
     import torch
     import torch.nn.functional as F
 
@@ -1023,15 +1091,17 @@ def _flash_times(sl, seed, softcap=0.0):
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal, **gqa)
     with torch.no_grad():
         fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=W, **cap))
+        fwd_loop = _loop_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=W, **cap))
         plain_fwd_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal,
                                                                  window=W, **cap), reps=3)
         if softcap:
             capless_fwd_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=W))
-        lib_fwd_ms = _time_ms(lambda: lib_call(q.transpose(1, 2), k.transpose(1, 2),
-                                               v.transpose(1, 2)))
+        lib_fwd_ms = _time_ms(
+            lambda: lib_call(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     o = fa.flash_attention(*leaves, causal=causal, window=W, **cap)
     bwd_ms = _time_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+    bwd_loop = _loop_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
     again = torch.autograd.grad(o, leaves, do, retain_graph=True)
     got = [o.detach(), *torch.autograd.grad(o, leaves, do)]
     same = [torch.equal(a, b) for a, b in zip(again, got[1:])]
@@ -1079,12 +1149,14 @@ def _flash_times(sl, seed, softcap=0.0):
     fwd_bytes = t_bytes + 2 * q.numel() + 4 * B * H * S  # o, lse out
     bwd_bytes = 2 * t_bytes + 4 * q.numel() + 4 * B * H * S  # q k v o dO in, dq dk dv out, lse
     records = []
-    for name, ms, plain_ms, lib_ms, nbytes, ops in (
-            ("flash_attention_fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms, fwd_bytes, fwd_ops),
-            ("flash_attention_bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, bwd_bytes, bwd_ops)):
+    for name, ms, loop_ms, plain_ms, lib_ms, nbytes, ops in (
+            ("flash_attention_fwd", fwd_ms, fwd_loop, plain_fwd_ms, lib_fwd_ms, fwd_bytes,
+             fwd_ops),
+            ("flash_attention_bwd", bwd_ms, bwd_loop, plain_bwd_ms, lib_bwd_ms, bwd_bytes,
+             bwd_ops)):
         t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_FLOPS["bfloat16"]
         bound_by = "operations" if t_o >= t_b else "bytes"
-        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library=library,
+        rec = dict(ms=ms, loop_ms=loop_ms, plain_ms=plain_ms, library_ms=lib_ms, library=library,
                    timed_shape_max_abs_err=worst["bfloat16"],
                    timed_shape_tol_share=used["bfloat16"],
                    bound_ms=max(t_b, t_o) * 1e3, bound_by=bound_by, shape=dict(sl))
@@ -1095,14 +1167,15 @@ def _flash_times(sl, seed, softcap=0.0):
             beside += f", same kernel without the cap {rec['capless_ms']:.4f} ms"
         print(f"{name} B={B} Sq={S} Skv={Skv} H={H} KV={KV} d={d} bf16 causal={causal} "
               f"softcap={softcap}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {beside}, bound "
+              f"{ms:.4f} ms single, {loop_ms:.4f} ms back to back, plain {plain_ms:.4f} ms, "
+              f"{beside}, bound "
               f"{max(t_b, t_o) * 1e3:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB); {ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s", flush=True)
         records.append(dict(**rec, **_rate(f"{name} (B={B} Sq={S} Skv={Skv} H={H} KV={KV} "
                                            f"d={d} causal={causal} softcap={softcap})", ops, ms,
                                            max(t_b, t_o) * 1e3)))
-    print(f"flash vs {library} at B={B} S={S} H={H} KV={KV} d={d} softcap={softcap}: forward "
-          f"max abs err {lib_fwd_err:.3g}, backward {lib_err:.3g}", flush=True)
+    print(f"flash vs {library} at B={B} S={S} H={H} KV={KV} d={d} softcap={softcap}: "
+          f"forward max abs err {lib_fwd_err:.3g}, backward {lib_err:.3g}", flush=True)
     return records, same, lib_err
 
 
@@ -3766,13 +3839,14 @@ def phase_live_loop(mesh, smi, losses11b, median11b_ms):
 # Slice 10: the dry-run and the example entry points (13a-13d)
 # ---------------------------------------------------------------------------
 
-# 13b's max_memory_allocated (net of what was allocated before its state was
-# built) against 13a's predicted peak: the tolerance PERF.md states, about 70 MB
-# of a 65.6 GiB peak, where the gap read 3.67 MB in two runs
+# a real step's max_memory_allocated (net of what was allocated before its
+# state was built) against the dry-run's predicted peak (13b, 14b): the
+# tolerance PERF.md states, about 70 MB of 13b's 65.6 GiB peak, where the gap
+# read 3.67 MB in two runs, and 14b's widest reading +0.045% (zamba2 decode)
 DRYRUN_PEAK_TOL = 0.001
 DRYRUN_CELLS = (  # 13c: (arch, shape, what the CLI must do)
     ("llama3-8b", "train_4k", "record"),
-    ("qwen3-moe-30b-a3b", "train_4k", "refuse"),  # 'model' axis of 16, MoE: item 11b
+    ("seamless-m4t-large-v2", "train_4k", "refuse"),  # enc-dec on a 'model' axis: item 11b
 )
 TRAIN_LM_STEPS = 60  # 13d: launch.train_lm's ~100M config on the card
 
@@ -3824,6 +3898,26 @@ def phase_dryrun_predict():
     return dict(rec, wall_s=wall)
 
 
+def _hold_to_dryrun(label, costs, peak, pred):
+    """Fails unless a real step's FLOPs (``costs``, ``launch.op_analysis``)
+    equal the dry-run's prediction ``pred`` exactly and its
+    ``max_memory_allocated`` net of what was allocated before its state was
+    built (``peak``) is within ``DRYRUN_PEAK_TOL`` of the predicted peak;
+    prints both and returns the peak's offset."""
+    off = peak / pred["peak_bytes"] - 1
+    print(f"{label}: {costs.flops} FLOP (dry-run {pred['flops']}: equal "
+          f"{costs.flops == pred['flops']}); max_memory_allocated {peak} bytes net "
+          f"({peak / 2**30:.2f} GiB), {100 * off:+.4f}% from the dry-run's {pred['peak_bytes']} "
+          f"(tolerance {100 * DRYRUN_PEAK_TOL:g}%)", flush=True)
+    if costs.flops != pred["flops"]:
+        fail(f"{label}: the real step counts {costs.flops} FLOP, the dry-run {pred['flops']}: "
+             f"{costs.flops_by_op} against {pred['flops_by_op']}")
+    if abs(off) > DRYRUN_PEAK_TOL:
+        fail(f"{label}: peak {peak} is {100 * off:+.4f}% from the predicted "
+             f"{pred['peak_bytes']}")
+    return off
+
+
 def phase_dryrun_check(mesh, smi, pred, median11b_ms):
     """Phase 13b: one real step of 13a's cell through ``jit_train_step`` on
     the card, under the same counters (``launch.op_analysis``): its FLOPs
@@ -3861,23 +3955,16 @@ def phase_dryrun_check(mesh, smi, pred, median11b_ms):
     del state, batch
     costs.out = None  # the new state: the same DTensors
     _free_card()
-    off = peak / pred["peak_bytes"] - 1
     tflops = costs.flops / (median11b_ms * 1e-3) / 1e12
-    print(f"13b one counted step on {smi}: loss {loss:.5f}; {costs.flops} FLOP (13a "
-          f"{pred['flops']}: equal {costs.flops == pred['flops']}); max_memory_allocated "
-          f"{peak} bytes net ({peak / 2**30:.2f} GiB), {100 * off:+.4f}% from 13a's "
-          f"{pred['peak_bytes']} (tolerance {100 * DRYRUN_PEAK_TOL:g}%); the counters' own "
+    print(f"13b one counted step on {smi}: loss {loss:.5f}; the counters' own "
           f"peak on the card {costs.peak_bytes} bytes; bytes written {costs.bytes_written} "
           f"(13a {pred['bytes_written']}); collective bytes {costs.collective_bytes}; flash "
           f"launches {launches}; the counted step {counted_s * 1e3:.1f} ms; achieved "
           f"{tflops:.1f} TFLOP/s of the counted FLOPs over 11b's median step "
           f"{median11b_ms:.1f} ms", flush=True)
-    if costs.flops != pred["flops"]:
-        fail(f"13b: the real step counts {costs.flops} FLOP, the dry-run {pred['flops']}: "
-             f"{costs.flops_by_op} against {pred['flops_by_op']}")
-    if abs(off) > DRYRUN_PEAK_TOL or not math.isfinite(loss):
-        fail(f"13b: peak {peak} is {100 * off:+.4f}% from the predicted {pred['peak_bytes']}, "
-             f"or the loss {loss} is not finite")
+    off = _hold_to_dryrun("13b one counted step against 13a", costs, peak, pred)
+    if not math.isfinite(loss):
+        fail(f"13b: the loss {loss} is not finite")
     if launches != {"fwd": 2 * cfg.num_layers, "bwd": cfg.num_layers} or costs.collective_bytes:
         fail(f"13b: flash launches {launches} or collective bytes {costs.collective_bytes}")
     return launches, dict(flops=costs.flops, predicted_flops=pred["flops"], peak_bytes=peak,
@@ -3892,8 +3979,9 @@ def phase_dryrun_cli():
     """Phase 13c: the dry-run CLI, each cell a process of its own, as a user
     runs it: llama3-8b ``train_4k`` on the (16, 16) production mesh (256
     fake ranks, fake cuda tensors) writes its record; a cell the port
-    refuses (qwen3-moe-30b-a3b ``train_4k``: MoE on a 'model' axis of 16)
-    exits non-zero naming item 11b.  The wall time of each."""
+    refuses (seamless-m4t-large-v2 ``train_4k``: the encoder-decoder blocks
+    on a 'model' axis of 16) exits non-zero naming item 11b.  The wall time
+    of each."""
     out = os.path.join(ROOT, "build", "dryrun13c.jsonl")
     if os.path.exists(out):
         os.remove(out)
@@ -3962,6 +4050,186 @@ def phase_examples(smi):
         stats[f"serve_lm {arch}"] = dict(prefill_ms=eng.stats.prefill_s * 1e3,
                                          tokens_per_s=eng.stats.tokens_per_s)
     print(f"13d examples on {smi}: launches {launches}; {stats}", flush=True)
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: tensor parallelism over 'model' (14a-14b)
+# ---------------------------------------------------------------------------
+
+# a rank's kernel shapes on the (16, 16) production mesh at train_4k: 256 x
+# 4096 over 16 data ranks, the heads over 16 model ranks
+TP_FLASH = (  # (label, shape, logit cap)
+    ("zamba2-2.7b shared block", dict(B=16, S=4096, H=2, KV=2, d=80, window=4096), 0.0),
+    ("qwen3-moe-30b-a3b, pixtral-12b", dict(B=16, S=4096, H=2, KV=1, d=128, window=0), 0.0),
+    ("grok-1-314b", dict(B=16, S=4096, H=3, KV=1, d=128, window=0), 30.0),
+)
+TP_SSD = dict(B=16, S=4096, H=5, P=64, N=64)  # zamba2: 80 heads over 16
+TP_WKV = dict(B=16, S=4096, H=2, N=64)  # rwkv6: 32 heads over 16
+TP_CELLS = (  # 14b: (arch, shape, depth cut or None), rank 0 of the (16, 16) mesh
+    ("rwkv6-1.6b", "train_4k", None),
+    ("zamba2-2.7b", "train_4k", None),
+    ("qwen3-moe-30b-a3b", "train_4k", None),
+    ("grok-1-314b", "train_4k", 32),  # 64 layers: about 82 GB predicted, over the card's 80
+    ("pixtral-12b", "train_4k", None),
+    ("rwkv6-1.6b", "decode_32k", None),
+    ("zamba2-2.7b", "decode_32k", None),
+)
+
+
+def phase_tp_kernels(smi):
+    """Phase 14a: each kernel at the shapes a rank of the (16, 16) mesh
+    gives it under tensor parallelism (``TP_FLASH``, ``TP_SSD``,
+    ``TP_WKV``), forward and backward in bf16, against its plain version
+    with phase 3's tolerances, and timed as phases 3b-3d time it: single
+    calls and calls back to back beside the plain version's, the library
+    call's (SDPA; ``flex_attention`` with the cap) and the bound.  Returns
+    {kernel record name: [rank rows]}."""
+    print(f"14a: the kernels at a rank's shapes of the (16, 16) mesh, on {smi}", flush=True)
+    rows = {"flash_attention": [], "flash_attention_bwd": []}
+    for i, (label, sl, cap) in enumerate(TP_FLASH):
+        (fwd, bwd), _, _ = _flash_times(sl, seed=140 + i, softcap=cap)
+        for rec, key in ((fwd, "flash_attention"), (bwd, "flash_attention_bwd")):
+            rows[key].append(dict(rec, path=label))
+    _free_card()
+    ssd_fwd, ssd_bwd = phase_ssd(sweep={}, timed=(TP_SSD,), routes=False)
+    wkv_fwd, wkv_bwd = phase_wkv6(sweep={}, timed=(TP_WKV,), routes=False)
+    _free_card()
+    rows.update(ssd_fwd=[ssd_fwd], ssd_bwd=[ssd_bwd], wkv6_fwd=[wkv_fwd], wkv6_bwd=[wkv_bwd])
+    return rows
+
+
+def _local_state(tree, shardings, device, gen, random_keys):
+    """Real tensors on ``device`` holding this rank's shard of every leaf of
+    the abstract dict ``tree``, as DTensors placed by ``shardings`` (built
+    from the local shape: the global one is never allocated).  Float leaves
+    under ``random_keys`` are ``0.02 N(0, 1)``, other float leaves zeros;
+    ids are uniform below 1000; 0-d leaves are zeros."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.layers import tree_map
+
+    def one(random, t, sh):
+        if t.dim() == 0:
+            return torch.zeros((), dtype=t.dtype, device=device)
+        local = list(t.shape)
+        for p, n in zip(sh.placements, sh.mesh.shape):
+            if p.is_shard():
+                local[p.dim] //= n
+        if not t.dtype.is_floating_point:
+            x = torch.randint(0, 1000, local, generator=gen, device=device, dtype=t.dtype)
+        elif random:
+            x = (0.02 * torch.randn(local, generator=gen, device=device)).to(t.dtype)
+        else:
+            x = torch.zeros(local, dtype=t.dtype, device=device)
+        return DTensor.from_local(x, sh.mesh, sh.placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    return {k: tree_map(lambda t, sh, r=k in random_keys: one(r, t, sh), tree[k], shardings[k])
+            for k in tree}
+
+
+def rank_step(cfg, shape, mesh, device, gen):
+    """``(fn, state or parameters, batch)`` of this rank's step of ``cfg`` x
+    ``shape`` on ``mesh``: the sharded train or decode step, and this
+    rank's shards of a state and a batch from ``gen`` (``_local_state``;
+    decode: a cache of zeros at half its length)."""
+    import torch
+
+    from repro_torch.models.api import get_model, input_specs
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.optimizer import make_optimizer
+    from repro_torch.train.state import abstract_state
+    from repro_torch.train.step import jit_decode_step, jit_train_step
+
+    api = get_model(cfg)
+    if shape.kind == "train":
+        opt = make_optimizer(cfg)
+        fn, st_sh, bt_sh = jit_train_step(api, opt, mesh, shape)
+        first = _local_state(abstract_state(api, opt), st_sh, device, gen, {"params"})
+        for p in tree_leaves(first["params"]):
+            p.requires_grad_(True)
+    else:
+        fn, p_sh, bt_sh = jit_decode_step(api, mesh, shape)
+        first = _local_state({"p": api.abstract()}, {"p": p_sh}, device, gen, {"p"})["p"]
+    specs = input_specs(cfg, shape)
+    batch = _local_state(specs, bt_sh, device, gen, set(specs) - {"cache"})
+    if "cache_len" in batch:
+        batch["cache_len"] = torch.tensor(shape.seq_len // 2, device=device)
+    return fn, first, batch
+
+
+def tp_cell(arch, shape_name, layers, smi):
+    """One 14b cell: the dry-run's prediction of rank 0's step of ``arch``
+    x ``shape_name`` on the (16, 16) mesh (a fake world of 256 ranks, fake
+    cuda tensors), then the same step for real on the card, as rank 0 of a
+    fake world (whose collectives move nothing, so the values are not
+    checked here), under the same counters; then one uncounted step, timed.
+    Fails unless the FLOPs are equal and ``max_memory_allocated``, net of
+    what was allocated before the state was built, is within
+    ``DRYRUN_PEAK_TOL`` of the predicted peak (``_hold_to_dryrun``)."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.launch.dryrun import run_step
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.launch.op_analysis import analyze_step
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape = SHAPES[shape_name]
+    label = f"{arch}{f' x{layers} layers' if layers else ''} {shape_name}"
+    t0 = time.perf_counter()
+    with fake_world(256, "cuda"):
+        pred = run_step(cfg, shape, make_production_mesh(), "cuda")
+    predict_s = time.perf_counter() - t0
+    _free_card()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    with fake_world(256, "cuda"):
+        base = torch.cuda.memory_allocated()
+        fn, first, batch = rank_step(cfg, shape, make_production_mesh(), "cuda", gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t1 = time.perf_counter()
+        costs = analyze_step(fn, first, batch)
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = dict(_counts(), wkv=dict(wk.launches))
+        costs.out = None
+        t1 = time.perf_counter()
+        out = fn(first, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        del out, first, batch
+    _free_card()
+    print(f"14b {label}, rank 0 of (16, 16) on {smi}: collective bytes "
+          f"{costs.collectives}; step {step_s * 1e3:.1f} ms (the counted step "
+          f"{counted_s * 1e3:.1f} ms, the prediction {predict_s:.1f} s); launches {launches}",
+          flush=True)
+    off = _hold_to_dryrun(f"14b {label}", costs, peak, pred)
+    return launches, dict(flops=costs.flops, predicted_flops=pred["flops"], peak_bytes=peak,
+                          predicted_peak_bytes=pred["peak_bytes"], peak_off=off,
+                          collective_bytes=costs.collectives, step_ms=step_s * 1e3,
+                          counted_step_ms=counted_s * 1e3, predict_s=predict_s,
+                          layers=cfg.num_layers)
+
+
+def phase_tp_cells(smi):
+    """Phase 14b: every ``TP_CELLS`` cell through ``tp_cell`` (no process
+    group may be live: each cell builds a fake world).  Returns the
+    launches and the numbers of each cell."""
+    launches, stats = {}, {}
+    for arch, shape, layers in TP_CELLS:
+        key = f"{arch}{f' x{layers}' if layers else ''} {shape}"
+        launches[key], stats[key] = tp_cell(arch, shape, layers, smi)
+        need = {"rwkv6-1.6b": ["wkv"], "zamba2-2.7b": ["ssd", "flash"]}.get(arch, ["flash"])
+        if shape == "train_4k" and any(not all(launches[key][k].values()) for k in need):
+            fail(f"14b {key}: the step launched {launches[key]}, not each of {need}")
     return launches, stats
 
 
@@ -4063,6 +4331,11 @@ def main() -> None:
     cli13 = phase_dryrun_cli()
     ex_launches, ex_stats = phase_examples(smi)
     ex_stats["phase13_s"] = time.perf_counter() - t13
+    t14 = time.perf_counter()
+    tp_rows = phase_tp_kernels(smi)
+    tp_launches, tp_stats = phase_tp_cells(smi)
+    tp_stats["phase14_s"] = time.perf_counter() - t14
+    tp_path = {f"{k} rank 0 of (16, 16) (14b)": c for k, c in tp_launches.items()}
     bg = {k: alone[k] + bg_mux[k] + bg_exec[k] for k in ("fwd", "bwd")}
     flash["launches_by_path"] = {"serve llama3-8b": serve_launches,
                                  "train zamba2-2.7b": counts["flash"]["fwd"],
@@ -4091,7 +4364,9 @@ def main() -> None:
                                  "train_lm llama-100m (13d)": ex_launches["train_lm"]["fwd"],
                                  **{f"{k} reduced (13d)": c["flash"]["fwd"]
                                     for k, c in ex_launches.items()
-                                    if k.startswith("serve_lm") and c["flash"]["fwd"]}}
+                                    if k.startswith("serve_lm") and c["flash"]["fwd"]},
+                                 **{k: c["flash"]["fwd"] for k, c in tp_path.items()
+                                    if c["flash"]["fwd"]}}
     # seamless's token-by-token serving (10d) decodes through
     # ``decode_attention``, plain PyTorch on every device as the reference has
     # no decode kernel: no flash launch, so no entry
@@ -4115,7 +4390,9 @@ def main() -> None:
                                      "train qwen2-1.5b one counted step (13b)":
                                          counted13["bwd"],
                                      "train_lm llama-100m (13d)":
-                                         ex_launches["train_lm"]["bwd"]}
+                                         ex_launches["train_lm"]["bwd"],
+                                     **{k: c["flash"]["bwd"] for k, c in tp_path.items()
+                                        if c["flash"]["bwd"]}}
     for rec in (flash, flash_bwd):
         rec["launches"] = sum(rec["launches_by_path"].values())
         # launches made to hold the capped kernels against the plain version
@@ -4129,10 +4406,15 @@ def main() -> None:
             f"train {k} sharded (11c)": c[fam][key] for k, c in fam_counts.items()
             if c[fam][key]}, **{
             f"{k} reduced (13d)": c[fam][key] for k, c in ex_launches.items()
-            if k.startswith("serve_lm") and c[fam][key]}}
+            if k.startswith("serve_lm") and c[fam][key]}, **{
+            k: c[fam][key] for k, c in tp_path.items() if c[fam][key]}}
         rec["launches"] = sum(rec["launches_by_path"].values())
+    for rec in (flash, flash_bwd, wkv_fwd, wkv_bwd, ssd_fwd, ssd_bwd):
+        # 14a: the kernel at the shapes a rank of the (16, 16) mesh gives it
+        rec["tp_rank"] = tp_rows[rec["name"]]
     slice8 = dict(mesh=mesh_rules, sharded_train=sharded_stats, families=fam_stats,
                   powersgd=psgd, disaggregated_serve=disagg_stats)
+    print(f"slice11: {json.dumps(dict(tp_cells=tp_stats))}")
     print(f"slice10: {json.dumps(dict(dryrun=dryrun_stats, dryrun_cli=cli13, examples=ex_stats))}")
     print(f"slice9: {json.dumps(dict(live_loop=live_stats))}")
     print(f"slice8: {json.dumps(slice8)}")

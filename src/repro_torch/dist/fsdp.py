@@ -14,19 +14,51 @@ hooks at the reference's sites:
     the hook inside its per-layer remat function, so the recompute gathers
     again.
   - ``constrain(x, axes)``: local compute already holds this rank's
-    shard and needs no layout hint, so this is the identity.  The layouts
-    local compute does not run (tensor parallelism over ``model`` beyond
-    the dense ``attn_mlp`` family, ROADMAP item 11b) are refused once, by
-    the sharded step factories (``train.step._check_layout``).
+    shard and needs no layout hint, so this is the identity.
   - ``group_count(axis)``: the number of shards the active rules give a
     logical axis (1 outside any context), for group-local capacity math.
 
 Port-only, for the global reductions local compute must make itself:
 ``batch_sum`` (a sum over the ranks the batch is split over, whose
 backward is the identity: each rank's gradient is its own share), and
-the tensor-parallel pair over the ``model`` axis, ``tp_copy`` (identity
-forward, gradient summed) and ``tp_sum`` (sum forward, identity
-backward), with ``model_max``, ``model_size`` and ``model_rank``.
+the tensor-parallel crossings over the ``model`` axis, with
+``model_max``, ``model_size`` and ``model_rank``.
+
+Tensor parallelism over ``model`` (the dense and MoE decoder blocks,
+rwkv6, Mamba-2 and zamba2's shared block, pixtral's vision projection)
+keeps every activation in one of two states:
+
+  - replicated: the same on every ``model`` rank, with the same gradient
+    on every rank (the residual stream, norms of it, routing);
+  - local: this rank's shard (its heads, channels or experts), or this
+    rank's partial sum.
+
+The crossings between them:
+
+  - replicated -> local (a column-parallel input, or a slice to this
+    rank's heads or experts): ``tp_copy`` (identity forward, gradient
+    summed over ``model``);
+  - local partial sum -> replicated (a row-parallel product): ``tp_sum``
+    (all-reduce forward, identity backward);
+  - local shard -> replicated: ``tp_gather(x, dim)`` (all-gather along
+    ``dim`` forward, this rank's slice of the replicated gradient
+    backward).
+
+A parameter the rules keep whole over ``model`` gets ``Replicate``
+gradient placements there (``gather_leaf``), so it may feed replicated
+compute only; where a rank reads a slice of it (rwkv6's ``ln_x`` scale
+and decay, Mamba-2's ``B``/``C``), that use enters through ``tp_copy``
+first.  A norm over a split width takes its statistic as
+``tp_copy(tp_sum(local sum))`` (``layers.rms_norm``'s ``width``): each
+rank's gradient of the statistic reaches every rank.
+
+The layouts local compute does not run (ROADMAP item 11b) are refused
+once, by the sharded step factories (``train.step._check_layout``): the
+encoder-decoder blocks and sequence parallelism on a ``model`` axis
+larger than 1, KV heads split with the query heads whole, a Mamba-2
+``d_inner`` split that is not whole heads, a parameter split on
+``model`` along another logical axis than ``TP_AXES``, and a decode cache
+split along its sequence.
 
 Every hook is the identity outside a ``context(mesh, rules)`` block, so
 single-device code runs the same model code unsharded, and every
@@ -174,6 +206,31 @@ def tp_copy(x: torch.Tensor) -> torch.Tensor:
 def tp_sum(x: torch.Tensor) -> torch.Tensor:
     """Leave a tensor-parallel region: sum over ``model``, gradient as is."""
     return _SumIdentityGrad.apply(x, ("model",)) if model_size() > 1 else x
+
+
+class _GatherSliceGrad(torch.autograd.Function):
+    """Forward: the all-gather over 'model' along ``dim``; backward: this
+    rank's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        import torch.distributed as dist
+
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        y = x.movedim(dim, 0).contiguous()
+        out = y.new_empty((model_size() * y.shape[0],) + tuple(y.shape[1:]))
+        dist.all_gather_into_tensor(out, y, group=_groups(("model",))[0])
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, model_rank() * ctx.n, ctx.n).contiguous(), None
+
+
+def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Leave a tensor-parallel region from a shard: the ranks' shards
+    concatenated along ``dim`` (in ``model`` order), gradient sliced back."""
+    return _GatherSliceGrad.apply(x, dim % x.dim()) if model_size() > 1 else x
 
 
 def model_max(x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,11 @@ once.  Each layer, its shared-block invocation included, runs under
 ``cfg.remat_policy == "none"``).  The ``fsdp.gather`` sites are the
 reference's: the shared block once per call, each layer inside its remat
 function.
+
+Under tensor parallelism over 'model' the Mamba-2 layers run on this
+rank's heads (``models/mamba2.py``) and the shared block runs the dense
+family's: its query and KV heads split, and its SwiGLU MLP, through
+``models/transformer.py``'s helpers on the 2 d_model-wide input.
 """
 from __future__ import annotations
 
@@ -22,11 +27,8 @@ from repro_torch.dist import fsdp
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (
     ParamSpec,
-    _proj_in,
     apply_rope,
-    mlp_apply,
     mlp_schema,
-    out_project,
     remat,
     rms_norm,
     softmax_xent,
@@ -34,7 +36,14 @@ from repro_torch.models.layers import (
     unstack,
 )
 from repro_torch.models.mamba2 import mamba2_apply, mamba2_schema
-from repro_torch.models.transformer import embed_tokens, unembed
+from repro_torch.models.transformer import (
+    _attn_out,
+    _kv_for_heads,
+    _mlp,
+    _qkv,
+    embed_tokens,
+    unembed,
+)
 
 
 def shared_block_schema(cfg) -> dict:
@@ -72,21 +81,23 @@ def n_shared_invocations(cfg) -> int:
 
 def _shared_qkv(sp: dict, xcat: torch.Tensor, positions: torch.Tensor, cfg) -> tuple:
     a_in = rms_norm(xcat, sp["ln_in"], cfg.norm_eps)
-    q, k, v = (_proj_in(a_in, sp[n]) for n in ("wq", "wk", "wv"))
+    q, k, v = _qkv({"attn": sp}, a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _shared_out(sp: dict, h: torch.Tensor, attn_out: torch.Tensor, cfg) -> torch.Tensor:
-    h = h + out_project(sp, attn_out)
-    return h + mlp_apply(sp["mlp"], rms_norm(h, sp["ln_mlp"], cfg.norm_eps))
+    h = h + _attn_out({"attn": sp}, attn_out, cfg)
+    return h + _mlp(sp, rms_norm(h, sp["ln_mlp"], cfg.norm_eps), cfg)
 
 
 def shared_block(sp: dict, h: torch.Tensor, h0: torch.Tensor, positions: torch.Tensor,
                  cfg) -> torch.Tensor:
     q, k, v = _shared_qkv(sp, torch.cat([h, h0], dim=-1), positions, cfg)
-    attn_out = attn_lib.attend(q, k, v, causal=True, window=cfg.sliding_window)
+    Hq = q.shape[2]
+    attn_out = attn_lib.attend(q, _kv_for_heads(k, Hq, cfg), _kv_for_heads(v, Hq, cfg),
+                               causal=True, window=cfg.sliding_window)
     return _shared_out(sp, h, attn_out, cfg)
 
 
@@ -119,7 +130,8 @@ def loss_fn(params: dict, batch: dict, cfg) -> tuple:
     logits = forward(params, batch["tokens"], cfg)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = (labels >= 0).float()
-    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask)
+    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask,
+                        vocab_parallel=logits.shape[-1] < cfg.padded_vocab)
     return xent, {"loss": xent, "xent": xent}
 
 
@@ -151,13 +163,16 @@ def cache_schema(cfg, batch: int, capacity: int) -> dict:
 
 def _shared_block_decode(sp, h, h0, k_cache, v_cache, cache_len, cfg) -> torch.Tensor:
     """One shared-attention invocation at decode time over its (B, cap, KV,
-    hd) cache, which takes the new entry in place at ``cache_len``."""
-    n = int(cache_len)
-    positions = torch.full((h.shape[0], 1), n, dtype=torch.long, device=h.device)
+    hd) cache, which takes the new entry in place at ``cache_len`` (read
+    on the device: a decode step never waits for the host)."""
+    n = torch.as_tensor(cache_len, device=h.device).long()
+    positions = n.reshape(1, 1).expand(h.shape[0], 1)
     q, k, v = _shared_qkv(sp, torch.cat([h, h0], dim=-1), positions, cfg)
-    k_cache[:, n] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, n] = v[:, 0].to(v_cache.dtype)
-    attn_out = attn_lib.decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), n + 1,
+    k_cache.index_copy_(1, n.reshape(1), k.to(k_cache.dtype))
+    v_cache.index_copy_(1, n.reshape(1), v.to(v_cache.dtype))
+    Hq = q.shape[2]
+    attn_out = attn_lib.decode_attention(q, _kv_for_heads(k_cache, Hq, cfg).to(q.dtype),
+                                         _kv_for_heads(v_cache, Hq, cfg).to(q.dtype), n + 1,
                                          window=cfg.sliding_window)
     return _shared_out(sp, h, attn_out, cfg)
 

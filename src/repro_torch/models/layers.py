@@ -207,10 +207,19 @@ def cast(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(as_dtype(dtype))
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, width: int = 0) -> torch.Tensor:
+    """RMS norm over the last axis.  Given a ``width`` larger than that
+    axis, ``x`` and ``scale`` are this rank's channels of a width split
+    over 'model': the sum of squares is summed over the ranks, and enters
+    the local compute through ``fsdp.tp_copy``."""
     dt = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
+    if width > x.shape[-1]:
+        from repro_torch.dist import fsdp
+
+        var = fsdp.tp_copy(fsdp.tp_sum(x.square().sum(dim=-1, keepdim=True))) / width
+    else:
+        var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dt)
 

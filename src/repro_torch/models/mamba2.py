@@ -11,12 +11,22 @@ place of the reference's ``_segsum``/``ssd_chunked``: any S, and the
 segment sums masked to ``-inf`` before ``exp``.  Decode carries the
 ``(B, H, P, N)`` fp32 state and the conv window's tail through
 ``ssd_decode_step``.
+
+Under tensor parallelism over 'model' (``dist/fsdp.py``'s rule) a rank
+holds a contiguous share of ``d_inner``, which is its share of the heads:
+``wx``/``wz``/``wdt`` are column-parallel behind ``fsdp.tp_copy``, the
+whole ``B``/``C`` projections enter through ``fsdp.tp_copy``, the SSD runs
+on the local heads, ``gate_norm`` normalises over all of ``d_inner`` with
+a statistic summed over the ranks, and ``wo`` is row-parallel before
+``fsdp.tp_sum``.  The decode state keeps ``ssm`` split by heads and
+``conv`` by channels.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import fsdp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, cast, rms_norm
 
@@ -71,10 +81,13 @@ def mamba2_apply(p: dict, u: torch.Tensor, cfg, state=None, decode: bool = False
     (ssm_state (B, H, P, N) fp32, conv_state (B, K-1, din)), the conv
     window's tail, so decode matches the full-sequence conv exactly."""
     dt_c = u.dtype
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    P = cfg.ssm_head_dim
+    H = p["wdt"].shape[1]  # this rank's heads
     B, S, _ = u.shape
-    x = u @ cast(p["wx"], dt_c)
-    z = u @ cast(p["wz"], dt_c)
+    split = H < cfg.ssm_heads  # whole heads a rank (train.step._check_layout)
+    uin = fsdp.tp_copy(u) if split else u
+    x = uin @ cast(p["wx"], dt_c)
+    z = uin @ cast(p["wz"], dt_c)
     if decode:
         ssm_state, conv_state = state
         window = torch.cat([conv_state.to(dt_c), x], dim=1)  # (B, K, din)
@@ -86,8 +99,10 @@ def mamba2_apply(p: dict, u: torch.Tensor, cfg, state=None, decode: bool = False
         x = causal_conv1d(x, cast(p["conv_w"], dt_c), cast(p["conv_b"], dt_c))
     Bm = u @ cast(p["wB"], dt_c)
     Cm = u @ cast(p["wC"], dt_c)
+    if split:  # whole, read by this rank's heads
+        Bm, Cm = fsdp.tp_copy(Bm), fsdp.tp_copy(Cm)
     f32 = torch.float32
-    dtv = F.softplus((u @ cast(p["wdt"], dt_c)).to(f32) + p["dt_bias"].to(f32))
+    dtv = F.softplus((uin @ cast(p["wdt"], dt_c)).to(f32) + p["dt_bias"].to(f32))
     A = -torch.exp(p["A_log"].to(f32))
     xh = x.reshape(B, S, H, P)
     if decode:
@@ -96,8 +111,10 @@ def mamba2_apply(p: dict, u: torch.Tensor, cfg, state=None, decode: bool = False
         y, new_state = ops.ssd(xh, dtv, A, Bm, Cm, init_state=state)
     y = y + xh * cast(p["D_skip"], dt_c)[:, None]
     y = y.reshape(B, S, H * P)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps, width=cfg.ssm_d_inner)
     out = y @ cast(p["wo"], dt_c)
+    if split:
+        out = fsdp.tp_sum(out)
     if decode:
         return out, (new_state, new_conv_state)
     return out, new_state

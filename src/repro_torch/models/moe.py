@@ -17,9 +17,23 @@ capacity ``max(K, C // groups)`` of the global ``C``, so slots are counted
 within a group and a data shard's scatter never leaves it.  A rank holds
 the groups of its batch shard.  The load-balancing loss is over the
 global batch (``fsdp.batch_sum``).  The ``fsdp.constrain`` sites are the
-reference's; expert parallelism over 'model' is refused by the sharded
-step factories (ROADMAP item 11b).  The expert products are ``torch.bmm``: the reference leaves them to
-XLA, outside any Pallas kernel.
+reference's.  The expert products are ``torch.bmm``: the reference leaves
+them to XLA, outside any Pallas kernel.
+
+Over a 'model' axis (``dist/fsdp.py``'s rule), read from the gathered
+shapes:
+
+  - expert parallelism (the router's and the experts' ``expert`` axis
+    split): the router's column-parallel logits leave through
+    ``fsdp.tp_gather``, so routing, gates and the aux loss are replicated;
+    the dispatch buffer is built whole, as in the reference, then enters
+    through ``fsdp.tp_copy`` and is sliced to this rank's experts (no
+    collective); the experts' outputs leave through ``fsdp.tp_gather``
+    along the experts, the reference's all-gather over the EP axis, so the
+    combine is replicated;
+  - tensor-parallel experts (``moe_mlp`` split): the buffer enters through
+    ``fsdp.tp_copy``, ``wg``/``wu`` are column-parallel and ``wd``
+    row-parallel before ``fsdp.tp_sum``.
 """
 from __future__ import annotations
 
@@ -62,8 +76,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
     C = _capacity(T_all, cfg)
     xt = x.reshape(T, D)
 
+    El = p["wg"].shape[0]  # this rank's experts: all, or its share under EP
+    expert_split = El < E
+    ff_split = p["wg"].shape[2] < cfg.moe_d_ff
+
     # --- routing (fp32) ---
-    logits = xt.float() @ p["router"].float()
+    if p["router"].shape[1] < E:  # the router's experts split: gathered back
+        logits = fsdp.tp_gather(fsdp.tp_copy(xt).float() @ p["router"].float(), -1)
+    else:
+        logits = xt.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)  # (T, E)
     gate_vals, idx = _top_k(probs, K)  # (T, K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
@@ -113,18 +134,28 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
     buf = fsdp.constrain(buf, ("act_tokens", None, None, "act_embed"))
     buf = fsdp.constrain(buf, ("act_tokens", "act_expert", None, "act_embed"))
 
+    if expert_split or ff_split:
+        buf = fsdp.tp_copy(buf)
+    if expert_split:  # this rank's experts: a local slice
+        lo = fsdp.model_rank() * El
+        buf = buf[:, lo:lo + El]
+
     # --- expert SwiGLU as batched products over each expert's slots ---
-    xe = buf.view(E, Cg, D) if G == 1 else buf.transpose(0, 1).reshape(E, G * Cg, D)
+    xe = buf.reshape(El, Cg, D) if G == 1 else buf.transpose(0, 1).reshape(El, G * Cg, D)
     g = torch.bmm(xe, cast(p["wg"], dt))
     u = torch.bmm(xe, cast(p["wu"], dt))
     for t in (g, u):
-        fsdp.constrain(t.view(G, E, -1, t.shape[-1]), ("act_tokens", "act_expert", None,
-                                                       "act_moe_ff"))
-    y = torch.bmm(swiglu(g, u), cast(p["wd"], dt))  # (E, G * Cg, D)
+        fsdp.constrain(t.view(G, El, -1, t.shape[-1]), ("act_tokens", "act_expert", None,
+                                                        "act_moe_ff"))
+    y = torch.bmm(swiglu(g, u), cast(p["wd"], dt))  # (El, G * Cg, D)
+    if ff_split:
+        y = fsdp.tp_sum(y)
     if G > 1:
-        y = y.view(E, G, Cg, D).transpose(0, 1).reshape(G, E, Cg, D)
-    y = fsdp.constrain(y.reshape(G, E, Cg, D), ("act_tokens", "act_expert", None,
-                                                "act_embed"))
+        y = y.view(El, G, Cg, D).transpose(0, 1)
+    y = fsdp.constrain(y.reshape(G, El, Cg, D), ("act_tokens", "act_expert", None,
+                                                 "act_embed"))
+    if expert_split:  # all-gather over the EP axis
+        y = fsdp.tp_gather(y, 1)
     y = fsdp.constrain(y, ("act_tokens", None, None, "act_embed"))
 
     # --- combine: gather each pair's result, weight by its gate ---

@@ -13,12 +13,22 @@ place of the reference's ``wkv6_chunked``: any S, and exponents never
 positive, so it stays finite at every decay where the reference's form
 overflows.  Decode carries the ``(B, H, K, V)`` fp32 state through
 ``wkv6_decode_step``.
+
+Under tensor parallelism over 'model' (``dist/fsdp.py``'s rule) a rank
+holds its share of the heads: ``wr``/``wk``/``wv``/``wg`` and the
+channel-mix's ``cw_k`` and ``cw_r`` are column-parallel behind
+``fsdp.tp_copy``, ``wo`` and ``cw_v`` row-parallel before ``fsdp.tp_sum``;
+the decay ``w`` is computed whole and sliced to the local heads, ``ln_x``
+normalises over all of D with a statistic summed over the ranks, and
+``cw_r``'s split output is gathered (``fsdp.tp_gather``), so ``r * kv``
+is replicated.  What is split is read from the gathered shapes.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import fsdp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, _proj_in, cast, out_project, rms_norm
 
@@ -77,30 +87,46 @@ def wkv6_decode_step(r, k, v, w, u, state) -> tuple:
 def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg, state=None, decode: bool = False,
                    shift_state=None) -> tuple:
     B, S, D = x.shape
-    H, hd = cfg.num_heads, cfg.d_head
+    hd = cfg.d_head
+    H = p["wr"].shape[1]  # this rank's heads
+    split = H < cfg.num_heads
+    enter = fsdp.tp_copy if split else (lambda t: t)
     xs = token_shift(x, shift_state)
     xr, xk, xv, xw, xg = (_mix(x, xs, p[f"mix_{n}"]) for n in "rkvwg")
-    r, k, v, g = (_proj_in(xi, p[n]) for xi, n in ((xr, "wr"), (xk, "wk"), (xv, "wv"),
-                                                    (xg, "wg")))
+    r, k, v, g = (_proj_in(enter(xi), p[n]) for xi, n in ((xr, "wr"), (xk, "wk"), (xv, "wv"),
+                                                           (xg, "wg")))
     # data-dependent decay (Finch), in fp32: w = exp(-exp(w0 + lora(xw)))
     f32 = torch.float32
     dec = p["w0"].to(f32) + torch.tanh(xw.to(f32) @ p["w_lora_a"].to(f32)) @ p["w_lora_b"].to(f32)
-    w = torch.exp(-torch.exp(dec)).reshape(B, S, H, hd).to(x.dtype)
+    w = torch.exp(-torch.exp(dec)).reshape(B, S, cfg.num_heads, hd).to(x.dtype)
+    ln_x = p["ln_x"]
+    if split:  # whole, read by this rank's heads
+        lo = fsdp.model_rank() * H
+        w = fsdp.tp_copy(w)[:, :, lo:lo + H].contiguous()
+        ln_x = fsdp.tp_copy(ln_x)[lo * hd:(lo + H) * hd]
     if decode:
         o, new_state = wkv6_decode_step(r, k, v, w, p["u_bonus"], state)
     else:
         o, new_state = ops.wkv(r, k, v, w, p["u_bonus"], init_state=state)
-    o = rms_norm(o.reshape(B, S, D), p["ln_x"], cfg.norm_eps) * F.silu(g).reshape(B, S, D)
+    o = rms_norm(o.reshape(B, S, H * hd), ln_x, cfg.norm_eps, width=D) * F.silu(g).flatten(-2)
     out = out_project(p, o.reshape(B, S, H, hd))
-    return out, new_state, x[:, -1]
+    return (fsdp.tp_sum(out) if split else out), new_state, x[:, -1]
 
 
-def rwkv6_channel_mix(p: dict, x: torch.Tensor, shift_state=None) -> tuple:
+def rwkv6_channel_mix(p: dict, x: torch.Tensor, cfg, shift_state=None) -> tuple:
+    """The channel mix; ``cfg`` says whether ``cw_k``/``cw_v`` (its ``d_ff``)
+    are split over 'model'."""
     dt = x.dtype
     xs = token_shift(x, shift_state)
     xk = _mix(x, xs, p["cmix_k"])
     xr = _mix(x, xs, p["cmix_r"])
-    k = torch.square(torch.relu(xk @ cast(p["cw_k"], dt)))
+    mlp_split = p["cw_k"].shape[1] < cfg.d_ff
+    k = torch.square(torch.relu((fsdp.tp_copy(xk) if mlp_split else xk) @ cast(p["cw_k"], dt)))
     kv = k @ cast(p["cw_v"], dt)
-    r = torch.sigmoid(xr @ cast(p["cw_r"], dt))
+    if mlp_split:
+        kv = fsdp.tp_sum(kv)
+    if p["cw_r"].shape[1] < x.shape[-1]:  # embed_out split: gathered back to all of D
+        r = torch.sigmoid(fsdp.tp_gather(fsdp.tp_copy(xr) @ cast(p["cw_r"], dt), -1))
+    else:
+        r = torch.sigmoid(xr @ cast(p["cw_r"], dt))
     return r * kv, x[:, -1]

@@ -6,6 +6,9 @@ is a Python loop.  Each block runs under ``layers.remat`` (the
 reference's ``jax.checkpoint`` unless ``cfg.remat_policy == "none"``):
 the block's activations are recomputed in the backward pass, WKV forward
 included, and its ``fsdp.gather`` (the reference's site) with them.
+Under tensor parallelism over 'model' the blocks run on this rank's heads
+(``models/rwkv6.py``), the decode state stays split by heads
+(``cache_schema``) and the logits by vocabulary.
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ def _block(lp: dict, h: torch.Tensor, cfg, decode: bool = False, states=None) ->
         cm_shift = None
     h = h + tm_out
     cm_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    cm_out, cm_last = rwkv6_channel_mix(lp["mix"], cm_in, shift_state=cm_shift)
+    cm_out, cm_last = rwkv6_channel_mix(lp["mix"], cm_in, cfg, shift_state=cm_shift)
     return h + cm_out, (wkv_new, tm_last, cm_last)
 
 
@@ -78,7 +81,8 @@ def loss_fn(params: dict, batch: dict, cfg) -> tuple:
     logits = forward(params, batch["tokens"], cfg)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = (labels >= 0).float()
-    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask)
+    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask,
+                        vocab_parallel=logits.shape[-1] < cfg.padded_vocab)
     return xent, {"loss": xent, "xent": xent}
 
 

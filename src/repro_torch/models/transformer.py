@@ -28,18 +28,20 @@ returns the same tensors.
 Sharding: the ``dist/fsdp.py`` hooks sit where the reference has them
 (each layer's ``gather`` inside the remat function, ``gather_leaf`` for
 the embedding, unembedding and vision projection) and are the identity
-outside a sharding context.  Under ``model`` > 1 the dense blocks run
+outside a sharding context.  Under ``model`` > 1 the blocks run
 Megatron-style tensor parallelism on the local shards the gathers hand
 out, reading what is split from the shapes: query heads (and KV heads,
 or, where those stay whole, each rank's query heads take theirs from the
-full K/V), the MLP's ``d_ff`` and the vocabulary.  The column-parallel
-inputs enter through ``fsdp.tp_copy``, the row-parallel products (the
-attention out-projection, the MLP down-projection) and the embedding
-leave through ``fsdp.tp_sum`` (an all-reduce over ``model``), and the
-logits stay split by vocabulary into ``softmax_xent(vocab_parallel=True)``.
-The MoE blocks' experts and the vision projection are not
-tensor-parallel: the sharded step factories refuse those layouts, naming
-ROADMAP item 11b (``train.step._check_layout``).
+full K/V), the MLP's ``d_ff``, the MoE experts or their ``moe_d_ff``
+(``models/moe.py``), the vocabulary and pixtral's vision projection
+(``embed_out``).  The column-parallel inputs enter through
+``fsdp.tp_copy``, the row-parallel products (the attention
+out-projection, the MLP down-projection) and the embedding leave through
+``fsdp.tp_sum`` (an all-reduce over ``model``), the vision projection's
+split output through ``fsdp.tp_gather``, and the logits stay split by
+vocabulary into ``softmax_xent(vocab_parallel=True)``.  A decode cache
+split along its sequence is refused, naming ROADMAP item 11b
+(``train.step._check_layout``).
 """
 from __future__ import annotations
 
@@ -152,13 +154,18 @@ def _qkv(p: dict, x: torch.Tensor, cfg) -> tuple:
 
 def _kv_for_heads(k: torch.Tensor, q_heads: int, cfg) -> torch.Tensor:
     """The KV heads this rank's ``q_heads`` query heads read: ``k`` as it
-    is, unless it holds all KV heads while the query heads are split, when
-    each local query head takes its own (a group of one)."""
+    is, unless it holds all KV heads while the query heads are split.  Then
+    the KV heads of the rank's query heads: their one head where they lie
+    in one group, or the run of heads where they cover whole groups (a
+    grouped attention over fewer KV heads), else one per query head (a
+    group of one)."""
     if q_heads == cfg.num_heads or k.shape[2] < cfg.num_kv_heads:
         return k
+    group = cfg.num_heads // cfg.num_kv_heads
     first = fsdp.model_rank() * q_heads
-    idx = torch.arange(first, first + q_heads, device=k.device) // (
-        cfg.num_heads // cfg.num_kv_heads)
+    if group % q_heads == 0 or q_heads % group == 0:
+        return k.narrow(2, first // group, max(1, q_heads // group)).contiguous()
+    idx = torch.arange(first, first + q_heads, device=k.device) // group
     return k.index_select(2, idx)
 
 
@@ -284,7 +291,11 @@ def _embed_inputs(params: dict, tokens, cfg, patch_embeds=None) -> torch.Tensor:
     h = embed_tokens(params, tokens, cfg)
     if cfg.frontend == "vision" and patch_embeds is not None:
         fp = cast(fsdp.gather_leaf(params["frontend_proj"], ("embed", "embed_out")), h.dtype)
-        pe = torch.as_tensor(patch_embeds, device=h.device).to(h.dtype) @ fp
+        pe = torch.as_tensor(patch_embeds, device=h.device).to(h.dtype)
+        if fp.shape[1] < cfg.d_model:  # embed_out split: column-parallel, then gathered
+            pe = fsdp.tp_gather(fsdp.tp_copy(pe) @ fp, -1)
+        else:
+            pe = pe @ fp
         h = torch.cat([pe, h], dim=1)
     return h
 

@@ -16,10 +16,13 @@ DTensors placed by those shardings (``dist.sharding.device_put``); the
 step runs inside ``fsdp.context(mesh, rules)``, where the models gather
 each parameter at its use site and compute on this rank's local shards,
 and the optimizer updates the DTensor state (whose global-norm clipping
-and Adafactor moments reduce over the sharded axes).  Layouts the port
-does not run (tensor parallelism on 'model' beyond the dense
-``attn_mlp`` family, a decode cache split along its sequence) raise
-``NotImplementedError`` naming ROADMAP item 11b.
+and Adafactor moments reduce over the sharded axes).  Tensor parallelism
+over 'model' runs for every decoder-only family (the dense and MoE
+blocks, rwkv6, zamba2, pixtral's vision projection: ``dist/fsdp.py``'s
+rule).  The layouts the port does not run raise ``NotImplementedError``
+naming ROADMAP item 11b (``_check_layout``): the encoder-decoder blocks
+and sequence parallelism on a 'model' axis larger than 1, KV heads split
+with the query heads whole, and a decode cache split along its sequence.
 """
 from __future__ import annotations
 
@@ -95,46 +98,73 @@ def make_decode_step(api):
 # ---------------------------------------------------------------------------
 
 
-# The logical axes the dense attn_mlp family's tensor parallelism splits.
-TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
+# The logical parameter axes tensor parallelism over 'model' splits.
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "embed_out", "ssm_inner", "expert", "moe_mlp")
 
 
-def _check_layout(api, mesh, rules) -> None:
-    """Raise for the layouts the port does not run (ROADMAP item 11b):
-    under a 'model' axis larger than 1, any family but the dense
-    ``attn_mlp`` one, sequence parallelism, a parameter split on 'model'
-    along another logical axis than ``TP_AXES`` (pixtral's
-    ``frontend_proj``), or KV heads split with the query heads whole; on
-    any mesh, a decode cache split along its sequence."""
-    cfg = api.cfg
+def _live_splits(schema, rules, mesh) -> dict:
+    """{logical axis: the mesh axes of size > 1 that split it in some leaf
+    of ``schema``} under ``pspec``."""
     sizes = mesh_axis_sizes(mesh)
-    model = sizes.get("model", 1)
-    dense = cfg.block_type == "attn_mlp" and not cfg.num_encoder_layers
-    if model > 1 and not dense:
+    out: dict = {}
+    for s in tree_leaves(schema):
+        for name, e in zip(s.axes, pspec(s.axes, s.shape, rules, mesh)):
+            live = {a for a in ((e,) if isinstance(e, str) else e or ()) if sizes[a] > 1}
+            if live:
+                out.setdefault(name, set()).update(live)
+    return out
+
+
+def _model_ways(spec, axis, rules, mesh) -> int:
+    """How many ways 'model' splits the logical ``axis`` of ``spec``."""
+    parts = pspec(spec.axes, spec.shape, rules, mesh)
+    e = parts[spec.axes.index(axis)] if spec.axes.index(axis) < len(parts) else None
+    return mesh_axis_sizes(mesh)["model"] if "model" in ((e,) if isinstance(e, str)
+                                                         else e or ()) else 1
+
+
+def _check_layout(api, mesh, rules, shape: Optional[ShapeConfig] = None) -> None:
+    """Raise for the layouts the port does not run (ROADMAP item 11b):
+    under a 'model' axis larger than 1, the encoder-decoder blocks,
+    sequence parallelism, a parameter split on 'model' along another
+    logical axis than ``TP_AXES``, KV heads split with the query heads
+    whole, or a Mamba-2 ``d_inner`` split that is not whole heads; on any mesh, a decode cell (``shape``) whose cache a live mesh
+    axis splits along its sequence (``act_kv_seq``; a family whose cache
+    has no such axis, as rwkv6's O(1) state, is not refused for the rule)."""
+    cfg = api.cfg
+    model = mesh_axis_sizes(mesh).get("model", 1)
+    if model > 1 and cfg.num_encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a 'model' axis of {model} for the "
-            f"{cfg.block_type}{' encoder-decoder' if cfg.num_encoder_layers else ''} family "
-            f"is not ported ({fsdp.ITEM_11B})")
+            f"{cfg.block_type} encoder-decoder family is not ported ({fsdp.ITEM_11B})")
     if model > 1 and cfg.sequence_parallel:
         raise NotImplementedError(f"{cfg.name}: sequence parallelism ({fsdp.ITEM_11B})")
     if model > 1:
-        split = set()
-        for s in tree_leaves(api.schema):
-            for name, e in zip(s.axes, pspec(s.axes, s.shape, rules, mesh)):
-                if e is not None and "model" in ((e,) if isinstance(e, str) else e):
-                    split.add(name)
+        split = {n for n, axes in _live_splits(api.schema, rules, mesh).items()
+                 if "model" in axes}
         if split - set(TP_AXES):
             raise NotImplementedError(
                 f"{cfg.name}: parameters split over 'model' on {sorted(split - set(TP_AXES))}: "
-                f"only the dense attn_mlp family's {TP_AXES} are ported ({fsdp.ITEM_11B})")
+                f"only {TP_AXES} are ported ({fsdp.ITEM_11B})")
         if "kv_heads" in split and "heads" not in split:
             raise NotImplementedError(f"{cfg.name}: KV heads split over 'model' with the "
                                       f"query heads whole ({fsdp.ITEM_11B})")
-    seq = [a for a in rules.get("act_kv_seq", ()) if sizes.get(a, 1) > 1]
-    if seq:
-        raise NotImplementedError(
-            f"{cfg.name}: a decode cache split along its sequence over {seq} is not "
-            f"ported ({fsdp.ITEM_11B})")
+        mamba = api.schema.get("layers", {}).get("mamba")
+        if mamba is not None:  # a rank's share of d_inner must be whole heads
+            inner = _model_ways(mamba["wx"], "ssm_inner", rules, mesh)
+            heads = _model_ways(mamba["wdt"], "heads", rules, mesh)
+            if inner != heads:
+                raise NotImplementedError(
+                    f"{cfg.name}: d_inner split {inner} ways over 'model' and the Mamba-2 "
+                    f"heads {heads}: a rank's channels are not whole heads ({fsdp.ITEM_11B})")
+    if shape is not None and shape.kind == "decode":
+        cache = api.cache_schema(shape.global_batch, shape.seq_len)
+        live = _live_splits(cache, rules, mesh).get("act_kv_seq")
+        if live:
+            seq = [a for a in rules["act_kv_seq"] if a in live]
+            raise NotImplementedError(
+                f"{cfg.name}: a decode cache split along its sequence over {seq} is not "
+                f"ported ({fsdp.ITEM_11B})")
 
 
 def _local(tree):
@@ -185,7 +215,7 @@ def jit_train_step(api, optimizer, mesh, shape: ShapeConfig, rules: Optional[dic
 
     cfg = api.cfg
     rules = rules or sharding_rules(cfg, mesh, shape)
-    _check_layout(api, mesh, rules)
+    _check_layout(api, mesh, rules, shape)
     st_sh = state_shardings(api, optimizer, rules, mesh, report)
     bt_sh = shardings_of(batch_pspecs(cfg, shape, rules, mesh, input_specs(cfg, shape),
                                       report), mesh)
@@ -206,7 +236,7 @@ def jit_forward(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None, rep
 
     cfg = api.cfg
     rules = rules or sharding_rules(cfg, mesh, shape)
-    _check_layout(api, mesh, rules)
+    _check_layout(api, mesh, rules, shape)
     p_sh = param_shardings(api.schema, rules, mesh, report)
     bt_sh = shardings_of(batch_pspecs(cfg, shape, rules, mesh, input_specs(cfg, shape),
                                       report), mesh)
@@ -231,7 +261,7 @@ def jit_decode_step(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None,
 
     cfg = api.cfg
     rules = rules or sharding_rules(cfg, mesh, shape)
-    _check_layout(api, mesh, rules)
+    _check_layout(api, mesh, rules, shape)
     p_sh = param_shardings(api.schema, rules, mesh, report)
     bt_sh = shardings_of(batch_pspecs(cfg, shape, rules, mesh, input_specs(cfg, shape),
                                       report), mesh)

@@ -50,11 +50,13 @@ def _sub(flat, prefix):
 
 
 def _full(tree, prefix):
-    """Every DTensor leaf gathered (a collective: every rank calls it)."""
+    """Every DTensor leaf gathered (a collective: every rank calls it), as
+    a copy (a replicated leaf's full tensor is its local one, which the
+    next step updates in place)."""
     from repro_torch.checkpoint.ckpt import flatten
 
     return {prefix + k: (v.full_tensor() if hasattr(v, "full_tensor") else v).detach().numpy()
-            for k, v in flatten(tree).items()}
+            .copy() for k, v in flatten(tree).items()}
 
 
 def _batch(flat):
@@ -82,11 +84,14 @@ def run_train(name, case, ref, out, rank):
              "step": torch.zeros((), dtype=torch.int32)}
     state = device_put(state, st_sh)
     batch = device_put(_batch(flat), bt_sh)
-    losses = []
-    for _ in range(STEPS):
+    losses, res = [], {}
+    for i in range(STEPS):
         state, metrics = fn(state, batch)
         losses.append(float(metrics["loss"]))
-    res = {"losses": np.array(losses)}
+        if i == 0:  # the first step's moments: its gradients, scaled
+            res.update({k: v for k, v in _full(state["opt"], "first/").items()
+                        if k.startswith("first/m/") or k.startswith("first/stats/")})
+    res["losses"] = np.array(losses)
     res.update(_full(state["params"], "params/"))
     res.update({k: v for k, v in _full(state["opt"], "opt/").items()
                 if k.startswith("opt/m/") or k.startswith("opt/stats/")})
@@ -161,23 +166,28 @@ def run_restore(name, case, ref, out, rank):
 
 
 def run_raises(name, case, ref, out, rank):
-    """Each listed arch's train step on this mesh must raise
-    NotImplementedError; the messages are recorded."""
-    from repro_torch.configs import TRAIN_4K
+    """Each listed layout's step on this mesh must raise
+    NotImplementedError; the messages are recorded.  ``case["layouts"]``
+    maps a name to ``[arch, kind, global batch]``: ``train`` builds the
+    train step, ``decode`` the decode step of a 32-position cache."""
+    from repro_torch.configs import TRAIN_4K, ShapeConfig
     from repro_torch.models.api import get_model
     from repro_torch.optim.optimizer import make_optimizer
-    from repro_torch.train.step import jit_train_step
+    from repro_torch.train.step import jit_decode_step, jit_train_step
 
     mesh = _mesh(case["mesh"])
-    shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=8, name="t")
     got = {}
-    for arch in case["archs"]:
+    for key, (arch, kind, batch) in case["layouts"].items():
         cfg = _config(arch)
         try:
-            jit_train_step(get_model(cfg), make_optimizer(cfg), mesh, shape)
-            got[arch] = "no error"
+            if kind == "train":
+                shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=batch, name="t")
+                jit_train_step(get_model(cfg), make_optimizer(cfg), mesh, shape)
+            else:
+                jit_decode_step(get_model(cfg), mesh, ShapeConfig("d", 32, batch, "decode"))
+            got[key] = "no error"
         except NotImplementedError as e:
-            got[arch] = str(e)
+            got[key] = str(e)
     if rank == 0:
         with open(os.path.join(out, f"{name}-port.json"), "w") as f:
             json.dump(got, f)

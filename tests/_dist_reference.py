@@ -52,6 +52,11 @@ def batch_np(cfg, B, S, seed, uneven):
         b = {"frames": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32),
              "tokens": rng.integers(0, V, (B, S_dec)).astype(np.int32),
              "labels": rng.integers(0, V, (B, S_dec)).astype(np.int32)}
+    elif cfg.frontend == "vision":  # train_input_specs' length rule: S // 4 patches
+        S_img = S // 4
+        b = {"tokens": rng.integers(0, V, (B, S - S_img)).astype(np.int32),
+             "labels": rng.integers(0, V, (B, S - S_img)).astype(np.int32),
+             "patch_embeds": rng.standard_normal((B, S_img, cfg.d_model)).astype(np.float32)}
     else:
         b = {"tokens": rng.integers(0, V, (B, S)).astype(np.int32),
              "labels": rng.integers(0, V, (B, S)).astype(np.int32)}

@@ -95,17 +95,55 @@ def test_prefill_flops_equal_the_analytic_count():
     assert rec["output_bytes"] == B * S * cfg.padded_vocab * 2  # the logits, in cfg.dtype (bf16)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "qwen3-moe-30b-a3b"])
-def test_refused_cell_fails_naming_item_11b(arch, tmp_path, capsys):
-    """A family outside the dense ``attn_mlp`` one on a 'model' axis of 16:
-    a failed cell (exit 1, the message printed), never a skipped one."""
+@pytest.mark.parametrize("arch,shape", [("seamless-m4t-large-v2", "train_4k"),
+                                        ("llama3-8b", "decode_32k")])
+def test_refused_cell_fails_naming_item_11b(arch, shape, tmp_path, capsys):
+    """A layout the port does not run on the (16, 16) mesh (the
+    encoder-decoder blocks on a 'model' axis of 16; llama3-8b's decode
+    cache, whose 8 KV heads cannot split 16 ways, split along its sequence
+    instead): a failed cell (exit 1, the message printed), never a skipped
+    one."""
     out = tmp_path / "d.jsonl"
-    rc = dryrun.main(["--arch", arch, "--shape", "train_4k", "--mesh", "single",
+    rc = dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single",
                       "--out", str(out)])
     err = capsys.readouterr().err
     assert rc == 1
     assert "item 11b" in err and arch in err
     assert not out.exists()
+
+
+FLASH = ("flash_attention_fwd", "flash_attention_bwd")
+ADMITTED = {  # arch -> (shapes, the kernel operators the train step must run)
+    "rwkv6-1.6b": (("train_4k", "long_500k"), ("wkv6_chunk_fwd", "wkv6_chunk_bwd")),
+    "zamba2-2.7b": (("train_4k",), ("ssd_chunk_fwd", "ssd_chunk_bwd") + FLASH),
+    "qwen3-moe-30b-a3b": (("train_4k",), FLASH),
+    "grok-1-314b": (("train_4k",), FLASH),
+    "pixtral-12b": (("train_4k",), FLASH),
+}
+
+
+@pytest.mark.parametrize("arch,shape", [(a, sh) for a in sorted(ADMITTED)
+                                        for sh in ADMITTED[a][0]])
+def test_tensor_parallel_cell_runs(arch, shape):
+    """A cell of each family that tensor parallelism over 'model' admits,
+    on the (16, 16) mesh at full width and one layer: it runs on meta
+    tensors, names no refusal, and counts its kernels' operators and the
+    all-reduces of its row-parallel products; the all-gathers of the split
+    outputs (rwkv6's ``cw_r``, the MoE router and experts, pixtral's
+    vision projection) are counted with them.  rwkv6's ``long_500k`` (a
+    batch of 1: ``act_kv_seq`` on 'data', an axis its O(1) state lacks)
+    decodes."""
+    from repro_torch.configs import SHAPES
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    with fake_world(256, "meta"):
+        rec = dryrun.run_step(cfg, SHAPES[shape], make_production_mesh(), "meta")
+    assert rec["flops"] > 0 and rec["collective_bytes"]["all-reduce"] > 0
+    if shape == "train_4k":
+        for k in ADMITTED[arch][1]:
+            assert rec["flops_by_op"][f"repro_torch.{k}"] > 0, (k, rec["flops_by_op"])
+    if arch in ("rwkv6-1.6b", "qwen3-moe-30b-a3b", "pixtral-12b"):
+        assert rec["collective_bytes"]["all-gather"] > 0
 
 
 def test_cli_writes_one_record_with_the_reference_keys(tmp_path, capsys):

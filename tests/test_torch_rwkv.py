@@ -73,7 +73,7 @@ def test_channel_mix(model):
     jx, tx = _x(cfg, 2, 20, 1)
     jl = jax.tree.map(lambda a: a[1], jp["layers"])["mix"]
     want, _ = ref_rwkv6.rwkv6_channel_mix(jl, jx)
-    got, _ = rwkv6.rwkv6_channel_mix(layer_params(tp, 1)["mix"], tx)
+    got, _ = rwkv6.rwkv6_channel_mix(layer_params(tp, 1)["mix"], tx, port_config(cfg))
     _close(got, want, TOL[cfg.dtype], cfg.dtype)
 
 

@@ -348,31 +348,62 @@ def test_placing_never_moves_a_tensor_across_device_types(tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("case", ["pixtral-frontend", "kv-split-heads-whole", "dense-tp-runs",
-                                  "moe-family"])
-def test_unported_layouts_are_refused_once_per_step(case):
-    """The sharded step factories' one layout check (ROADMAP item 11b):
-    under a 'model' axis of 2, pixtral's ``frontend_proj`` (split on
-    ``embed_out``), KV heads split while the query heads stay whole, and
-    any family but dense ``attn_mlp`` raise; llama3-8b's dense tensor
-    parallelism passes.  (minicpm-2b reduced has 4 KV heads, so they can
-    split.)"""
-    from repro_torch.train.step import _check_layout
+LAYOUT_CASES = {  # case -> (arch, shape, rules override, mesh, the refusal or None: runs,
+    #                  {logical axis: a mesh axis that must split it})
+    "pixtral-frontend": ("pixtral-12b", TRAIN_4K, {}, (2, 2), None,
+                         {"embed_out": "model", "heads": "model"}),
+    "kv-split-heads-whole": ("minicpm-2b", TRAIN_4K, {"heads": (), "kv_heads": ("model",)},
+                             (2, 2), "query heads whole", {}),
+    "dense-tp-runs": ("llama3-8b", TRAIN_4K, {}, (2, 2), None,
+                      {"heads": "model", "mlp": "model"}),
+    "moe-family": ("qwen3-moe-30b-a3b", TRAIN_4K, {}, (2, 2), None, {"expert": "model"}),
+    "moe-tensor-experts": ("grok-1-314b", TRAIN_4K, {}, (2, 2), None, {"moe_mlp": "model"}),
+    "rwkv-family": ("rwkv6-1.6b", TRAIN_4K, {}, (2, 2), None,
+                    {"heads": "model", "embed_out": "model"}),
+    "mamba2-family": ("zamba2-2.7b", TRAIN_4K, {}, (2, 2), None,
+                      {"ssm_inner": "model", "heads": "model"}),
+    "mamba2-partial-heads": ("zamba2-2.7b", TRAIN_4K, {"heads": (), "kv_heads": ()}, (2, 2),
+                             "not whole heads", {}),
+    "encdec-family": ("seamless-m4t-large-v2", TRAIN_4K, {}, (2, 2),
+                      "'model' axis of 2 for the attn_mlp encoder-decoder family", {}),
+    "unported-axis": ("llama3-8b", TRAIN_4K, {"norm": ("model",)}, (2, 2), r"\['norm'\]", {}),
+    "rwkv-state-batch-1": ("rwkv6-1.6b", LONG_500K, {}, (2, 1), None, {"act_kv_seq": "data"}),
+    "zamba-kv-cache-batch-1": ("zamba2-2.7b", LONG_500K, {}, (2, 1),
+                               r"along its sequence over \['data'\]", {}),
+}
 
-    m = mesh.AbstractMesh((2, 2), ("data", "model"))
-    arch = {"pixtral-frontend": "pixtral-12b", "moe-family": "qwen3-moe-30b-a3b",
-            "kv-split-heads-whole": "minicpm-2b"}.get(case, "llama3-8b")
+
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+def test_unported_layouts_are_refused_once_per_step(case):
+    """The sharded step factories' one layout check (ROADMAP item 11b).
+    Under a 'model' axis of 2 every decoder-only family runs its tensor
+    parallelism, and the rules do split it over 'model' (pixtral's
+    ``frontend_proj`` on ``embed_out``, qwen3-moe's experts, grok-1's
+    ``moe_d_ff``, rwkv6's heads and ``cw_r``'s ``embed_out``, Mamba-2's
+    ``ssm_inner``, llama3-8b's heads and MLP); the encoder-decoder blocks,
+    a parameter split along a logical axis no block splits, KV heads split
+    while the query heads stay whole (minicpm-2b reduced has 4 KV heads, so
+    they can split) and Mamba-2's ``d_inner`` split while its heads stay
+    whole raise.  A decode cell with a batch of 1 on a data axis of 2 puts
+    ``act_kv_seq`` on 'data': rwkv6's O(1) state has no such axis and runs,
+    zamba2's shared-attention ``k``/``v`` are split along their sequence
+    and refused."""
+    from repro_torch.train.step import _check_layout, _live_splits
+
+    arch, shape, override, mesh_shape, want, live = LAYOUT_CASES[case]
+    m = mesh.AbstractMesh(mesh_shape, ("data", "model"))
     cfg = get_config(arch).reduced()
     api = get_model(cfg)
-    rules = sharding.sharding_rules(cfg, m, TRAIN_4K)
-    if case == "kv-split-heads-whole":
-        rules = dict(rules, heads=(), kv_heads=("model",))
-    if case == "dense-tp-runs":
-        assert rules["heads"] == ("model",) and rules["mlp"] == ("model",)
-        _check_layout(api, m, rules)
+    rules = dict(sharding.sharding_rules(cfg, m, shape), **override)
+    split, sizes = _live_splits(api.schema, rules, m), sharding.mesh_axis_sizes(m)
+    for axis, mesh_axis in live.items():
+        if axis.startswith("act_"):  # an activation's axis: the rules place it
+            assert mesh_axis in rules[axis] and sizes[mesh_axis] > 1, (axis, rules[axis])
+        else:
+            assert mesh_axis in split.get(axis, ()), (axis, split)
+    if want is None:
+        _check_layout(api, m, rules, shape)
         return
-    want = {"pixtral-frontend": r"\['embed_out'\]", "kv-split-heads-whole": "query heads whole",
-            "moe-family": "'model' axis of 2"}[case]
     with pytest.raises(NotImplementedError, match=want) as e:
-        _check_layout(api, m, rules)
+        _check_layout(api, m, rules, shape)
     assert "item 11b" in str(e.value)

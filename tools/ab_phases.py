@@ -18,8 +18,9 @@ parent), and each prints one line ``ab: {json}`` with
     shapes, the SSD and WKV-6 forwards at their slice shapes; bf16), each
     two ways: ``single``, ``chip_smoke.py``'s median of single calls
     between two CUDA events, whose window holds the wrapper's host time
-    after the first event as device idle; and ``loop``, the mean of 20
-    calls issued back to back between two events, where the host runs
+    after the first event as device idle; and ``loop``, its
+    ``_loop_ms``, the mean of 20 calls issued back to back between two
+    events, where the host runs
     ahead of the card whenever a call's host time is shorter than its
     kernel, so the window holds the kernels alone; SDPA beside the flash
     forward, both ways;
@@ -79,24 +80,6 @@ def _wrapper_us(calls=2000):
     return out
 
 
-def _loop_ms(fn, calls=20, warmup=3):
-    """Mean time of ``calls`` calls issued back to back between two CUDA
-    events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(calls):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / calls
-
-
 def _kernel_ms(c):
     """``kernel_ms`` of the docstring, with the tree's own ``chip_smoke``
     (``c``) giving the shapes, inputs and single-call timer."""
@@ -108,7 +91,7 @@ def _kernel_ms(c):
     from repro_torch.kernels import wkv6 as wk
 
     def both(fn):
-        return {"single": c._time_ms(fn), "loop": _loop_ms(fn)}
+        return {"single": c._time_ms(fn), "loop": c._loop_ms(fn)}
 
     out = {}
     flash = {"llama": (dict(c.PREFILL, window=0), 0.0), "d80": (c.FLASH_SLICE, 0.0),
