@@ -177,7 +177,7 @@ on the card, ``ModelAPI.init(..., dtype=)``):
      9b check through the capped kernel, then ``ServingEngine.generate`` on
      2 x 256 prompts and 16 new tokens.
   9e. recurrent serving — rwkv6-1.6b and zamba2-2.7b at full width and
-     depth through ``ServingEngine``: 4 x 256 prompts fed token by token,
+     depth through ``ServingEngine``: 4 x 128 prompts fed token by token,
      32 new tokens; the last prefill logits against ``forward`` (the
      chunked WKV-6 / SSD kernels and flash at d=80, which must launch).
   9f. big train — qwen3-moe-30b-a3b (AdamW) and qwen2-72b (Adafactor) at
@@ -211,7 +211,7 @@ layouts, both dtypes, and hold every flash shape of 10b-10f):
      must run ``flash_fwd_sm90<64>`` and both ``flash_bwd_*_sm90`` at
      d=64 and no fp32 flash kernel.
   10d. seamless served — full depth in bf16 through
-     ``ServingEngine.generate``: 4 x 256 prompts token by token against the
+     ``ServingEngine.generate``: 4 x 128 prompts token by token against the
      zero encoder memory, 32 new tokens (token counts, vocabulary; no
      flash launch: ``decode_attention`` is plain PyTorch); then a forward
      of 1 x 4096 frames and 1024 tokens: finite logits.
@@ -283,9 +283,10 @@ Slice 10, the dry-run and the example entry points (after 12a; a
      before the state within ``DRYRUN_PEAK_TOL`` of 13a's peak; the
      achieved TFLOP/s of the counted FLOPs over 11b's median step.
   13c. the dry-run CLI, a process a cell: llama3-8b ``train_4k`` on the
-     (16, 16) production mesh (256 fake ranks) writes its record; a cell
-     the port refuses (seamless-m4t-large-v2 ``train_4k``) exits non-zero
-     naming item 11b; the wall time of each.
+     (16, 16) production mesh (256 fake ranks) writes its record; a layout
+     the port refuses (seamless-m4t-large-v2 ``train_4k`` with sequence
+     parallelism, ``--cfg-override``) exits non-zero naming item 11b; the
+     wall time of each.
   13d. ``launch.burst_plan_demo``, ``launch.train_lm`` (the ~100M config,
      ``TRAIN_LM_STEPS`` steps: losses fall) and ``launch.serve_lm`` for
      qwen2-1.5b and rwkv6-1.6b on the card, launches from the counters.
@@ -302,6 +303,26 @@ line comes before ``slice10``):
      under ``launch.op_analysis``'s counters: FLOPs equal to the dry-run's
      of the same cell exactly, ``max_memory_allocated`` net within
      ``DRYRUN_PEAK_TOL`` of its peak; each cell's step time and launches.
+Slice 12, split-KV decoding and seamless's tensor parallelism (after 14b;
+a ``slice12: {...}`` line comes before ``slice11``):
+  15a. the flash kernels at seamless's rank shapes of the (16, 16) mesh at
+     ``train_4k`` (``SEAMLESS_RANK_FLASH``: one query head over one KV head
+     of 64; the encoder, not causal, 4096/4096; the decoder, causal,
+     1024/1024; the cross-attention, not causal, 1024 over 4096), bf16
+     forward and backward against the plain version with phase 3's
+     tolerances and timed as 14a times them (the rows go into the flash
+     records' ``seamless_rank``); then the split-KV merge
+     (``models.attention.decode_attention_partial`` and ``merge_partials``,
+     the functions the ranks call, with the all-reduces replaced by
+     reductions over the stacked slices) at llama3-8b ``decode_32k``'s and
+     zamba2 ``long_500k``'s rank shapes (``SPLIT_MERGE``) against
+     ``decode_attention`` over the whole cache: fp32 to 1e-5 of the largest
+     magnitude, bf16 to one bf16 ulp of it.
+  15b. rank 0's step of each ``SPLIT_CELLS`` cell (the sequence of the
+     decode cache on 'model', on ('data', 'model') and on 'data', seamless
+     training and decoding) through ``tp_cell``, as 14b: FLOPs equal to the
+     dry-run's, peak within ``DRYRUN_PEAK_TOL``; seamless ``train_4k``
+     must launch the flash forward and backward.
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
@@ -2640,9 +2661,14 @@ def phase_grok(smi):
     return launches
 
 
+# 9e's (and 10d's) prompt length, fed token by token: the script's slowest
+# path per token, halved from 256 to keep the script inside its time limit
+RECURRENT_PROMPT = 128
+
+
 def phase_recurrent_serving(smi):
     """Phase 9e: rwkv6-1.6b and zamba2-2.7b at full width and depth through
-    ``ServingEngine``: 4 x 256 prompts fed token by token through
+    ``ServingEngine``: 4 x ``RECURRENT_PROMPT`` prompts fed token by token through
     ``decode_step``, then 32 new tokens; the token-by-token prefill's last
     logits against ``forward`` (the chunked WKV-6 / SSD kernels and flash
     at d=80) on the same prompts."""
@@ -2655,8 +2681,8 @@ def phase_recurrent_serving(smi):
     for arch in ("rwkv6-1.6b", "zamba2-2.7b"):
         cfg = get_config(arch)
         api, params = _direct_params(cfg, seed=3)
-        prompts = np.random.default_rng(22).integers(0, cfg.vocab_size, (4, 256))
-        eng = ServingEngine(cfg, params, batch=4, capacity=256 + 32, device="cuda")
+        prompts = np.random.default_rng(22).integers(0, cfg.vocab_size, (4, RECURRENT_PROMPT))
+        eng = ServingEngine(cfg, params, batch=4, capacity=RECURRENT_PROMPT + 32, device="cuda")
         prefill, seen = eng.prefill, {}
         eng.prefill = lambda p: seen.setdefault("last", prefill(p))  # generate's own prefill
         toks = eng.generate(prompts, 32)
@@ -2669,7 +2695,8 @@ def phase_recurrent_serving(smi):
         counts = {"wkv6": _wkv_counts(), **_counts()}
         diff, scale = float((last - want).abs().max()), float(want.abs().max())
         same = bool((last.argmax(-1) == want.argmax(-1)).all())
-        print(f"{arch} served on {smi}: 4 x 256 prompts token by token, 32 new tokens -> "
+        print(f"{arch} served on {smi}: 4 x {RECURRENT_PROMPT} prompts token by token, 32 new "
+              f"tokens -> "
               f"{toks.shape}; prefill {st.prefill_s / 4 * 1e3:.2f} ms/request "
               f"({st.prefill_s:.3f} s for the batch); decode {st.tokens_per_s:.2f} tokens/s; "
               f"last prefill logits vs forward: max abs diff {diff:.4g} (bound {MODEL_RTOL} x "
@@ -2836,7 +2863,7 @@ SEAMLESS_ENC_FLASH = dict(B=4, S=4096, Skv=4096, H=16, KV=16, d=64, window=0, ca
 SEAMLESS_CROSS_FLASH = dict(SEAMLESS_ENC_FLASH, S=1024)
 SEAMLESS_CHECK = dict(batch=2, frames=1024, layers=4)  # 10b: 4 encoder + 4 decoder layers
 SEAMLESS_TRAIN = dict(steps=20, batch=4, seq=4096)     # 10c: 4 x 4096 frames, 4 x 1024 tokens
-SEAMLESS_SERVE = dict(batch=4, prompt=256, new=32, frames=4096)  # 10d
+SEAMLESS_SERVE = dict(batch=4, prompt=RECURRENT_PROMPT, new=32, frames=4096)  # 10d
 PIXTRAL = dict(batch=4, patches=1024, new=32, check_layers=4)    # 10e
 PIXTRAL_TRAIN = dict(steps=20, batch=1, seq=4096, layers=2)      # 10f: 1024 patches + 3072 text
 VGG_RUN = dict(batch=32, check_batch=4, steps=10, lr=1e-4)       # 10g
@@ -3068,7 +3095,7 @@ def phase_seamless_train(smi):
 def phase_seamless_serve(smi):
     """Phase 10d: seamless-m4t-large-v2 at full width and depth in bf16
     (weights drawn straight into bf16 on the card) through
-    ``ServingEngine.generate``: 4 x 256 prompts fed token by token through
+    ``ServingEngine.generate``: 4 x 128 prompts fed token by token through
     ``decode_step`` against the zero encoder memory ``init_cache`` makes
     (as the reference serves it), 32 new tokens; token counts and the
     vocabulary.  The decoder's self- and cross-attention at decode run
@@ -3844,9 +3871,11 @@ def phase_live_loop(mesh, smi, losses11b, median11b_ms):
 # tolerance PERF.md states, about 70 MB of 13b's 65.6 GiB peak, where the gap
 # read 3.67 MB in two runs, and 14b's widest reading +0.045% (zamba2 decode)
 DRYRUN_PEAK_TOL = 0.001
-DRYRUN_CELLS = (  # 13c: (arch, shape, what the CLI must do)
-    ("llama3-8b", "train_4k", "record"),
-    ("seamless-m4t-large-v2", "train_4k", "refuse"),  # enc-dec on a 'model' axis: item 11b
+DRYRUN_CELLS = (  # 13c: (arch, shape, what the CLI must do, CLI overrides)
+    ("llama3-8b", "train_4k", "record", []),
+    # sequence parallelism on a 'model' axis: still item 11b
+    ("seamless-m4t-large-v2", "train_4k", "refuse",
+     ["--cfg-override", '{"sequence_parallel": true}']),
 )
 TRAIN_LM_STEPS = 60  # 13d: launch.train_lm's ~100M config on the card
 
@@ -3978,18 +4007,18 @@ def phase_dryrun_check(mesh, smi, pred, median11b_ms):
 def phase_dryrun_cli():
     """Phase 13c: the dry-run CLI, each cell a process of its own, as a user
     runs it: llama3-8b ``train_4k`` on the (16, 16) production mesh (256
-    fake ranks, fake cuda tensors) writes its record; a cell the port
-    refuses (seamless-m4t-large-v2 ``train_4k``: the encoder-decoder blocks
-    on a 'model' axis of 16) exits non-zero naming item 11b.  The wall time
-    of each."""
+    fake ranks, fake cuda tensors) writes its record; a layout the port
+    refuses (seamless-m4t-large-v2 ``train_4k`` with sequence parallelism,
+    through ``--cfg-override``) exits non-zero naming item 11b.  The wall
+    time of each."""
     out = os.path.join(ROOT, "build", "dryrun13c.jsonl")
     if os.path.exists(out):
         os.remove(out)
     stats = {}
-    for arch, shape, want in DRYRUN_CELLS:
+    for arch, shape, want, overrides in DRYRUN_CELLS:
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                            "--shape", shape, "--mesh", "single", "--out", out],
+                            "--shape", shape, "--mesh", "single", "--out", out] + overrides,
                            cwd=ROOT, capture_output=True, text=True, timeout=900,
                            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
         wall = time.perf_counter() - t0
@@ -4160,7 +4189,7 @@ def rank_step(cfg, shape, mesh, device, gen):
     return fn, first, batch
 
 
-def tp_cell(arch, shape_name, layers, smi):
+def tp_cell(arch, shape_name, layers, smi, tag="14b"):
     """One 14b cell: the dry-run's prediction of rank 0's step of ``arch``
     x ``shape_name`` on the (16, 16) mesh (a fake world of 256 ranks, fake
     cuda tensors), then the same step for real on the card, as rank 0 of a
@@ -4207,11 +4236,11 @@ def tp_cell(arch, shape_name, layers, smi):
         step_s = time.perf_counter() - t1
         del out, first, batch
     _free_card()
-    print(f"14b {label}, rank 0 of (16, 16) on {smi}: collective bytes "
+    print(f"{tag} {label}, rank 0 of (16, 16) on {smi}: collective bytes "
           f"{costs.collectives}; step {step_s * 1e3:.1f} ms (the counted step "
           f"{counted_s * 1e3:.1f} ms, the prediction {predict_s:.1f} s); launches {launches}",
           flush=True)
-    off = _hold_to_dryrun(f"14b {label}", costs, peak, pred)
+    off = _hold_to_dryrun(f"{tag} {label}", costs, peak, pred)
     return launches, dict(flops=costs.flops, predicted_flops=pred["flops"], peak_bytes=peak,
                           predicted_peak_bytes=pred["peak_bytes"], peak_off=off,
                           collective_bytes=costs.collectives, step_ms=step_s * 1e3,
@@ -4230,6 +4259,124 @@ def phase_tp_cells(smi):
         need = {"rwkv6-1.6b": ["wkv"], "zamba2-2.7b": ["ssd", "flash"]}.get(arch, ["flash"])
         if shape == "train_4k" and any(not all(launches[key][k].values()) for k in need):
             fail(f"14b {key}: the step launched {launches[key]}, not each of {need}")
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
+# Slice 12: split-KV decoding and seamless's tensor parallelism (15a-15b)
+# ---------------------------------------------------------------------------
+
+# seamless-m4t-large-v2 at train_4k on the (16, 16) mesh: 256 x 4096 frames and
+# 256 x 1024 tokens over 16 data ranks, its 16/16 heads over 16 model ranks
+SEAMLESS_RANK_FLASH = (  # 15a: (label, shape)
+    ("seamless encoder", dict(B=16, S=4096, Skv=4096, H=1, KV=1, d=64, window=0,
+                              causal=False)),
+    ("seamless decoder self-attention", dict(B=16, S=1024, H=1, KV=1, d=64, window=0)),
+    ("seamless cross-attention", dict(B=16, S=1024, Skv=4096, H=1, KV=1, d=64, window=0,
+                                      causal=False)),
+)
+SPLIT_MERGE = (  # 15a: a rank's split-KV decode, (label, lanes, heads, KV heads, d_head,
+    #               slices, slice length, the step's cache_len n, window)
+    ("llama3-8b decode_32k", 8, 32, 8, 128, 16, 2048, 16384, 0),
+    # 4096 valid positions end at n = 8 slices: 14 of the 16 slices fully masked
+    ("zamba2-2.7b long_500k", 1, 2, 2, 80, 16, 32768, 262144, 4096),
+)
+SPLIT_CELLS = (  # 15b: (arch, shape, depth cut or None), rank 0 of the (16, 16) mesh
+    ("llama3-8b", "decode_32k", None),  # the sequence on 'model', q gathered
+    ("grok-1-314b", "decode_32k", None),  # on 'model', the cap, tensor-parallel experts
+    ("qwen3-moe-30b-a3b", "decode_32k", None),  # on 'model', expert parallelism
+    ("zamba2-2.7b", "long_500k", None),  # a batch of 1: on 'data', the window
+    ("seamless-m4t-large-v2", "train_4k", None),  # the enc-dec blocks over 'model'
+    ("seamless-m4t-large-v2", "decode_32k", None),
+)
+
+
+def _split_merge(row, dtype, seed):
+    """One ``SPLIT_MERGE`` row in ``dtype``: the rank's split form over each
+    slice, merged over the stacked slices, against ``decode_attention`` over
+    the whole cache on the same inputs.  Returns the record."""
+    import torch
+
+    from repro_torch.models import attention as attn
+
+    label, B, H, KV, d, N, S, n, W = row
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, 1, H, d, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(B, N * S, KV, d, generator=g, device="cuda").to(dt) for _ in range(2))
+    length = torch.tensor(n + 1, device="cuda")  # the step wrote position n
+
+    def partial(i):
+        return attn.decode_attention_partial(q, k[:, i * S:(i + 1) * S], v[:, i * S:(i + 1) * S],
+                                             length, i * S, window=W)
+
+    def split():
+        parts = [partial(i) for i in range(N)]
+        return attn.merge_partials(torch.stack([o for o, _ in parts]),
+                                   torch.stack([m for _, m in parts]),
+                                   lambda x: x.amax(0, keepdim=True),
+                                   lambda x: x.sum(0)).to(dt)
+
+    with torch.no_grad():
+        got = split()
+        want = attn.decode_attention(q, k, v, length, window=W)
+        masked = sum(int((partial(i)[1] < -1e29).all()) for i in range(N))
+        whole_ms = _time_ms(lambda: attn.decode_attention(q, k, v, length, window=W))
+        slice_ms = _time_ms(lambda: partial(N // 2))
+        parts = [partial(i) for i in range(N)]
+        o, m = torch.stack([x for x, _ in parts]), torch.stack([x for _, x in parts])
+        merge_ms = _time_ms(lambda: attn.merge_partials(o, m, lambda x: x.amax(0, keepdim=True),
+                                                        lambda x: x.sum(0)))
+    top = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    tol = 1e-5 * top if dtype == "float32" else 2.0 ** (math.floor(math.log2(top)) - 7)
+    finite = bool(torch.isfinite(got).all())
+    print(f"15a split-KV merge {label} {dtype}: {B} lanes, {H}/{KV} heads of {d}, {N} slices "
+          f"of {S}, n {n}, window {W}: {masked} slices fully masked; max abs err {err:.3g} "
+          f"against decode_attention over the whole cache (tolerance {tol:.3g}, largest "
+          f"|out| {top:.3g}); whole cache {whole_ms:.4f} ms, one slice's partial "
+          f"{slice_ms:.4f} ms, the merge of {N} {merge_ms:.4f} ms", flush=True)
+    if not finite or err > tol:
+        fail(f"15a: the split-KV merge at {label} {dtype} is off by {err} (tolerance {tol}, "
+             f"finite {finite})")
+    del q, k, v, got, want, parts, o, m
+    _free_card()
+    return dict(label=label, dtype=dtype, max_abs_err=err, tol=tol, slices_fully_masked=masked,
+                whole_ms=whole_ms, slice_ms=slice_ms, merge_ms=merge_ms)
+
+
+def phase_split_kernels(smi):
+    """Phase 15a: the flash kernels at seamless's rank shapes
+    (``SEAMLESS_RANK_FLASH``) through ``_flash_times`` as 14a runs them,
+    then the split-KV merge at each ``SPLIT_MERGE`` shape in fp32 and bf16
+    (``_split_merge``).  Returns ({kernel record name: [rank rows]}, the
+    merge records)."""
+    print(f"15a: seamless's flash shapes on a rank of the (16, 16) mesh and the split-KV "
+          f"merge, on {smi}", flush=True)
+    rows = {"flash_attention": [], "flash_attention_bwd": []}
+    for i, (label, sl) in enumerate(SEAMLESS_RANK_FLASH):
+        (fwd, bwd), _, _ = _flash_times(sl, seed=150 + i)
+        for rec, key in ((fwd, "flash_attention"), (bwd, "flash_attention_bwd")):
+            rows[key].append(dict(rec, path=label))
+    _free_card()
+    merges = [_split_merge(row, dtype, seed=155 + i)
+              for i, row in enumerate(SPLIT_MERGE) for dtype in ("float32", "bfloat16")]
+    return rows, merges
+
+
+def phase_split_cells(smi):
+    """Phase 15b: every ``SPLIT_CELLS`` cell through ``tp_cell`` (no process
+    group may be live).  Returns the launches and the numbers of each cell;
+    fails unless seamless's ``train_4k`` step launched the flash forward
+    and backward."""
+    launches, stats = {}, {}
+    for arch, shape, layers in SPLIT_CELLS:
+        key = f"{arch}{f' x{layers}' if layers else ''} {shape}"
+        launches[key], stats[key] = tp_cell(arch, shape, layers, smi, tag="15b")
+        flash = launches[key]["flash"]
+        if shape == "train_4k" and not (flash["fwd"] and flash["bwd"]):
+            fail(f"15b {key}: the step launched {launches[key]}, not the flash forward and "
+                 f"backward")
     return launches, stats
 
 
@@ -4335,7 +4482,12 @@ def main() -> None:
     tp_rows = phase_tp_kernels(smi)
     tp_launches, tp_stats = phase_tp_cells(smi)
     tp_stats["phase14_s"] = time.perf_counter() - t14
+    t15 = time.perf_counter()
+    split_rows, split_merges = phase_split_kernels(smi)
+    split_launches, split_stats = phase_split_cells(smi)
+    split_stats["phase15_s"] = time.perf_counter() - t15
     tp_path = {f"{k} rank 0 of (16, 16) (14b)": c for k, c in tp_launches.items()}
+    tp_path.update({f"{k} rank 0 of (16, 16) (15b)": c for k, c in split_launches.items()})
     bg = {k: alone[k] + bg_mux[k] + bg_exec[k] for k in ("fwd", "bwd")}
     flash["launches_by_path"] = {"serve llama3-8b": serve_launches,
                                  "train zamba2-2.7b": counts["flash"]["fwd"],
@@ -4412,8 +4564,12 @@ def main() -> None:
     for rec in (flash, flash_bwd, wkv_fwd, wkv_bwd, ssd_fwd, ssd_bwd):
         # 14a: the kernel at the shapes a rank of the (16, 16) mesh gives it
         rec["tp_rank"] = tp_rows[rec["name"]]
+    for rec in (flash, flash_bwd):
+        # 15a: the kernel at seamless's shapes on a rank of the (16, 16) mesh
+        rec["seamless_rank"] = split_rows[rec["name"]]
     slice8 = dict(mesh=mesh_rules, sharded_train=sharded_stats, families=fam_stats,
                   powersgd=psgd, disaggregated_serve=disagg_stats)
+    print(f"slice12: {json.dumps(dict(split_cells=split_stats, split_merge=split_merges))}")
     print(f"slice11: {json.dumps(dict(tp_cells=tp_stats))}")
     print(f"slice10: {json.dumps(dict(dryrun=dryrun_stats, dryrun_cli=cli13, examples=ex_stats))}")
     print(f"slice9: {json.dumps(dict(live_loop=live_stats))}")

@@ -22,10 +22,12 @@ Port-only, for the global reductions local compute must make itself:
 ``batch_sum`` (a sum over the ranks the batch is split over, whose
 backward is the identity: each rank's gradient is its own share), and
 the tensor-parallel crossings over the ``model`` axis, with
-``model_max``, ``model_size`` and ``model_rank``.
+``model_max``, ``model_size`` and ``model_rank``, and the split-KV
+decode's ``kv_seq_axes``, ``kv_seq_offset``, ``seq_max`` and ``seq_sum``.
 
 Tensor parallelism over ``model`` (the dense and MoE decoder blocks,
-rwkv6, Mamba-2 and zamba2's shared block, pixtral's vision projection)
+rwkv6, Mamba-2 and zamba2's shared block, pixtral's vision projection, the
+encoder-decoder blocks)
 keeps every activation in one of two states:
 
   - replicated: the same on every ``model`` rank, with the same gradient
@@ -52,13 +54,43 @@ first.  A norm over a split width takes its statistic as
 ``tp_copy(tp_sum(local sum))`` (``layers.rms_norm``'s ``width``): each
 rank's gradient of the statistic reaches every rank.
 
+The encoder-decoder blocks (seamless) run the dense family's rule in the
+encoder, the decoder and the cross-attention.  The cross-attention's K/V
+project the replicated encoder output onto this rank's KV heads, and that
+output enters through ``tp_copy``: each rank's heads' gradient reaches
+every rank's encoder.
+
+Split-KV decoding.  A decode cell whose rules give ``act_kv_seq`` live
+mesh axes holds each cache leaf with that axis (the KV caches of the dense,
+MoE and zamba2 blocks, seamless's self-attention and encoder memory) split
+along its sequence over ``kv_seq_axes()``, in the rules' order with the
+first axis major (as ``pspec`` and ``placements`` lay out a dim split over
+a tuple of axes).  A rank holds positions ``[off, off + S_loc)``, with
+``off = seq_index() * S_loc`` (``kv_seq_offset``).  Each rank attends over
+its slice, masking by global position, and returns its partial output with
+the row's log-sum-exp (``models.attention.decode_attention_partial``); the
+partials merge as ``m = seq_max(lse)``, ``w = exp(lse - m)``, ``out =
+seq_sum(o w) / seq_sum(w)``, in fp32 (``merge_partials``; the two sums
+travel in one all-reduce).  A rank whose whole slice is masked has its
+``lse`` near the finite ``NEG_INF`` and so a weight of exactly 0.  Where
+'model' carries the sequence while the query heads are split over it, a
+rank gathers ``q`` over 'model' (``tp_gather(q, 2)``), attends with every
+query head over its slice, merges, and keeps its own heads' rows for the
+row-parallel out-projection.  The new token's K/V are written by the rank
+whose slice holds position ``n`` only (``models.attention.cache_write``:
+a clamped index and ``torch.where``, no read on the host).  Decoding runs
+under ``torch.no_grad()``, so the helpers need no backward.  Prefill
+builds no split cache: ``transformer.prefill`` and the serving engines fill
+a whole one, and the production prefill cells run ``jit_forward``, which
+builds none.
+
 The layouts local compute does not run (ROADMAP item 11b) are refused
-once, by the sharded step factories (``train.step._check_layout``): the
-encoder-decoder blocks and sequence parallelism on a ``model`` axis
-larger than 1, KV heads split with the query heads whole, a Mamba-2
-``d_inner`` split that is not whole heads, a parameter split on
-``model`` along another logical axis than ``TP_AXES``, and a decode cache
-split along its sequence.
+once, by the sharded step factories (``train.step._check_layout``):
+sequence parallelism on a ``model`` axis larger than 1, KV heads split
+with the query heads whole, a Mamba-2 ``d_inner`` split that is not whole
+heads, a parameter split on ``model`` along another logical axis than
+``TP_AXES``, and a cache leaf whose sequence the divisibility guard keeps
+whole where the rules split it.
 
 Every hook is the identity outside a ``context(mesh, rules)`` block, so
 single-device code runs the same model code unsharded, and every
@@ -233,12 +265,47 @@ def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _GatherSliceGrad.apply(x, dim % x.dim()) if model_size() > 1 else x
 
 
-def model_max(x: torch.Tensor) -> torch.Tensor:
-    """The elementwise max over ``model`` (no gradient)."""
+def _max(x: torch.Tensor, axes) -> torch.Tensor:
+    """The elementwise max over the mesh axes ``axes`` (no gradient)."""
     import torch.distributed as dist
 
     x = x.detach()
-    return _all_reduce(x, ("model",), dist.ReduceOp.MAX) if model_size() > 1 else x
+    return _all_reduce(x, axes, dist.ReduceOp.MAX) if axes else x
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over ``model`` (no gradient)."""
+    return _max(x, ("model",) if model_size() > 1 else ())
+
+
+def kv_seq_axes() -> Tuple[str, ...]:
+    """The mesh axes (of size > 1) a decode cache is split over along its
+    sequence: the active rules' ``act_kv_seq``; () outside a context."""
+    if active() is None:
+        return ()
+    return _live(active()[1].get("act_kv_seq", ()))
+
+
+def kv_seq_offset(local_len: int) -> int:
+    """The global position of this rank's first cache entry, for a slice of
+    ``local_len`` positions: its index along ``kv_seq_axes()`` (the first
+    axis major) times ``local_len``; 0 outside a context."""
+    index = 0
+    for a in kv_seq_axes():
+        mesh = active()[0]
+        index = index * mesh_axis_sizes(mesh)[a] + mesh.get_local_rank(a)
+    return index * local_len
+
+
+def seq_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over ``kv_seq_axes()`` (no gradient)."""
+    return _max(x, kv_seq_axes())
+
+
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise sum over ``kv_seq_axes()`` (no gradient)."""
+    axes = kv_seq_axes()
+    return _all_reduce(x.detach(), axes) if axes else x
 
 
 def gather_leaf(x, axes: Tuple[str, ...]):

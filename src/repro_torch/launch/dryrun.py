@@ -40,9 +40,10 @@ counterpart; ``scan_trip_count`` has none either, since eager execution
 dispatches every layer; ``lower_s`` and ``compile_s`` become ``run_s``, the
 wall time of the fake call.  ``device`` names the modelled device.
 
-A cell the port refuses (``NotImplementedError``, ROADMAP item 11b) fails:
-its message is printed and the command exits 1, as do ``--all`` sweeps with
-a failed cell.
+Every production cell runs.  A layout the port refuses, asked for through
+``--cfg-override`` or ``--rules-override`` (``NotImplementedError``, ROADMAP
+item 11b), fails: its message is printed and the command exits 1, as do
+``--all`` sweeps with a failed cell.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k --mesh single

@@ -22,7 +22,12 @@ and a dispatch mode of its own:
   - the peak of live device memory: the bytes of every storage off the
     CPU alive at once, the arguments' included, each rounded up to the
     512-byte blocks of PyTorch's CUDA caching allocator, so the peak
-    compares with ``torch.cuda.max_memory_allocated``;
+    compares with ``torch.cuda.max_memory_allocated``.  The functional
+    collectives' results hold no memory of their own: an
+    ``AsyncCollectiveTensor`` counts as the tensor it wraps, and the
+    outputs of ``_wrap_tensor_autograd`` and ``wait_tensor`` (on real
+    tensors that wrapper and the input itself; on fake ones fresh tensors)
+    count as their input, which lives as long as they do;
   - ``diag``: operator, collective and kernel-operator counts.
 
 Shapes are those each rank holds, so every number is per device and per
@@ -41,6 +46,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List
 
 import torch
+from torch.distributed._functional_collectives import AsyncCollectiveTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -72,6 +78,8 @@ _COLLECTIVES = {
     "broadcast_": ("collective-permute", 0),
 }
 _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
+# functional-collective operators whose output is its input's memory
+_WRAPS_INPUT = ("_wrap_tensor_autograd", "wait_tensor")
 
 
 @dataclass
@@ -94,7 +102,10 @@ class OpCosts:
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's local shard (what this rank holds), else ``t``."""
+    """A DTensor's local shard (what this rank holds), the tensor an
+    ``AsyncCollectiveTensor`` wraps, else ``t``."""
+    if isinstance(t, AsyncCollectiveTensor):
+        return t.elem
     inner = getattr(t, "_local_tensor", None)
     return inner if isinstance(inner, torch.Tensor) else t
 
@@ -131,6 +142,7 @@ class _Counter(TorchDispatchMode):
         self.costs = costs
         self.live: Dict[int, int] = {}  # storage key -> rounded bytes
         self.refs: Dict[int, weakref.ref] = {}
+        self.alias: Dict[int, int] = {}  # storage key -> the key whose memory it is
         self.current = 0
 
     def track(self, t: torch.Tensor) -> None:
@@ -138,7 +150,7 @@ class _Counter(TorchDispatchMode):
         if t.device.type == "cpu":  # host memory (a step counter), not the device's
             return
         st = t.untyped_storage()
-        key = st._cdata
+        key = self.alias.get(st._cdata, st._cdata)
         if key in self.live:
             return
         n = -(-st.nbytes() // BLOCK) * BLOCK
@@ -151,11 +163,22 @@ class _Counter(TorchDispatchMode):
         self.current -= self.live.pop(key, 0)
         self.refs.pop(key, None)
 
+    def same_memory(self, out: torch.Tensor, inp: torch.Tensor) -> None:
+        """``out``'s storage is ``inp``'s memory: views of it count as
+        ``inp``, which lives while it does."""
+        so, si = _local(out).untyped_storage(), _local(inp).untyped_storage()
+        if so._cdata != si._cdata:
+            self.alias[so._cdata] = self.alias.get(si._cdata, si._cdata)
+            weakref.finalize(so, lambda key, _inp: self.alias.pop(key, None), so._cdata, inp)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         costs = self.costs
         costs.diag["n_ops"] += 1
         ns, name = func.namespace, func._schema.name.split("::")[-1]
+        if ns in _COLLECTIVE_NAMESPACES and name in _WRAPS_INPUT:
+            self.same_memory(out, args[0])
+            return out
         if ns == "repro_torch":
             costs.diag["n_kernel_ops"] += 1
         if ns in _COLLECTIVE_NAMESPACES and name in _COLLECTIVES:

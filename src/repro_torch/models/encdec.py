@@ -20,6 +20,19 @@ reference wraps each block in ``jax.checkpoint``: ``"dots"`` means
 ``"full"`` here.  Each block's ``fsdp.gather`` (the reference's site)
 runs inside it.  On CUDA every self- and cross-attention of ``encode``
 and ``forward`` goes to the flash kernels (``models/attention.attend``).
+
+Under tensor parallelism over 'model' the encoder, the decoder and the
+cross-attention run the dense family's rule through
+``models/transformer.py``'s helpers: query and KV heads and ``d_ff``
+split, each row-parallel product ending in ``fsdp.tp_sum``;
+``frontend_proj`` column-parallel behind ``fsdp.tp_copy``, then gathered
+along D (pixtral's vision projection); the cross-attention's K/V project
+the replicated encoder output, which enters through ``fsdp.tp_copy``
+(``_enc_kv``).  At decode the self-attention cache and the encoder memory
+``enc_k``/``enc_v`` are split by KV heads over 'model', and along their
+sequence where the rules put ``act_kv_seq`` on live axes (a batch of 1):
+both attentions then decode split-KV (``transformer.decode_attend``,
+``dist/fsdp.py``), the encoder memory with every position valid.
 """
 from __future__ import annotations
 
@@ -35,17 +48,25 @@ from repro_torch.models.layers import (
     apply_rope,
     attention_schema,
     cast,
-    mlp_apply,
     mlp_schema,
-    out_project,
-    qkv_project,
     rms_norm,
     softmax_xent,
     stack_schema,
     tree_map,
     unstack,
 )
-from repro_torch.models.transformer import _positions, embed_tokens, unembed
+from repro_torch.models.transformer import (
+    _attn_out,
+    _heads_split,
+    _kv_for_heads,
+    _mlp,
+    _positions,
+    _qkv,
+    decode_attend,
+    embed_tokens,
+    unembed,
+    write_kv,
+)
 
 DEC_RATIO = 4       # decoder length = encoder length // 4 for train/prefill
 ENC_MEMORY = 4096   # encoder memory length at decode shapes
@@ -97,20 +118,26 @@ def _block(cfg, fn, *args):
 def _enc_block(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
     lp = fsdp.gather(lp, encoder_block_schema(cfg))
     a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    q, k, v = qkv_project(lp["attn"], a_in, cfg)
+    q, k, v = _qkv(lp["attn"], a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    h = h + out_project(lp["attn"], attn_lib.attend(q, k, v, causal=False))
+    Hq = q.shape[2]
+    out = attn_lib.attend(q, _kv_for_heads(k, Hq, cfg), _kv_for_heads(v, Hq, cfg), causal=False)
+    h = h + _attn_out(lp["attn"], out, cfg)
     m_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    return h + mlp_apply(lp["mlp"], m_in)
+    return h + _mlp(lp["mlp"], m_in, cfg)
 
 
 def encode(params: dict, frames, cfg) -> torch.Tensor:
     """frames: (B, S_enc, D) precomputed frame embeddings (frontend stub),
-    cast to ``cfg.dtype`` before the ``frontend_proj`` product."""
+    cast to ``cfg.dtype`` before the ``frontend_proj`` product (column-
+    parallel, then gathered along D, where ``embed_out`` is split)."""
     fp = fsdp.gather_leaf(params["frontend_proj"], ("embed", "embed_out"))
     h = torch.as_tensor(frames, device=fp.device).to(as_dtype(cfg.dtype))
-    h = h @ cast(fp, h.dtype)
+    if fp.shape[1] < cfg.d_model:
+        h = fsdp.tp_gather(fsdp.tp_copy(h) @ cast(fp, h.dtype), -1)
+    else:
+        h = h @ cast(fp, h.dtype)
     B, S, _ = h.shape
     positions = _positions(B, S, h.device)
     for lp in unstack(params["enc_layers"], cfg.num_encoder_layers):
@@ -119,31 +146,51 @@ def encode(params: dict, frames, cfg) -> torch.Tensor:
 
 
 def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg) -> tuple:
-    """Cross-attention k, v (B, S_enc, KV, hd) from the encoder output."""
-    return _proj_in(enc_out, lp["cross_attn"]["wk"]), _proj_in(enc_out, lp["cross_attn"]["wv"])
+    """Cross-attention k, v (B, S_enc, KV, hd) from the (replicated) encoder
+    output; under TP this rank's KV heads, from an input that entered the
+    parallel region (``tp_copy``), so the encoder's gradient sums every
+    rank's heads, or, where the KV heads stay whole while the query heads
+    split, all of them, each entering on its own."""
+    pa = lp["cross_attn"]
+    kv_split = pa["wk"].shape[1] < cfg.num_kv_heads
+    x = fsdp.tp_copy(enc_out) if kv_split else enc_out
+    k, v = _proj_in(x, pa["wk"]), _proj_in(x, pa["wv"])
+    if _heads_split(pa, cfg) and not kv_split:
+        k, v = fsdp.tp_copy(k), fsdp.tp_copy(v)
+    return k, v
+
+
+def _cross_q(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
+    """The cross-attention's query from the decoder's ``lnx`` output
+    (``wq`` alone, no RoPE): this rank's heads under TP."""
+    pa = lp["cross_attn"]
+    x = rms_norm(h, lp["lnx"], cfg.norm_eps)
+    return _proj_in(fsdp.tp_copy(x) if _heads_split(pa, cfg) else x, pa["wq"])
 
 
 def _cross_attend(lp: dict, h: torch.Tensor, enc_kv: tuple, positions, cfg) -> torch.Tensor:
-    """Cross-attention: q from the decoder's h (``wq`` alone, no RoPE),
-    k/v precomputed from the encoder; ``positions`` is unused, as in the
-    reference."""
-    a_in = rms_norm(h, lp["lnx"], cfg.norm_eps)
-    q = _proj_in(a_in, lp["cross_attn"]["wq"])
+    """Cross-attention: q from the decoder's h, k/v precomputed from the
+    encoder, not causal; ``positions`` is unused, as in the reference."""
+    q = _cross_q(lp, h, cfg)
     k, v = enc_kv
-    return h + out_project(lp["cross_attn"], attn_lib.attend(q, k, v, causal=False))
+    Hq = q.shape[2]
+    out = attn_lib.attend(q, _kv_for_heads(k, Hq, cfg), _kv_for_heads(v, Hq, cfg), causal=False)
+    return h + _attn_out(lp["cross_attn"], out, cfg)
 
 
 def _dec_block(lp: dict, h: torch.Tensor, enc_out: torch.Tensor, positions: torch.Tensor,
                cfg) -> torch.Tensor:
     lp = fsdp.gather(lp, decoder_block_schema(cfg))
     a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    q, k, v = qkv_project(lp["self_attn"], a_in, cfg)
+    q, k, v = _qkv(lp["self_attn"], a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    h = h + out_project(lp["self_attn"], attn_lib.attend(q, k, v, causal=True))
+    Hq = q.shape[2]
+    out = attn_lib.attend(q, _kv_for_heads(k, Hq, cfg), _kv_for_heads(v, Hq, cfg), causal=True)
+    h = h + _attn_out(lp["self_attn"], out, cfg)
     h = _cross_attend(lp, h, _enc_kv(lp, enc_out, cfg), positions, cfg)
     m_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    return h + mlp_apply(lp["mlp"], m_in)
+    return h + _mlp(lp["mlp"], m_in, cfg)
 
 
 def forward(params: dict, frames, tokens, cfg) -> torch.Tensor:
@@ -163,7 +210,8 @@ def loss_fn(params: dict, batch: dict, cfg) -> tuple:
     logits = forward(params, batch["frames"], batch["tokens"], cfg)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = (labels >= 0).float()
-    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask)
+    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask,
+                        vocab_parallel=logits.shape[-1] < cfg.padded_vocab)
     return xent, {"loss": xent, "xent": xent}
 
 
@@ -190,19 +238,16 @@ def decode_step(params: dict, token, cache: dict, cache_len, cfg) -> tuple:
                          decoder_block_schema(cfg))
         kc, vc = cache["k"][i], cache["v"][i]
         a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv_project(lp["self_attn"], a_in, cfg)
+        q, k, v = _qkv(lp["self_attn"], a_in, cfg)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        kc[:, n] = k[:, 0].to(kc.dtype)
-        vc[:, n] = v[:, 0].to(vc.dtype)
-        h = h + out_project(lp["self_attn"], attn_lib.decode_attention(
-            q, kc.to(q.dtype), vc.to(q.dtype), n + 1))
-        # cross-attention over the full encoder memory
-        x_in = rms_norm(h, lp["lnx"], cfg.norm_eps)
-        qx = _proj_in(x_in, lp["cross_attn"]["wq"])
-        h = h + out_project(lp["cross_attn"], attn_lib.decode_attention(
-            qx, cache["enc_k"][i].to(qx.dtype), cache["enc_v"][i].to(qx.dtype), ENC_MEMORY))
+        write_kv(kc, vc, k, v, n)
+        h = h + _attn_out(lp["self_attn"], decode_attend(q, kc, vc, n + 1, cfg), cfg)
+        # cross-attention over the full encoder memory: every position valid
+        qx = _cross_q(lp, h, cfg)
+        h = h + _attn_out(lp["cross_attn"], decode_attend(
+            qx, cache["enc_k"][i], cache["enc_v"][i], n.new_full((), ENC_MEMORY), cfg), cfg)
         m_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + mlp_apply(lp["mlp"], m_in)
+        h = h + _mlp(lp["mlp"], m_in, cfg)
     logits = unembed(params, h, cfg)[:, 0]
     return logits, cache

@@ -17,7 +17,10 @@ function.
 Under tensor parallelism over 'model' the Mamba-2 layers run on this
 rank's heads (``models/mamba2.py``) and the shared block runs the dense
 family's: its query and KV heads split, and its SwiGLU MLP, through
-``models/transformer.py``'s helpers on the 2 d_model-wide input.
+``models/transformer.py``'s helpers on the 2 d_model-wide input.  At
+decode its KV caches may also be split along their sequence (a batch of
+1 leaves the data axes to ``act_kv_seq``): it decodes split-KV through
+``transformer.decode_attend`` and ``write_kv`` (``dist/fsdp.py``).
 """
 from __future__ import annotations
 
@@ -41,8 +44,10 @@ from repro_torch.models.transformer import (
     _kv_for_heads,
     _mlp,
     _qkv,
+    decode_attend,
     embed_tokens,
     unembed,
+    write_kv,
 )
 
 
@@ -81,15 +86,15 @@ def n_shared_invocations(cfg) -> int:
 
 def _shared_qkv(sp: dict, xcat: torch.Tensor, positions: torch.Tensor, cfg) -> tuple:
     a_in = rms_norm(xcat, sp["ln_in"], cfg.norm_eps)
-    q, k, v = _qkv({"attn": sp}, a_in, cfg)
+    q, k, v = _qkv(sp, a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _shared_out(sp: dict, h: torch.Tensor, attn_out: torch.Tensor, cfg) -> torch.Tensor:
-    h = h + _attn_out({"attn": sp}, attn_out, cfg)
-    return h + _mlp(sp, rms_norm(h, sp["ln_mlp"], cfg.norm_eps), cfg)
+    h = h + _attn_out(sp, attn_out, cfg)
+    return h + _mlp(sp["mlp"], rms_norm(h, sp["ln_mlp"], cfg.norm_eps), cfg)
 
 
 def shared_block(sp: dict, h: torch.Tensor, h0: torch.Tensor, positions: torch.Tensor,
@@ -163,17 +168,14 @@ def cache_schema(cfg, batch: int, capacity: int) -> dict:
 
 def _shared_block_decode(sp, h, h0, k_cache, v_cache, cache_len, cfg) -> torch.Tensor:
     """One shared-attention invocation at decode time over its (B, cap, KV,
-    hd) cache, which takes the new entry in place at ``cache_len`` (read
-    on the device: a decode step never waits for the host)."""
+    hd) cache, or this rank's slice of it, which takes the new entry in
+    place at ``cache_len`` (read on the device: a decode step never waits
+    for the host)."""
     n = torch.as_tensor(cache_len, device=h.device).long()
     positions = n.reshape(1, 1).expand(h.shape[0], 1)
     q, k, v = _shared_qkv(sp, torch.cat([h, h0], dim=-1), positions, cfg)
-    k_cache.index_copy_(1, n.reshape(1), k.to(k_cache.dtype))
-    v_cache.index_copy_(1, n.reshape(1), v.to(v_cache.dtype))
-    Hq = q.shape[2]
-    attn_out = attn_lib.decode_attention(q, _kv_for_heads(k_cache, Hq, cfg).to(q.dtype),
-                                         _kv_for_heads(v_cache, Hq, cfg).to(q.dtype), n + 1,
-                                         window=cfg.sliding_window)
+    write_kv(k_cache, v_cache, k, v, n)
+    attn_out = decode_attend(q, k_cache, v_cache, n + 1, cfg, window=cfg.sliding_window)
     return _shared_out(sp, h, attn_out, cfg)
 
 

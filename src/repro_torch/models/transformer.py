@@ -39,9 +39,13 @@ full K/V), the MLP's ``d_ff``, the MoE experts or their ``moe_d_ff``
 out-projection, the MLP down-projection) and the embedding leave through
 ``fsdp.tp_sum`` (an all-reduce over ``model``), the vision projection's
 split output through ``fsdp.tp_gather``, and the logits stay split by
-vocabulary into ``softmax_xent(vocab_parallel=True)``.  A decode cache
-split along its sequence is refused, naming ROADMAP item 11b
-(``train.step._check_layout``).
+vocabulary into ``softmax_xent(vocab_parallel=True)``.  The helpers
+(``_qkv``, ``_attn_out``, ``_mlp``) take one attention or MLP subtree, so
+zamba2's shared block and seamless's three attentions run them too.  A
+decode cache split along its sequence (``act_kv_seq``: the KV heads cannot
+split over 'model', or a batch of 1 leaves the data axes to the sequence)
+decodes split-KV (``decode_attend``, ``write_kv``; ``dist/fsdp.py``'s
+rule).
 """
 from __future__ import annotations
 
@@ -123,19 +127,19 @@ def layer_params(params: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _heads_split(p: dict, cfg) -> bool:
-    """Whether this rank holds a slice of the query heads (TP attention)."""
-    return p["attn"]["wq"].shape[1] < cfg.num_heads
+def _heads_split(pa: dict, cfg) -> bool:
+    """Whether this rank holds a slice of the query heads of the attention
+    ``pa`` (TP attention)."""
+    return pa["wq"].shape[1] < cfg.num_heads
 
 
-def _qkv(p: dict, x: torch.Tensor, cfg) -> tuple:
-    """q, k, v of the block's attention from its (gathered) params: the
-    plain projections, or under TP this rank's query heads and its share
-    of the KV heads, or all of them where the rules keep them whole; then
-    K/V enter the parallel region on their own, so every rank's gradient
-    of the whole K/V projection is complete."""
-    pa = p["attn"]
-    if not _heads_split(p, cfg):
+def _qkv(pa: dict, x: torch.Tensor, cfg) -> tuple:
+    """q, k, v of the attention ``pa`` (a gathered attention subtree) on
+    ``x``: the plain projections, or under TP this rank's query heads and
+    its share of the KV heads, or all of them where the rules keep them
+    whole; then K/V enter the parallel region on their own, so every rank's
+    gradient of the whole K/V projection is complete."""
+    if not _heads_split(pa, cfg):
         return qkv_project(pa, x, cfg)
     dt = x.dtype
     xin = fsdp.tp_copy(x)
@@ -169,14 +173,13 @@ def _kv_for_heads(k: torch.Tensor, q_heads: int, cfg) -> torch.Tensor:
     return k.index_select(2, idx)
 
 
-def _attn_out(p: dict, attn_out: torch.Tensor, cfg) -> torch.Tensor:
-    out = out_project(p["attn"], attn_out)
-    return fsdp.tp_sum(out) if _heads_split(p, cfg) else out
+def _attn_out(pa: dict, attn_out: torch.Tensor, cfg) -> torch.Tensor:
+    out = out_project(pa, attn_out)
+    return fsdp.tp_sum(out) if _heads_split(pa, cfg) else out
 
 
-def _mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """The SwiGLU MLP; column- then row-parallel when ``d_ff`` is split."""
-    pm = p["mlp"]
+def _mlp(pm: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The SwiGLU MLP ``pm``; column- then row-parallel when ``d_ff`` is split."""
     if pm["wg"].shape[1] == cfg.d_ff:
         return mlp_apply(pm, x)
     dt = x.dtype
@@ -185,11 +188,45 @@ def _mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return fsdp.tp_sum(h @ cast(pm["wd"], dt))
 
 
+def write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             n: torch.Tensor) -> None:
+    """The new entries ``k``, ``v`` (B, 1, KV, hd) written in place at
+    position ``n`` (0-d, or (B,) per lane) of this rank's cache slice: only
+    the rank whose slice holds ``n`` changes its cache (``dist/fsdp.py``)."""
+    off = fsdp.kv_seq_offset(k_cache.shape[1])
+    attn_lib.cache_write(k_cache, k, n, off)
+    attn_lib.cache_write(v_cache, v, n, off)
+
+
+def decode_attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len,
+                  cfg, *, window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """This rank's query heads ``q`` (B, 1, Hq, hd) over the cache's first
+    ``cache_len`` positions: ``decode_attention`` over a whole cache, or,
+    split along its sequence (``fsdp.kv_seq_axes()``), the split form over
+    this rank's slice merged across the ranks, with ``q`` first gathered
+    over 'model' where 'model' splits the sequence and the query heads."""
+    axes = fsdp.kv_seq_axes()
+    gather = "model" in axes and q.shape[2] < cfg.num_heads
+    qa = fsdp.tp_gather(q, 2) if gather else q
+    Hq = qa.shape[2]
+    k = _kv_for_heads(k_cache, Hq, cfg).to(q.dtype)
+    v = _kv_for_heads(v_cache, Hq, cfg).to(q.dtype)
+    if not axes:
+        return attn_lib.decode_attention(q, k, v, cache_len, window=window, softcap=softcap)
+    out, lse = attn_lib.decode_attention_partial(
+        qa, k, v, cache_len, fsdp.kv_seq_offset(k_cache.shape[1]), window=window,
+        softcap=softcap)
+    out = attn_lib.merge_partials(out, lse, fsdp.seq_max, fsdp.seq_sum).to(q.dtype)
+    if gather:
+        out = out.narrow(2, fsdp.model_rank() * q.shape[2], q.shape[2])
+    return out
+
+
 def _ffn(p: dict, x: torch.Tensor, cfg) -> tuple:
     """The block's MLP or MoE -> (out, MoE aux loss or None)."""
     if cfg.block_type == "moe":
         return moe_apply(p["moe"], x, cfg)
-    return _mlp(p, x, cfg), None
+    return _mlp(p["mlp"], x, cfg), None
 
 
 def decoder_block(p: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> tuple:
@@ -197,7 +234,7 @@ def decoder_block(p: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> tup
     is the MoE load-balancing loss, None for a dense block; (k, v) hold the
     KV heads this rank keeps in its cache."""
     a_in = rms_norm(h, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(p, a_in, cfg)
+    q, k, v = _qkv(p["attn"], a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     Hq = q.shape[2]
@@ -205,7 +242,7 @@ def decoder_block(p: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> tup
         q, _kv_for_heads(k, Hq, cfg), _kv_for_heads(v, Hq, cfg), causal=True,
         window=cfg.sliding_window, softcap=cfg.attn_logit_softcap
     )
-    h = h + _attn_out(p, attn_out, cfg)
+    h = h + _attn_out(p["attn"], attn_out, cfg)
     m_in = rms_norm(h, p["ln2"], cfg.norm_eps)
     out, aux = _ffn(p, m_in, cfg)
     return h + out, (k, v), aux
@@ -213,34 +250,21 @@ def decoder_block(p: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> tup
 
 def decoder_block_decode(p: dict, h: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, cache_len, cfg) -> tuple:
-    """One-token block over a (B, cap, KV, hd) cache.  ``cache_len`` is an
-    int or 0-d tensor (all lanes aligned) or a (B,) tensor of per-lane
-    lengths; the new entry is written in place at that position."""
+    """One-token block over a (B, cap, KV, hd) cache, or this rank's slice
+    of it.  ``cache_len`` is an int or 0-d tensor (all lanes aligned) or a
+    (B,) tensor of per-lane lengths; the new entry is written in place at
+    that position."""
     B = h.shape[0]
     n = torch.as_tensor(cache_len, device=h.device).long()
-    per_row = n.dim() == 1  # continuous batching: ragged lanes
     positions = n.reshape(-1, 1).expand(B, 1)
     a_in = rms_norm(h, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(p, a_in, cfg)
+    q, k, v = _qkv(p["attn"], a_in, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if per_row:
-        rows = torch.arange(B, device=h.device)
-        k_cache[rows, n] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, n] = v[:, 0].to(v_cache.dtype)
-    else:
-        k_cache[:, n] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, n] = v[:, 0].to(v_cache.dtype)
-    Hq = q.shape[2]
-    attn_out = attn_lib.decode_attention(
-        q,
-        _kv_for_heads(k_cache, Hq, cfg).to(q.dtype),
-        _kv_for_heads(v_cache, Hq, cfg).to(q.dtype),
-        n + 1,
-        window=cfg.sliding_window,
-        softcap=cfg.attn_logit_softcap,
-    )
-    h = h + _attn_out(p, attn_out, cfg)
+    write_kv(k_cache, v_cache, k, v, n)
+    attn_out = decode_attend(q, k_cache, v_cache, n + 1, cfg, window=cfg.sliding_window,
+                             softcap=cfg.attn_logit_softcap)
+    h = h + _attn_out(p["attn"], attn_out, cfg)
     m_in = rms_norm(h, p["ln2"], cfg.norm_eps)
     return h + _ffn(p, m_in, cfg)[0], k_cache, v_cache
 

@@ -17,12 +17,17 @@ step runs inside ``fsdp.context(mesh, rules)``, where the models gather
 each parameter at its use site and compute on this rank's local shards,
 and the optimizer updates the DTensor state (whose global-norm clipping
 and Adafactor moments reduce over the sharded axes).  Tensor parallelism
-over 'model' runs for every decoder-only family (the dense and MoE
-blocks, rwkv6, zamba2, pixtral's vision projection: ``dist/fsdp.py``'s
-rule).  The layouts the port does not run raise ``NotImplementedError``
-naming ROADMAP item 11b (``_check_layout``): the encoder-decoder blocks
-and sequence parallelism on a 'model' axis larger than 1, KV heads split
-with the query heads whole, and a decode cache split along its sequence.
+over 'model' runs for every family (the dense and MoE blocks, rwkv6,
+zamba2, pixtral's vision projection, seamless's encoder-decoder blocks:
+``dist/fsdp.py``'s rule), and a decode cache split along its sequence
+decodes split-KV (the same docstring).  The layouts the port
+does not run raise ``NotImplementedError`` naming ROADMAP item 11b
+(``_check_layout``): sequence parallelism on a 'model' axis larger than
+1, KV heads split with the query heads whole, a parameter split on
+'model' along another logical axis than ``TP_AXES``, a Mamba-2
+``d_inner`` split that is not whole heads, and a cache leaf whose
+sequence the divisibility guard keeps whole where ``act_kv_seq`` splits
+it.
 """
 from __future__ import annotations
 
@@ -125,18 +130,15 @@ def _model_ways(spec, axis, rules, mesh) -> int:
 
 def _check_layout(api, mesh, rules, shape: Optional[ShapeConfig] = None) -> None:
     """Raise for the layouts the port does not run (ROADMAP item 11b):
-    under a 'model' axis larger than 1, the encoder-decoder blocks,
-    sequence parallelism, a parameter split on 'model' along another
-    logical axis than ``TP_AXES``, KV heads split with the query heads
-    whole, or a Mamba-2 ``d_inner`` split that is not whole heads; on any mesh, a decode cell (``shape``) whose cache a live mesh
-    axis splits along its sequence (``act_kv_seq``; a family whose cache
-    has no such axis, as rwkv6's O(1) state, is not refused for the rule)."""
+    under a 'model' axis larger than 1, sequence parallelism, a parameter
+    split on 'model' along another logical axis than ``TP_AXES``, KV heads
+    split with the query heads whole, or a Mamba-2 ``d_inner`` split that
+    is not whole heads; on any mesh, a decode cell (``shape``) with a cache
+    leaf whose sequence the divisibility guard keeps whole on an axis the
+    rules' ``act_kv_seq`` splits (the split-KV decode reads the split from
+    the rules)."""
     cfg = api.cfg
     model = mesh_axis_sizes(mesh).get("model", 1)
-    if model > 1 and cfg.num_encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over a 'model' axis of {model} for the "
-            f"{cfg.block_type} encoder-decoder family is not ported ({fsdp.ITEM_11B})")
     if model > 1 and cfg.sequence_parallel:
         raise NotImplementedError(f"{cfg.name}: sequence parallelism ({fsdp.ITEM_11B})")
     if model > 1:
@@ -158,13 +160,18 @@ def _check_layout(api, mesh, rules, shape: Optional[ShapeConfig] = None) -> None
                     f"{cfg.name}: d_inner split {inner} ways over 'model' and the Mamba-2 "
                     f"heads {heads}: a rank's channels are not whole heads ({fsdp.ITEM_11B})")
     if shape is not None and shape.kind == "decode":
-        cache = api.cache_schema(shape.global_batch, shape.seq_len)
-        live = _live_splits(cache, rules, mesh).get("act_kv_seq")
-        if live:
-            seq = [a for a in rules["act_kv_seq"] if a in live]
-            raise NotImplementedError(
-                f"{cfg.name}: a decode cache split along its sequence over {seq} is not "
-                f"ported ({fsdp.ITEM_11B})")
+        sizes = mesh_axis_sizes(mesh)
+        want = [a for a in rules.get("act_kv_seq", ()) if sizes.get(a, 1) > 1]
+        for key, s in api.cache_schema(shape.global_batch, shape.seq_len).items():
+            if "act_kv_seq" not in s.axes:
+                continue
+            e = pspec(s.axes, s.shape, rules, mesh) + (None,) * len(s.axes)
+            got = e[s.axes.index("act_kv_seq")]
+            got = [a for a in ((got,) if isinstance(got, str) else got or ()) if sizes[a] > 1]
+            if got != want:
+                raise NotImplementedError(
+                    f"{cfg.name}: the cache leaf {key!r} of {tuple(s.shape)} is split along its "
+                    f"sequence over {got}, not over act_kv_seq's {want} ({fsdp.ITEM_11B})")
 
 
 def _local(tree):

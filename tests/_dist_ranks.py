@@ -24,6 +24,7 @@ import torch.multiprocessing as mp
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 STEPS, LR_STEPS = 3, 5
+READ_ONLY = ("enc_k", "enc_v")  # the cache leaves a decode step reads and never writes
 
 
 def _config(arch):
@@ -113,7 +114,7 @@ def run_train(name, case, ref, out, rank):
 def run_serve(name, case, ref, out, rank):
     from repro_torch.checkpoint.ckpt import params_from_numpy
     from repro_torch.configs import ShapeConfig
-    from repro_torch.dist.sharding import device_put, sharding_rules
+    from repro_torch.dist.sharding import device_put
     from repro_torch.models.api import get_model
     from repro_torch.train.step import jit_decode_step, jit_forward
 
@@ -122,21 +123,25 @@ def run_serve(name, case, ref, out, rank):
     mesh = _mesh(case["mesh"])
     flat = _load(ref, name)
     params = params_from_numpy(_sub(flat, "params/"), device="cpu")
-    B, S, cap = 8, 16, 32
-    fn, p_sh, bt_sh = jit_forward(api, mesh, ShapeConfig("p", S, B, "prefill"))
-    logits = fn(device_put(params, p_sh),
-                device_put({"tokens": torch.as_tensor(flat["tokens"]).long()}, bt_sh))
-    dshape = ShapeConfig("d", cap, B, "decode")
-    rules = dict(sharding_rules(cfg, mesh, dshape), act_kv_seq=())
-    dfn, dp_sh, dbt_sh = jit_decode_step(api, mesh, dshape, rules=rules)
-    dbatch = {"token": torch.as_tensor(flat["token"]).long(),
-              "cache_len": int(flat["cache_len"]),
-              "cache": {k: torch.as_tensor(v) for k, v in _sub(flat, "cache/").items()}}
-    dlogits, cache = dfn(device_put(params, dp_sh), device_put(dbatch, dbt_sh))
-    res = {"logits": logits.full_tensor().numpy(),
-           "decode_logits": dlogits.full_tensor().numpy(),
-           "logits_placements": np.array([str(p) for p in logits.placements])}
-    res.update(_full(cache, "cache/"))
+    B, S, cap = case.get("batch", 8), 16, 32
+    res = {}
+    if case.get("forward", True):
+        fn, p_sh, bt_sh = jit_forward(api, mesh, ShapeConfig("p", S, B, "prefill"))
+        prompt = {k: torch.as_tensor(v).long() if v.dtype.kind == "i" else torch.as_tensor(v)
+                  for k, v in _sub(flat, "prompt/").items()}
+        logits = fn(device_put(params, p_sh), device_put(prompt, bt_sh))
+        res.update(logits=logits.full_tensor().numpy(),
+                   logits_placements=np.array([str(p) for p in logits.placements]))
+    dfn, dp_sh, dbt_sh = jit_decode_step(api, mesh, ShapeConfig("d", cap, B, "decode"))
+    dparams = device_put(params, dp_sh)
+    for i, n in enumerate(case["lens"]):
+        dbatch = {"token": torch.as_tensor(flat["token"]).long(), "cache_len": int(n),
+                  "cache": {k: torch.as_tensor(v) for k, v in _sub(flat, "cache/").items()}}
+        dlogits, cache = dfn(dparams, device_put(dbatch, dbt_sh))
+        pre = "end/" if i else ""
+        res[pre + "decode_logits"] = dlogits.full_tensor().numpy()
+        res.update(_full({k: v for k, v in cache.items() if k not in READ_ONLY},
+                         pre + "cache/"))
     if rank == 0:
         np.savez(os.path.join(out, f"{name}-port.npz"), **res)
 
@@ -168,23 +173,30 @@ def run_restore(name, case, ref, out, rank):
 def run_raises(name, case, ref, out, rank):
     """Each listed layout's step on this mesh must raise
     NotImplementedError; the messages are recorded.  ``case["layouts"]``
-    maps a name to ``[arch, kind, global batch]``: ``train`` builds the
-    train step, ``decode`` the decode step of a 32-position cache."""
+    maps a name to ``[arch, kind, global batch, config overrides, rules
+    overrides]``: ``train`` builds the train step, ``decode`` the decode
+    step of a 32-position cache."""
     from repro_torch.configs import TRAIN_4K, ShapeConfig
+    from repro_torch.dist.sharding import sharding_rules
     from repro_torch.models.api import get_model
     from repro_torch.optim.optimizer import make_optimizer
     from repro_torch.train.step import jit_decode_step, jit_train_step
 
     mesh = _mesh(case["mesh"])
     got = {}
-    for key, (arch, kind, batch) in case["layouts"].items():
-        cfg = _config(arch)
+    for key, (arch, kind, batch, cfg_over, rules_over) in case["layouts"].items():
+        cfg = dataclasses.replace(_config(arch), **cfg_over)
+        if kind == "train":
+            shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=batch, name="t")
+        else:
+            shape = ShapeConfig("d", 32, batch, "decode")
+        rules = dict(sharding_rules(cfg, mesh, shape), **{k: tuple(v)
+                                                          for k, v in rules_over.items()})
         try:
             if kind == "train":
-                shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=batch, name="t")
-                jit_train_step(get_model(cfg), make_optimizer(cfg), mesh, shape)
+                jit_train_step(get_model(cfg), make_optimizer(cfg), mesh, shape, rules=rules)
             else:
-                jit_decode_step(get_model(cfg), mesh, ShapeConfig("d", 32, batch, "decode"))
+                jit_decode_step(get_model(cfg), mesh, shape, rules=rules)
             got[key] = "no error"
         except NotImplementedError as e:
             got[key] = str(e)

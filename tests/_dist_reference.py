@@ -31,6 +31,7 @@ from repro.train.state import init_state
 from repro.train.step import jit_decode_step, jit_forward, jit_train_step
 
 STEPS, LR_STEPS = 3, 5  # 3 steps of the cosine schedule over 5 (no warmup)
+READ_ONLY = ("enc_k", "enc_v")  # the cache leaves a decode step reads and never writes
 
 
 def make_mesh(shape):
@@ -106,37 +107,46 @@ def run_train(name, case, out):
 
 
 def run_serve(name, case, out):
-    """``jit_forward`` on a prefill batch and ``jit_decode_step`` on a
-    seeded cache, with ``act_kv_seq`` kept whole (the rules' own decode
-    layout for this config splits the cache's sequence over 'model')."""
+    """``jit_forward`` on a prefill batch (unless ``case["forward"]`` is
+    false) and ``jit_decode_step`` with the rules' own decode layout on a
+    seeded cache of 32 positions, once for each length of ``case["lens"]``
+    (each from the same seeded cache; the second's results under
+    ``end/``).  Every cache leaf a decode step writes is saved; the
+    encoder memory (``READ_ONLY``) is only read."""
     cfg = config(case["arch"])
     api = get_model(cfg)
     mesh = make_mesh(tuple(case["mesh"]))
-    B, S, cap = 8, 16, 32
+    B, S, cap = case.get("batch", 8), 16, 32
     params = api.init(jax.random.PRNGKey(0))
     rng = np.random.default_rng(5)
-    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    prompt = batch_np(cfg, B, S, 6, uneven=False)
+    prompt.pop("labels")
     token = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
     cache = {k: rng.standard_normal(s.shape).astype(np.float32)
              for k, s in api.cache_schema(B, cap).items()}
-    cache_len = 20
     inputs = {"params/" + k: np.asarray(v) for k, v in _flatten(params).items()}
-    inputs.update({"tokens": tokens, "token": token, "cache_len": np.int32(cache_len)})
+    inputs.update({"prompt/" + k: v for k, v in prompt.items()})
+    inputs.update({"token": token})
     inputs.update({"cache/" + k: v for k, v in cache.items()})
     np.savez(os.path.join(out, f"{name}-in.npz"), **inputs)
 
-    shape = ShapeConfig("p", S, B, "prefill")
-    fn, p_sh, bt_sh = jit_forward(api, mesh, shape)
-    logits = fn(jax.device_put(params, p_sh),
-                jax.device_put({"tokens": jnp.asarray(tokens)}, bt_sh))
+    res = {}
+    if case.get("forward", True):
+        fn, p_sh, bt_sh = jit_forward(api, mesh, ShapeConfig("p", S, B, "prefill"))
+        res["logits"] = np.asarray(fn(jax.device_put(params, p_sh), jax.device_put(
+            {k: jnp.asarray(v) for k, v in prompt.items()}, bt_sh)))
     dshape = ShapeConfig("d", cap, B, "decode")
-    rules = dict(sharding_rules(cfg, mesh, dshape), act_kv_seq=())
-    dfn, dp_sh, dbt_sh = jit_decode_step(api, mesh, dshape, rules=rules, donate=False)
-    dbatch = {"token": jnp.asarray(token), "cache_len": jnp.int32(cache_len),
-              "cache": {k: jnp.asarray(v) for k, v in cache.items()}}
-    dlogits, new_cache = dfn(jax.device_put(params, dp_sh), jax.device_put(dbatch, dbt_sh))
-    res = {"logits": np.asarray(logits), "decode_logits": np.asarray(dlogits)}
-    res.update({"cache/" + k: np.asarray(v) for k, v in new_cache.items()})
+    dfn, dp_sh, dbt_sh = jit_decode_step(api, mesh, dshape, donate=False)
+    dparams = jax.device_put(params, dp_sh)
+    for i, n in enumerate(case["lens"]):
+        dbatch = {"token": jnp.asarray(token), "cache_len": jnp.int32(n),
+                  "cache": {k: jnp.asarray(v) for k, v in cache.items()}}
+        dlogits, new_cache = dfn(dparams, jax.device_put(dbatch, dbt_sh))
+        pre = "end/" if i else ""
+        res[pre + "decode_logits"] = np.asarray(dlogits)
+        res.update({f"{pre}cache/{k}": np.asarray(v) for k, v in new_cache.items()
+                    if k not in READ_ONLY})
+    res["act_kv_seq"] = np.array(list(sharding_rules(cfg, mesh, dshape)["act_kv_seq"]) or [""])
     np.savez(os.path.join(out, f"{name}-out.npz"), **res)
 
 

@@ -18,10 +18,13 @@ Adam's and Adafactor's normalised steps move those by up to ``lr`` in the
 sign of the noise), held to ``2 lr`` a step; moments to 1e-5 (absolute
 and relative, as ``tests/test_torch_train.py`` holds one step); forward
 and decode logits and the written cache to 1e-5 of the largest
-magnitude.
+magnitude.  The decode cases run the rules' own decode layout, so where
+the cache is split along its sequence (``act_kv_seq``) both sides decode
+it split.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -50,21 +53,35 @@ TRAIN = {  # case -> (arch, mesh)
     "rwkv-4x1": ("rwkv6-1.6b", [4, 1]),
     "zamba-4x1": ("zamba2-2.7b", [4, 1]),
     "seamless-4x1": ("seamless-m4t-large-v2", [4, 1]),
+    "seamless-4x2": ("seamless-m4t-large-v2", [4, 2]),  # 4/4 heads, d_ff and frontend_proj
     "pod-2x2x1": ("llama3-8b", [2, 2, 1]),
 }
 POOLS = {"7": [0, 1, 2, 3, 5, 6, 7], "6": [0, 1, 2, 3, 4, 5], "5": [7, 6, 5, 4, 3],
          "2": [3, 6]}
-SERVE = {"serve-4x2": "llama3-8b", "serve-rwkv-4x2": "rwkv6-1.6b",
-         "serve-zamba-4x2": "zamba2-2.7b"}
-RAISE_LAYOUTS = {  # name -> (arch, step kind, global batch), on (4, 2)
-    "seamless-m4t-large-v2": ("seamless-m4t-large-v2", "train", 8),
-    "llama3-8b-decode-seq-on-model": ("llama3-8b", "decode", 8),  # 1 KV head: seq on 'model'
-    "grok-1-314b-decode-seq-on-model": ("grok-1-314b", "decode", 8),
-    "zamba2-2.7b-decode-seq-on-data": ("zamba2-2.7b", "decode", 1),  # batch 1: seq on 'data'
-    "qwen3-moe-30b-a3b-decode-seq-on-data-and-model": ("qwen3-moe-30b-a3b", "decode", 1),
+SERVE = {  # case -> (arch, global batch, forward too): on (4, 2), decode_32k's rules
+    "serve-4x2": ("llama3-8b", 8, True),  # 1 KV head: the sequence on 'model', q gathered
+    "serve-rwkv-4x2": ("rwkv6-1.6b", 8, True),
+    "serve-zamba-4x2": ("zamba2-2.7b", 8, True),
+    "serve-grok-4x2": ("grok-1-314b", 8, False),  # seq on 'model', softcap, experts split
+    "serve-qwen2-4x2": ("qwen2-1.5b", 8, False),  # query heads whole: seq on 'model', no gather
+    "serve-zamba-b1-4x2": ("zamba2-2.7b", 1, False),  # a batch of 1: seq on 'data'
+    "serve-moe-b1-4x2": ("qwen3-moe-30b-a3b", 1, False),  # seq on ('data', 'model')
+    "serve-seamless-4x2": ("seamless-m4t-large-v2", 8, True),  # KV heads split, TP enc-dec
+    "serve-seamless-b1-4x2": ("seamless-m4t-large-v2", 1, False),  # self and enc k/v on 'data'
 }
-RAISE_WANT = {"train": "'model' axis of 2 for the attn_mlp encoder-decoder family",
-              "decode": "a decode cache split along its sequence over"}
+SPLIT_KV = {  # the cases whose cache the rules split along its sequence -> act_kv_seq
+    "serve-4x2": ["model"], "serve-grok-4x2": ["model"], "serve-qwen2-4x2": ["model"],
+    "serve-zamba-b1-4x2": ["data"], "serve-moe-b1-4x2": ["data", "model"],
+    "serve-seamless-b1-4x2": ["data"]}
+CACHE_CAP, CACHE_LEN = 32, 20  # a decode cache of 32 positions, 20 filled
+RAISE_LAYOUTS = {  # name -> (arch, step kind, global batch, cfg overrides, rules overrides)
+    "sequence-parallel": ("llama3-8b", "train", 8, {"sequence_parallel": True}, {}),
+    "kv-heads-split-query-heads-whole": ("seamless-m4t-large-v2", "decode", 8, {},
+                                         {"heads": []}),
+}
+RAISE_WANT = {"sequence-parallel": "sequence parallelism",
+              "kv-heads-split-query-heads-whole": "KV heads split over 'model' with the query "
+                                                  "heads whole"}
 SHARD_LEAF = "layers/attn/wq"
 # the leaves whose gradients cross the tensor-parallel boundary in a way the
 # design rule must get right (dist/fsdp.py): a norm over a split width, a
@@ -72,7 +89,9 @@ SHARD_LEAF = "layers/attn/wq"
 TP_GRAD_LEAVES = [("rwkv-4x2", "layers/mix/ln_x"), ("rwkv-4x2", "layers/mix/w_lora_b"),
                   ("rwkv-4x2", "layers/mix/cw_r"), ("zamba-4x2", "layers/mamba/gate_norm"),
                   ("zamba-4x2", "layers/mamba/wB"), ("moe-4x2", "layers/moe/router"),
-                  ("grok-4x2", "layers/moe/router"), ("pixtral-4x2", "frontend_proj")]
+                  ("grok-4x2", "layers/moe/router"), ("pixtral-4x2", "frontend_proj"),
+                  ("seamless-4x2", "frontend_proj"), ("seamless-4x2", "dec_layers/cross_attn/wk"),
+                  ("seamless-4x2", "enc_norm")]
 
 
 def _train_case(name):
@@ -85,8 +104,18 @@ def _train_case(name):
     return case
 
 
+def _slice_len(name) -> int:
+    """The positions a rank's cache slice holds: 32 over the shards of
+    act_kv_seq on (4, 2)."""
+    return CACHE_CAP // math.prod({"data": 4, "model": 2}[a] for a in SPLIT_KV.get(name, []))
+
+
 def _serve_case(name):
-    return {"kind": "serve", "arch": SERVE[name], "mesh": [4, 2]}
+    arch, batch, forward = SERVE[name]
+    # 20 positions filled (the write lands on a later slice where the cache
+    # splits), then the last position of the first slice
+    return {"kind": "serve", "arch": arch, "mesh": [4, 2], "batch": batch, "forward": forward,
+            "lens": [CACHE_LEN, _slice_len(name) - 1]}
 
 
 SPAWNS = [  # (mesh, cases), in order: the restore reads the (4, 2) spawn's checkpoint
@@ -280,13 +309,15 @@ def test_pod_and_data_shard_pod_major(runs):
     assert len({v.tobytes() for v in shards.values()}) == 4
 
 
-@pytest.mark.parametrize("key", ["logits", "decode_logits", "cache/k", "cache/v"])
+@pytest.mark.parametrize("key", ["logits", "decode_logits", "cache/k", "cache/v",
+                                 "end/decode_logits", "end/cache/k", "end/cache/v"])
 def test_forward_and_decode_match_reference_sharded(runs, key):
     """``jit_forward`` (prefill shape) and ``jit_decode_step`` (a seeded
-    cache, 20 positions filled) of reduced llama3-8b at (4, 2): heads, MLP
-    and vocabulary split over 'model', the one KV head whole; the decode
-    rules' ``act_kv_seq`` kept whole on both sides (splitting the cache's
-    sequence is item 11b)."""
+    cache, 20 positions filled, then 15: the end of the first slice) of
+    reduced llama3-8b at (4, 2): heads, MLP and vocabulary split over
+    'model'; the one KV head cannot split, so the decode rules put the
+    cache's sequence on 'model' on both sides (split-KV decoding, ``q``
+    gathered over 'model')."""
     ref_dir, port = runs
     want = _npz(os.path.join(ref_dir, "serve-4x2-out.npz"))[key]
     got = _npz(_port_file(port, "serve-4x2"))
@@ -332,16 +363,55 @@ def test_recurrent_forward_and_decode_match_reference_sharded(runs, name, key):
         assert got["logits_placements"].tolist() == ["S(0)", "S(2)"]
 
 
+SPLIT_CASES = [(n, pre + k) for n in sorted(SERVE) if n not in SERVE_KEYS and n != "serve-4x2"
+               for pre in ("", "end/")
+               for k in ["decode_logits", "cache/k", "cache/v"]
+               + (["cache/ssm", "cache/conv"] if "zamba" in n else [])]
+
+
+@pytest.mark.parametrize("name,key", SPLIT_CASES)
+def test_split_kv_decode_matches_reference_sharded(runs, name, key):
+    """``jit_decode_step`` at (4, 2) with the rules' own decode layout, at 20
+    positions filled and at the end of the first cache slice (``end/``),
+    against the reference's: grok-1 (the sequence on 'model', softcap,
+    experts split), qwen2-1.5b (query heads whole: no gather), zamba2 at a
+    batch of 1 (the sequence on 'data'; its window of 64 spans the cache),
+    qwen3-moe at a batch
+    of 1 (on ('data', 'model'): 8 slices), seamless at 8 (KV heads split,
+    the tensor-parallel decoder and cross-attention) and at 1 (its cache
+    and encoder memory on 'data', which the cross-attention reads split).
+    Logits and every cache leaf the step writes to 1e-5 of the largest
+    magnitude; the reference's rules split the sequence as the case
+    says."""
+    ref_dir, port = runs
+    ref = _npz(os.path.join(ref_dir, f"{name}-out.npz"))
+    assert [a for a in ref["act_kv_seq"].tolist() if a] == SPLIT_KV.get(name, [])
+    want = ref[key]
+    got = _npz(_port_file(port, name))[key]
+    np.testing.assert_allclose(got, want, rtol=0, atol=OUT_TOL * np.abs(want).max())
+
+
+def test_seamless_forward_matches_reference_sharded(runs):
+    """Reduced seamless's ``jit_forward`` at (4, 2): the encoder, decoder and
+    cross-attention heads, ``d_ff`` and ``frontend_proj`` split over
+    'model'."""
+    ref_dir, port = runs
+    want = _npz(os.path.join(ref_dir, "serve-seamless-4x2-out.npz"))["logits"]
+    got = _npz(_port_file(port, "serve-seamless-4x2"))
+    np.testing.assert_allclose(got["logits"], want, rtol=0, atol=OUT_TOL * np.abs(want).max())
+    assert got["logits_placements"].tolist() == ["S(0)", "S(2)"]
+
+
 @pytest.mark.parametrize("layout", sorted(RAISE_LAYOUTS))
 def test_item_11b_layouts_raise(runs, layout):
-    """The layouts still not ported refuse, naming item 11b: the
-    encoder-decoder blocks on a 'model' axis, and a decode cache split
-    along its sequence, over 'model' (KV heads that cannot split) or over
-    the data axes (a batch of 1)."""
+    """The layouts still not ported refuse, naming item 11b: sequence
+    parallelism on a 'model' axis, and KV heads split over 'model' while
+    the query heads stay whole (seamless's 4 KV heads with the rules'
+    ``heads`` emptied)."""
     _, port = runs
     with open(_port_file(port, "raises-4x2", "json")) as f:
         msg = json.load(f)[layout]
-    assert "item 11b" in msg and RAISE_WANT[RAISE_LAYOUTS[layout][1]] in msg, msg
+    assert "item 11b" in msg and RAISE_WANT[layout] in msg, msg
 
 
 def test_fake_group_counts_the_gloo_ranks_collectives(runs):

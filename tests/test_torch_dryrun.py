@@ -95,55 +95,88 @@ def test_prefill_flops_equal_the_analytic_count():
     assert rec["output_bytes"] == B * S * cfg.padded_vocab * 2  # the logits, in cfg.dtype (bf16)
 
 
-@pytest.mark.parametrize("arch,shape", [("seamless-m4t-large-v2", "train_4k"),
-                                        ("llama3-8b", "decode_32k")])
+REFUSED = {  # (arch, shape) -> (CLI overrides, a layout the port still refuses)
+    ("seamless-m4t-large-v2", "train_4k"): (["--cfg-override", '{"sequence_parallel": true}'],
+                                            "sequence parallelism"),
+    ("llama3-8b", "decode_32k"): (["--rules-override", '{"norm": ["model"]}'], "['norm']"),
+}
+
+
+@pytest.mark.parametrize("arch,shape", sorted(REFUSED))
 def test_refused_cell_fails_naming_item_11b(arch, shape, tmp_path, capsys):
-    """A layout the port does not run on the (16, 16) mesh (the
-    encoder-decoder blocks on a 'model' axis of 16; llama3-8b's decode
-    cache, whose 8 KV heads cannot split 16 ways, split along its sequence
-    instead): a failed cell (exit 1, the message printed), never a skipped
-    one."""
+    """A layout the port does not run on the (16, 16) mesh, asked for
+    through the CLI's overrides (sequence parallelism on seamless; a
+    parameter split over 'model' along ``norm``, an axis no block splits,
+    on llama3-8b's decode cell): a failed cell (exit 1, the message
+    printed), never a skipped one."""
     out = tmp_path / "d.jsonl"
+    args, want = REFUSED[(arch, shape)]
     rc = dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single",
-                      "--out", str(out)])
+                      "--out", str(out)] + args)
     err = capsys.readouterr().err
     assert rc == 1
-    assert "item 11b" in err and arch in err
+    assert "item 11b" in err and arch in err and want in err
     assert not out.exists()
 
 
 FLASH = ("flash_attention_fwd", "flash_attention_bwd")
 ADMITTED = {  # arch -> (shapes, the kernel operators the train step must run)
     "rwkv6-1.6b": (("train_4k", "long_500k"), ("wkv6_chunk_fwd", "wkv6_chunk_bwd")),
-    "zamba2-2.7b": (("train_4k",), ("ssd_chunk_fwd", "ssd_chunk_bwd") + FLASH),
+    "zamba2-2.7b": (("train_4k", "long_500k"), ("ssd_chunk_fwd", "ssd_chunk_bwd") + FLASH),
     "qwen3-moe-30b-a3b": (("train_4k",), FLASH),
     "grok-1-314b": (("train_4k",), FLASH),
     "pixtral-12b": (("train_4k",), FLASH),
+    "seamless-m4t-large-v2": (("train_4k",), FLASH),
+    "llama3-8b": (("decode_32k",), ()),
 }
+# the cells whose decode cache the rules split along its sequence -> whether
+# 'model' carries it (and the query heads are gathered over 'model')
+SPLIT_KV = {("llama3-8b", "decode_32k"): True, ("zamba2-2.7b", "long_500k"): False}
 
 
 @pytest.mark.parametrize("arch,shape", [(a, sh) for a in sorted(ADMITTED)
                                         for sh in ADMITTED[a][0]])
 def test_tensor_parallel_cell_runs(arch, shape):
     """A cell of each family that tensor parallelism over 'model' admits,
-    on the (16, 16) mesh at full width and one layer: it runs on meta
-    tensors, names no refusal, and counts its kernels' operators and the
-    all-reduces of its row-parallel products; the all-gathers of the split
-    outputs (rwkv6's ``cw_r``, the MoE router and experts, pixtral's
-    vision projection) are counted with them.  rwkv6's ``long_500k`` (a
-    batch of 1: ``act_kv_seq`` on 'data', an axis its O(1) state lacks)
-    decodes."""
+    on the (16, 16) mesh at full width and one layer (seamless: one encoder
+    and one decoder layer): it runs on meta tensors, names no refusal, and
+    counts its kernels' operators and the all-reduces of its row-parallel
+    products; the all-gathers of the split outputs (rwkv6's ``cw_r``, the
+    MoE router and experts, pixtral's and seamless's frontend projection)
+    are counted with them.  rwkv6's ``long_500k`` (a batch of 1:
+    ``act_kv_seq`` on 'data', an axis its O(1) state lacks) decodes; so do
+    zamba2's, whose shared block's cache is split along its sequence over
+    'data', and llama3-8b's ``decode_32k``, whose 8 KV heads cannot split
+    16 ways, with the sequence on 'model': each counts its merge's
+    all-reduces, and llama3-8b the gather of ``q`` over 'model'."""
     from repro_torch.configs import SHAPES
 
     cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    if cfg.num_encoder_layers:
+        cfg = dataclasses.replace(cfg, num_encoder_layers=1)
     with fake_world(256, "meta"):
         rec = dryrun.run_step(cfg, SHAPES[shape], make_production_mesh(), "meta")
     assert rec["flops"] > 0 and rec["collective_bytes"]["all-reduce"] > 0
     if shape == "train_4k":
         for k in ADMITTED[arch][1]:
             assert rec["flops_by_op"][f"repro_torch.{k}"] > 0, (k, rec["flops_by_op"])
-    if arch in ("rwkv6-1.6b", "qwen3-moe-30b-a3b", "pixtral-12b"):
+    if arch in ("rwkv6-1.6b", "qwen3-moe-30b-a3b", "pixtral-12b", "seamless-m4t-large-v2"):
         assert rec["collective_bytes"]["all-gather"] > 0
+    if (arch, shape) in SPLIT_KV:  # against the same cell with the cache kept whole
+        with fake_world(256, "meta"):
+            mesh = make_production_mesh()
+            rules = dict(sharding_rules(cfg, mesh, SHAPES[shape]), act_kv_seq=())
+            whole = dryrun.run_step(cfg, SHAPES[shape], mesh, "meta", rules=rules)
+        B = SHAPES[shape].global_batch // (16 if SHAPES[shape].global_batch % 16 == 0 else 1)
+        H, H_loc, hd = cfg.num_heads, cfg.num_heads // 16, cfg.d_head
+        heads = H if SPLIT_KV[(arch, shape)] else H_loc
+        # the merge: a max of the (B, 1, heads) fp32 log-sum-exp, one sum of the
+        # (B, 1, heads, hd + 1) fp32 weighted rows and weights
+        merge = 4 * B * heads * (1 + hd + 1)
+        got = {k: rec["collective_bytes"].get(k, 0) - whole["collective_bytes"].get(k, 0)
+               for k in ("all-reduce", "all-gather")}
+        gather = 2 * B * H_loc * hd if SPLIT_KV[(arch, shape)] else 0  # this rank's bf16 q
+        assert got == {"all-reduce": merge, "all-gather": gather}, got
 
 
 def test_cli_writes_one_record_with_the_reference_keys(tmp_path, capsys):

@@ -89,6 +89,34 @@ def test_in_place_writes_count():
     assert costs.bytes_written == 1024
 
 
+@pytest.mark.parametrize("fake", [False, True])
+@pytest.mark.parametrize("op", ["_wrap_tensor_autograd", "wait_tensor"])
+def test_collective_wrapper_is_its_inputs_memory(op, fake):
+    """The functional collectives' ``_wrap_tensor_autograd`` (an
+    ``AsyncCollectiveTensor`` around its input on real tensors) and
+    ``wait_tensor`` (its input itself), which DTensor's redistribution
+    calls on every collective's result, return fresh tensors on fake ones:
+    either way no new memory and nothing written.  Views of the result
+    count as the input, which lives while they do.  The peak is a, its
+    product, the reordered copy and that plus one (4096 each) and a sum
+    (512): no second copy of the product."""
+    import torch.distributed._functional_collectives  # noqa: F401  (registers the operators)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fn = getattr(torch.ops._c10d_functional, op).default
+
+    def f(a):
+        x = a * 2.0
+        y = torch.cat(torch.split(fn(x), 500)[::-1])
+        return (y + 1.0).sum() + x.sum()
+
+    with FakeTensorMode() if fake else torch.no_grad():
+        a = torch.ones(1000, device="meta")
+        costs = analyze_step(f, a)
+    assert costs.peak_bytes == 4 * 4096 + BLOCK
+    assert costs.bytes_written == 3 * 4000 + 3 * 4
+
+
 def _meta(shape, dtype=torch.bfloat16, grad=True):
     return torch.empty(shape, dtype=dtype, device="meta").requires_grad_(grad)
 

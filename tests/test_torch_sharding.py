@@ -364,30 +364,36 @@ LAYOUT_CASES = {  # case -> (arch, shape, rules override, mesh, the refusal or N
                       {"ssm_inner": "model", "heads": "model"}),
     "mamba2-partial-heads": ("zamba2-2.7b", TRAIN_4K, {"heads": (), "kv_heads": ()}, (2, 2),
                              "not whole heads", {}),
-    "encdec-family": ("seamless-m4t-large-v2", TRAIN_4K, {}, (2, 2),
-                      "'model' axis of 2 for the attn_mlp encoder-decoder family", {}),
+    "encdec-family": ("seamless-m4t-large-v2", TRAIN_4K, {}, (2, 2), None,
+                      {"heads": "model", "mlp": "model", "embed_out": "model"}),
     "unported-axis": ("llama3-8b", TRAIN_4K, {"norm": ("model",)}, (2, 2), r"\['norm'\]", {}),
     "rwkv-state-batch-1": ("rwkv6-1.6b", LONG_500K, {}, (2, 1), None, {"act_kv_seq": "data"}),
-    "zamba-kv-cache-batch-1": ("zamba2-2.7b", LONG_500K, {}, (2, 1),
-                               r"along its sequence over \['data'\]", {}),
+    "zamba-kv-cache-batch-1": ("zamba2-2.7b", LONG_500K, {}, (2, 1), None,
+                               {"act_kv_seq": "data"}),
+    "dense-kv-cache-on-model": ("llama3-8b", DECODE_32K, {}, (2, 2), None,
+                                {"act_kv_seq": "model", "heads": "model"}),
+    "kv-seq-kept-whole": ("llama3-8b", dataclasses.replace(DECODE_32K, seq_len=33), {},
+                          (2, 2), r"'k' of \(2, 128, 33, 1, 32\) is split along its sequence "
+                          r"over \[\], not over act_kv_seq's \['model'\]", {}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
 def test_unported_layouts_are_refused_once_per_step(case):
     """The sharded step factories' one layout check (ROADMAP item 11b).
-    Under a 'model' axis of 2 every decoder-only family runs its tensor
-    parallelism, and the rules do split it over 'model' (pixtral's
-    ``frontend_proj`` on ``embed_out``, qwen3-moe's experts, grok-1's
-    ``moe_d_ff``, rwkv6's heads and ``cw_r``'s ``embed_out``, Mamba-2's
-    ``ssm_inner``, llama3-8b's heads and MLP); the encoder-decoder blocks,
-    a parameter split along a logical axis no block splits, KV heads split
+    Under a 'model' axis of 2 every family runs its tensor parallelism, and
+    the rules do split it over 'model' (pixtral's ``frontend_proj`` on
+    ``embed_out``, qwen3-moe's experts, grok-1's ``moe_d_ff``, rwkv6's
+    heads and ``cw_r``'s ``embed_out``, Mamba-2's ``ssm_inner``, llama3-8b's
+    and seamless's heads and MLP, seamless's ``frontend_proj``); a
+    parameter split along a logical axis no block splits, KV heads split
     while the query heads stay whole (minicpm-2b reduced has 4 KV heads, so
     they can split) and Mamba-2's ``d_inner`` split while its heads stay
     whole raise.  A decode cell with a batch of 1 on a data axis of 2 puts
-    ``act_kv_seq`` on 'data': rwkv6's O(1) state has no such axis and runs,
-    zamba2's shared-attention ``k``/``v`` are split along their sequence
-    and refused."""
+    ``act_kv_seq`` on 'data' (rwkv6's O(1) state has no such axis;
+    zamba2's shared-attention ``k``/``v`` decode split-KV), and llama3-8b's
+    one KV head puts it on 'model': both run.  A cache whose length the
+    divisibility guard keeps whole where the rules split it is refused."""
     from repro_torch.train.step import _check_layout, _live_splits
 
     arch, shape, override, mesh_shape, want, live = LAYOUT_CASES[case]
