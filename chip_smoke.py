@@ -177,7 +177,7 @@ on the card, ``ModelAPI.init(..., dtype=)``):
      9b check through the capped kernel, then ``ServingEngine.generate`` on
      2 x 256 prompts and 16 new tokens.
   9e. recurrent serving — rwkv6-1.6b and zamba2-2.7b at full width and
-     depth through ``ServingEngine``: 4 x 128 prompts fed token by token,
+     depth through ``ServingEngine``: 4 x 64 prompts fed token by token,
      32 new tokens; the last prefill logits against ``forward`` (the
      chunked WKV-6 / SSD kernels and flash at d=80, which must launch).
   9f. big train — qwen3-moe-30b-a3b (AdamW) and qwen2-72b (Adafactor) at
@@ -211,7 +211,7 @@ layouts, both dtypes, and hold every flash shape of 10b-10f):
      must run ``flash_fwd_sm90<64>`` and both ``flash_bwd_*_sm90`` at
      d=64 and no fp32 flash kernel.
   10d. seamless served — full depth in bf16 through
-     ``ServingEngine.generate``: 4 x 128 prompts token by token against the
+     ``ServingEngine.generate``: 4 x 64 prompts token by token against the
      zero encoder memory, 32 new tokens (token counts, vocabulary; no
      flash launch: ``decode_attention`` is plain PyTorch); then a forward
      of 1 x 4096 frames and 1024 tokens: finite logits.
@@ -323,6 +323,33 @@ a ``slice12: {...}`` line comes before ``slice11``):
      training and decoding) through ``tp_cell``, as 14b: FLOPs equal to the
      dry-run's, peak within ``DRYRUN_PEAK_TOL``; seamless ``train_4k``
      must launch the flash forward and backward.
+Slice 13, burst-parallel plans carved into rank slices (a ``slice13:
+{...}`` line comes before ``slice12``):
+  16a. ``ServingEngine(mesh=, rules=)`` — llama3-8b at full width and depth
+     (phase 11e's weights) on 11a's (1, 1) mesh with
+     ``sharding_rules(cfg, mesh, DECODE_32K)``: weights and cache as
+     DTensors placed by the rules, the fused prefill through
+     ``train.step.jit_prefill``, decode through ``jit_decode_step``; 4
+     prompts of 2048 tokens, 32 new tokens, after one warm run: the tokens
+     equal the plain ``ServingEngine``'s on the same weights and prompts,
+     one flash forward launch per prefill layer, the cache placed as the
+     rules say; prefill ms and decode tokens/s beside the plain engine's.
+     Runs after 11e, while 11a's process group lives.
+  16b. one rank's share of a plan-carved collocation — after 15b, in
+     ``fake_world(8, "cuda", rank=r)`` (``r`` the first rank that holds
+     both a foreground stage and a gap chunk of VGG-16@8's plan, amp 1.5):
+     ``ClusterCoordinator.collocate(executable=True)`` in submesh mode
+     with ``multiplex_demo.ROSTER``'s ``bg_step_factory`` tenants and 8c's
+     stand-in foreground; the positions are the fake world's ranks, so
+     the slices are rank slices and rank ``r`` issues its share.  Fails
+     unless ``r`` called exactly the stages whose range holds it and
+     exactly the tenant steps ``schedule_tenants()`` gives the chunks
+     holding it (each warm-up included), no 'fallback' event, finite
+     tenant losses; the per-stage times are one rank's share (a fake
+     group's collectives move nothing).  Then the flash kernels at that
+     rank's tenant shape (2 x 8 tokens, 4/1 heads of 32), timed and held
+     against the plain version as 14a does (the flash records'
+     ``rank_share``).
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
@@ -398,7 +425,8 @@ def tenant_flash_cases():
     make: ``launch/train.py``'s (``BG_PER_DEVICE_BATCH`` sequences of
     ``BG_SEQ`` per step on the card) and ``launch/multiplex_demo.py``'s
     (``TENANT_BATCH`` sequences of ``TENANT_SEQ`` per position of each gap
-    chunk the demo's carving gives its roster)."""
+    chunk the demo's carving gives its roster, and on one rank of a rank
+    slice, phase 16b)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -411,6 +439,8 @@ def tenant_flash_cases():
         return (b, s, c.num_heads, c.num_kv_heads, c.d_head, c.dtype)
 
     out = {case(arch, BG_PER_DEVICE_BATCH, BG_SEQ) for arch in BG_ARCHS}
+    # a rank's share of a tenant step on a rank slice (16b)
+    out.add(case(demo.TENANT_ARCH, demo.TENANT_BATCH, demo.TENANT_SEQ))
     split = Collocator(demo.demo_plan(), MultiplexConfig(collocate_same_device=True),
                        tenants=[BgTenant(job, prio) for job, prio, _ in demo.ROSTER],
                        devices=[torch.device("cpu")] * 8).submeshes()
@@ -533,6 +563,9 @@ def phase_kernels(prompt_lens):
                   for x in (QWEN_FLASH, MUX_FLASH, QUICK_FLASH)]
     main_path += [(b, (h, kv), dd, (s, s), 0, dt, True) for b, s, h, kv, dd, dt in tenant_flash_cases()]
     main_path += [(b, hd, dd, lens, 0, "bfloat16", c) for b, hd, dd, lens, c in slice7_flash_cases()]
+    # 9e's forward of zamba2-2.7b's shared block over the token-by-token prompts
+    main_path.append((4, (32, 32), 80, (RECURRENT_PROMPT, RECURRENT_PROMPT), 4096, "bfloat16",
+                      True))
     sweep = [(2, hd, dd, (S, S), w, dt, c)
              for hd, dd, S, w, dt, c in itertools.product(*SWEEP.values())]
     cross = [(2, hd, dd, lens, 0, dt, False)  # non-causal, Sq != Skv
@@ -2662,8 +2695,9 @@ def phase_grok(smi):
 
 
 # 9e's (and 10d's) prompt length, fed token by token: the script's slowest
-# path per token, halved from 256 to keep the script inside its time limit
-RECURRENT_PROMPT = 128
+# path per token, halved from 256 and again from 128 to keep the script
+# inside its time limit
+RECURRENT_PROMPT = 64
 
 
 def phase_recurrent_serving(smi):
@@ -3095,7 +3129,7 @@ def phase_seamless_train(smi):
 def phase_seamless_serve(smi):
     """Phase 10d: seamless-m4t-large-v2 at full width and depth in bf16
     (weights drawn straight into bf16 on the card) through
-    ``ServingEngine.generate``: 4 x 128 prompts fed token by token through
+    ``ServingEngine.generate``: 4 x 64 prompts fed token by token through
     ``decode_step`` against the zero encoder memory ``init_cache`` makes
     (as the reference serves it), 32 new tokens; token counts and the
     vocabulary.  The decoder's self- and cross-attention at decode run
@@ -3632,7 +3666,8 @@ def phase_disaggregated(cfg, smi, tokens5, stats5):
     card]))`` + ``ContinuousScheduler``: prefill on one slice's stream,
     decode on the other's, the pages handed off at each admit.  Every
     request's tokens equal phase 5's; no page leaks; one flash launch per
-    prefill and layer; the median handoff per admit."""
+    prefill and layer; the median handoff per admit.  Returns (launches, the
+    numbers, the engine's weights)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -3674,9 +3709,10 @@ def phase_disaggregated(cfg, smi, tokens5, stats5):
                phase5_decode_tokens_per_s=stats5.tokens_per_s)
     print(f"disaggregated serve on {smi}: {json.dumps(out)}; tokens equal phase 5's; "
           f"launches {launches}", flush=True)
+    params = eng.params  # phase 16a serves them again
     del eng
     _free_card()
-    return launches, out
+    return launches, out, params
 
 
 # ---------------------------------------------------------------------------
@@ -4407,6 +4443,192 @@ def _require_flash_sm90(label, rows, d=128):
         fail(f"the {label} step ran an fp32 flash kernel: {sorted(ran)}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: plans carved into rank slices, serving placed by the rules
+# ---------------------------------------------------------------------------
+
+MESH_SERVE = dict(batch=4, prompt=2048, new=32)  # 16a
+
+
+def phase_mesh_serving(mesh, cfg, params, smi):
+    """Phase 16a: llama3-8b at full width and depth (``params``: phase 11e's
+    weights, bf16 on the card) through ``ServingEngine(mesh=, rules=)`` on
+    the (1, 1) mesh with the ``DECODE_32K`` rules, and through the plain
+    ``ServingEngine``, ``MESH_SERVE``'s prompts each: one warm run, then
+    one counted run (launch counts reset just before it).  Fails unless the
+    tokens are equal, each counted run launched the flash forward once per
+    layer and no backward, and the mesh engine's cache leaves are
+    DTensors placed as the rules say.  Returns (the mesh engine's counted
+    launches, the numbers)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import DECODE_32K
+    from repro_torch.dist.sharding import param_shardings, sharding_rules
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve.engine import ServingEngine
+
+    n = MESH_SERVE
+    B, cap = n["batch"], n["prompt"] + n["new"]
+    prompts = np.random.default_rng(16).integers(0, cfg.vocab_size,
+                                                 (B, n["prompt"])).astype(np.int32)
+    rules = sharding_rules(cfg, mesh, DECODE_32K)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out, tokens, launches = {}, {}, {}
+    for kind in ("plain", "mesh"):
+        kw = dict(mesh=mesh, rules=rules) if kind == "mesh" else dict(device=dev)
+        eng = ServingEngine(cfg, params, B, cap, **kw)
+        eng.generate(prompts, 2)  # warm: a prefill and a decode step
+        eng.stats = type(eng.stats)()
+        fa.launches.update(fwd=0, bwd=0)
+        tokens[kind] = eng.generate(prompts, n["new"])
+        launches[kind] = dict(fa.launches)
+        st = eng.stats
+        out[kind] = dict(prefill_ms=st.prefill_s * 1e3, decode_tokens_per_s=st.tokens_per_s,
+                         decode_steps=st.decode_steps)
+        if kind == "mesh":
+            want = tree_leaves(param_shardings(get_model(cfg).cache_schema(B, cap), rules, mesh))
+            got = tree_leaves(eng._cache)
+            placed = all(isinstance(x, DTensor) and tuple(x.placements) == tuple(w.placements)
+                         for x, w in zip(got, want))
+        del eng
+        _free_card()
+    print(f"16a ServingEngine(mesh=, rules=) llama3-8b on {smi}, {B} x {n['prompt']} prompts, "
+          f"{n['new']} new tokens, (1, 1) mesh, rules "
+          f"{ {k: v for k, v in rules.items() if v} }: {json.dumps(out)}; tokens equal the "
+          f"plain engine's: {bool((tokens['mesh'] == tokens['plain']).all())}; flash "
+          f"launches {launches}; cache placed by the rules: {placed}", flush=True)
+    if not (tokens["mesh"] == tokens["plain"]).all():
+        fail("16a: the mesh engine's tokens differ from the plain engine's")
+    for kind, c in launches.items():
+        if c != {"fwd": cfg.num_layers, "bwd": 0}:
+            fail(f"16a: the {kind} engine launched {c}, want {cfg.num_layers} forward")
+    if not placed:
+        fail("16a: the mesh engine's cache is not placed as the rules say")
+    return launches["mesh"]["fwd"], out
+
+
+def _rank_share(plan, mcfg, rank):
+    """What rank ``rank`` of 8 must issue in one ``run_executable`` of
+    ``plan`` with ``multiplex_demo.ROSTER`` (no rotation: the two tenants'
+    priorities differ): the stages whose range holds it, the gap chunks
+    (chunk, slot) holding it, and the tenant steps per collocated
+    iteration on them (``schedule_tenants()``)."""
+    import torch
+
+    from repro_torch.core.multiplex import BgTenant, Collocator
+    from repro_torch.launch import multiplex_demo as demo
+
+    col = Collocator(plan, mcfg, tenants=[BgTenant(j, p) for j, p, _ in demo.ROSTER],
+                     devices=[torch.device("cpu")] * 8)
+    split = col.submeshes()
+    stages = [i for i, (a, b) in sorted(split.stage_fg_range.items()) if a <= rank < b]
+    chunks = {(e[0], slot) for slots in split.bg_tenants.values()
+              for slot, e in enumerate(slots) if e and e[0][0] <= rank < e[0][1]}
+    per_iter = sum(k for si, slot, k in col.schedule_tenants()
+                   if (split.bg_tenants[si][slot][0], slot) in chunks)
+    return stages, chunks, per_iter
+
+
+def phase_rank_collocation(smi):
+    """Phase 16b: ``ClusterCoordinator.collocate(executable=True)`` in
+    submesh mode as one rank of a fake world of 8 on the card (no process
+    group may be live); then the flash kernels at the shape of a rank's
+    tenant step, timed as ``_flash_times`` times them (held against the
+    plain version there).  Returns (flash launches of the run, the
+    numbers, {kernel record name: that shape's row})."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.vgg16 import CONFIG as VCFG
+    from repro_torch.core.coordinator import ClusterCoordinator, Job
+    from repro_torch.core.costmodel import A100
+    from repro_torch.core.multiplex import MultiplexConfig
+    from repro_torch.launch import multiplex_demo as demo
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models.graph import build_vgg_graph
+    from repro_torch.train.step import bg_step_factory
+
+    t0 = time.perf_counter()
+    mcfg = MultiplexConfig(max_inflight=2, use_feedback=False)
+    plan = demo.demo_plan()
+    rank = next(r for r in range(8) if all(_rank_share(plan, mcfg, r)))
+    stages, chunks, per_iter = _rank_share(plan, mcfg, rank)
+    fg_calls, bg_calls, losses = {}, {}, []
+
+    def stage(st, mesh):
+        fn = demo.stand_in_stage(st, mesh)
+        i = plan.stages().index(st)
+
+        def call():
+            fg_calls[i] = fg_calls.get(i, 0) + 1
+            return fn()
+
+        return call
+
+    def counted(job, factory):
+        def build(mesh):
+            step = factory(mesh)
+
+            def call():
+                bg_calls[job] = bg_calls.get(job, 0) + 1
+                return step()
+
+            return call
+
+        build.signature = factory.signature
+        return build
+
+    coord = ClusterCoordinator(8, A100)
+    coord.submit_foreground(Job("vgg16", "foreground", build_vgg_graph(VCFG, 32), amp_limit=1.5))
+    for job, prio, seed in demo.ROSTER:
+        coord.submit_background(Job(job, "background", [], priority=prio,
+                                    step_fn_factory=counted(job, bg_step_factory(
+                                        demo.TENANT_ARCH, seq=demo.TENANT_SEQ, seed=seed,
+                                        on_loss=losses.append,
+                                        per_device_batch=demo.TENANT_BATCH))))
+    iterations = 5
+    _reset_counts()
+    with fake_world(8, "cuda", rank=rank), _FlashShapes() as shapes:
+        res = coord.collocate(mcfg, executable=True, iterations=iterations,
+                              make_fg_stage_fn=stage)
+        torch.cuda.synchronize()
+        base = {k: v * 1e3 for k, v in sorted(coord.monitor.baseline.items())}
+    launches = _counts()["flash"]
+    run_s = time.perf_counter() - t0
+    ls = [float(x) for x in losses]
+    fallback = [e.detail for e in coord.events if e.kind == "fallback"]
+    runs = 1 + 2 * iterations + res.iterations  # warm-up, isolated twice, collocated
+    want_fg = {i: runs for i in stages}
+    want_bg = len(chunks) + res.iterations * per_iter
+    out = dict(rank=rank, stages=stages, chunks=sorted(chunks), tenant_steps=sum(bg_calls.values()),
+               tenant_steps_want=want_bg, iterations=res.iterations,
+               stage_ms_isolated=base, fg_iter_ms=res.fg_iter_time * 1e3,
+               fg_iter_ms_isolated=res.fg_iter_time_isolated * 1e3,
+               bg_steps_per_iter=res.bg_steps_per_iter, phase_s=run_s, flash=launches)
+    print(f"16b rank {rank} of a fake world of 8 on {smi} (its share; the fake group's "
+          f"collectives move nothing): {json.dumps(out)}; stage calls {fg_calls} (want "
+          f"{want_fg}); {len(ls)} tenant losses, finite {bool(np.isfinite(ls).all())}",
+          flush=True)
+    if fallback:
+        fail(f"16b: the coordinator fell back: {fallback}")
+    if fg_calls != want_fg or sum(bg_calls.values()) != want_bg:
+        fail(f"16b: rank {rank} issued stages {fg_calls} (want {want_fg}) and "
+             f"{sum(bg_calls.values())} tenant steps (want {want_bg})")
+    if not ls or not np.isfinite(ls).all():
+        fail(f"16b: tenant losses {ls[:8]}")
+    shapes.check_swept("16b")
+    tenant = get_config(demo.TENANT_ARCH).reduced()
+    (fwd, bwd), _, _ = _flash_times(dict(B=demo.TENANT_BATCH, S=demo.TENANT_SEQ,
+                                         H=tenant.num_heads, KV=tenant.num_kv_heads,
+                                         d=tenant.d_head, window=0), seed=160)
+    path = "a tenant step's share on one rank (16b)"
+    return launches, out, {"flash_attention": dict(fwd, path=path),
+                           "flash_attention_bwd": dict(bwd, path=path)}
+
+
 def main() -> None:
     name, smi = phase_device()
 
@@ -4466,7 +4688,10 @@ def main() -> None:
     sharded, sharded_stats, losses11b = phase_sharded_train(mesh, smi)
     fam_counts, fam_stats = phase_sharded_families(mesh, smi)
     psgd = phase_powersgd(smi)
-    disagg, disagg_stats = phase_disaggregated(cfg, smi, tokens5, stats5)
+    disagg, disagg_stats, params11e = phase_disaggregated(cfg, smi, tokens5, stats5)
+    mesh_serve, mesh_serve_stats = phase_mesh_serving(mesh, cfg, params11e, smi)
+    del params11e
+    _free_card()
     live, live_stats = phase_live_loop(mesh, smi, losses11b, sharded_stats["median_step_ms"])
     t13 = time.perf_counter()
     pred13 = phase_dryrun_predict()
@@ -4486,6 +4711,7 @@ def main() -> None:
     split_rows, split_merges = phase_split_kernels(smi)
     split_launches, split_stats = phase_split_cells(smi)
     split_stats["phase15_s"] = time.perf_counter() - t15
+    rank_launches, rank_stats, rank_rows = phase_rank_collocation(smi)
     tp_path = {f"{k} rank 0 of (16, 16) (14b)": c for k, c in tp_launches.items()}
     tp_path.update({f"{k} rank 0 of (16, 16) (15b)": c for k, c in split_launches.items()})
     bg = {k: alone[k] + bg_mux[k] + bg_exec[k] for k in ("fwd", "bwd")}
@@ -4511,6 +4737,8 @@ def main() -> None:
                                  **{f"train {k} sharded (11c)": c["flash"]["fwd"]
                                     for k, c in fam_counts.items() if c["flash"]["fwd"]},
                                  "serve llama3-8b disaggregated (11e)": disagg,
+                                 "serve llama3-8b on the (1, 1) mesh (16a)": mesh_serve,
+                                 "bg tenants, one rank's share (16b)": rank_launches["fwd"],
                                  "train qwen2-1.5b live loop (12a)": live["fwd"],
                                  "train qwen2-1.5b one counted step (13b)": counted13["fwd"],
                                  "train_lm llama-100m (13d)": ex_launches["train_lm"]["fwd"],
@@ -4539,6 +4767,7 @@ def main() -> None:
                                         for k, c in fam_counts.items()
                                         if c["flash"]["bwd"]},
                                      "train qwen2-1.5b live loop (12a)": live["bwd"],
+                                     "bg tenants, one rank's share (16b)": rank_launches["bwd"],
                                      "train qwen2-1.5b one counted step (13b)":
                                          counted13["bwd"],
                                      "train_lm llama-100m (13d)":
@@ -4567,8 +4796,11 @@ def main() -> None:
     for rec in (flash, flash_bwd):
         # 15a: the kernel at seamless's shapes on a rank of the (16, 16) mesh
         rec["seamless_rank"] = split_rows[rec["name"]]
+        # 16b: at a tenant step's shape on one rank of a rank slice
+        rec["rank_share"] = rank_rows[rec["name"]]
     slice8 = dict(mesh=mesh_rules, sharded_train=sharded_stats, families=fam_stats,
                   powersgd=psgd, disaggregated_serve=disagg_stats)
+    print(f"slice13: {json.dumps(dict(mesh_serve=mesh_serve_stats, rank_share=rank_stats))}")
     print(f"slice12: {json.dumps(dict(split_cells=split_stats, split_merge=split_merges))}")
     print(f"slice11: {json.dumps(dict(tp_cells=tp_stats))}")
     print(f"slice10: {json.dumps(dict(dryrun=dryrun_stats, dryrun_cli=cli13, examples=ex_stats))}")

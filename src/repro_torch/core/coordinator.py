@@ -4,8 +4,10 @@ The port of ``repro/core/coordinator.py``.  ``collocate`` simulates
 collocation, or with ``executable=True`` measures it on real devices
 (``Collocator.run_executable``): in GPU mode
 (``MultiplexConfig.collocate_same_device``) every healthy position is one
-card, in submesh mode each is one of the host's cards, and too few of them
-falls back to the simulation, as in the reference.
+card; in submesh mode each is a rank of the process group, where one is
+initialised (one card per rank: the plan's slices are rank slices, and
+every rank calls ``collocate`` alike), else one of the host's devices; too
+few of them falls back to the simulation, as in the reference.
 
 Manages all runtimes: places a new foreground job on the device subset its
 burst plan requests, registers background jobs per device, and handles
@@ -42,6 +44,13 @@ from repro_torch.launch.mesh import host_devices
 
 # paper §5: the fg slowdown the QoS/admission machinery must hold
 QOS_SLOWDOWN_BOUND = 1.33
+
+
+def _group_size() -> int:
+    """The process group's world size; 0 when none is initialised."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 0
 
 
 def _placeholder_factory(mesh):
@@ -340,6 +349,7 @@ class ClusterCoordinator:
         is on the one card), the healthy indices themselves are the live
         ids, so simulated 1024-device clusters get real eviction semantics
         on a 1-device host.  Otherwise healthy indices map positionally onto
+        the ranks of the process group, where one is initialised, else onto
         the process's CUDA devices (``range(torch.cuda.device_count())``).
         No-op when the cache is empty."""
         if not self.exec_cache.entries:
@@ -347,7 +357,7 @@ class ClusterCoordinator:
         if self.virtual_devices or self._last_mcfg.collocate_same_device:
             live = set(self.healthy)
         else:
-            n_dev = torch.cuda.device_count()
+            n_dev = _group_size() or torch.cuda.device_count()
             live = {i for i in self.healthy if i < n_dev}
         n = self.exec_cache.evict_stale(live)
         if n:
@@ -384,8 +394,11 @@ class ClusterCoordinator:
         ``CollocationResult``.  In GPU mode (``mcfg.collocate_same_device``)
         every healthy position is ``device`` (default: the card; ``"cpu"``
         runs the same loop on the CPU), each tenant on its own stream.  In
-        submesh mode the positions are the host's devices of ``device``'s
-        type, and when there are fewer than the plan assumes it falls back
+        submesh mode the positions are the ranks of the process group
+        where one is initialised (every rank calls ``collocate`` with the
+        same arguments and issues its share), else the host's devices of
+        ``device``'s type; when there are fewer than the plan assumes it
+        falls back
         to the costless ``MultiplexSim`` (logged as a 'fallback'
         ClusterEvent) and returns a ``SimResult`` — both expose
         ``fg_slowdown`` / ``bg_steps_per_iter`` / ``row()``.
@@ -437,16 +450,20 @@ class ClusterCoordinator:
                     dev = torch.device("cuda", torch.cuda.current_device())
                 ids = healthy
                 survivors = [dev] * len(ids)
+                where = dict(devices=survivors, device_ids=ids)
+            elif _group_size():  # position i is rank i
+                ids = survivors = [i for i in healthy if i < _group_size()]
+                where = dict(ranks=survivors, device_ids=ids)
             else:
                 devs = host_devices(device)
                 ids = [i for i in healthy if i < len(devs)]
                 survivors = [devs[i] for i in ids]
+                where = dict(devices=survivors, device_ids=ids)
             if len(survivors) >= fg.plan.num_gpus:
                 col = Collocator(fg.plan, mcfg or MultiplexConfig(),
                                  monitor=self.monitor, tenants=tenants,
-                                 devices=survivors, device_ids=ids,
                                  cache=self.exec_cache,
-                                 interference=self.interference)
+                                 interference=self.interference, **where)
                 rejected: tuple = ()
                 if admission_bound is not None and col.tenants:
                     # the measured run re-derives per-stage QoS state from
@@ -473,9 +490,8 @@ class ClusterCoordinator:
                         col = Collocator(fg.plan, self._last_mcfg,
                                          monitor=self.monitor,
                                          tenants=decision.admitted,
-                                         devices=survivors, device_ids=ids,
                                          cache=self.exec_cache,
-                                         interference=self.interference)
+                                         interference=self.interference, **where)
                 res = col.run_executable(
                     make_fg_stage_fn, make_bg_step_fn, iterations=iterations
                 )

@@ -35,6 +35,21 @@ torch devices and CUDA streams.
    those events alone: ``torch.cuda.synchronize()`` would wait for every
    stream and time the background into the foreground stage.
 
+   Over the ranks of a process group (``Collocator(ranks=...)``, one card
+   per rank) the slices are rank slices and every rank runs the same host
+   loop: it issues only the foreground stages and tenant steps whose
+   slices hold it, and waits for no other rank's (another rank's step
+   stays in the pacing queue, as in the one-process loop, but only its own
+   ranks can see it complete).  The
+   decisions that read a clock or a completion (the per-stage baselines,
+   the feedback loop's bans, the min over iterations, the re-measured
+   isolated baseline) read each iteration's timing record agreed across
+   the world, one all-reduce (MAX) of it: a stage took as long as its
+   slowest rank, and a step is outstanding while any of its ranks still
+   runs it.  So every rank bans, rotates and issues the same steps in the
+   same order, and a tenant over ranks ``[a, b)`` meets itself in its own
+   collectives.
+
 Multi-tenant gap scheduling (paper §5's cluster-throughput setting — several
 background jobs packed into one foreground job's gaps):
 
@@ -619,7 +634,10 @@ class Collocator:
     (default: in GPU mode, ``cfg.collocate_same_device``, the current card
     once for each of the plan's positions; otherwise the process's cards).
     ``device_ids`` names those positions (default: their indices); the
-    executable cache keys on them.
+    executable cache keys on them.  ``ranks`` makes the positions ranks of
+    the process group instead (one card per rank; ``device_ids`` default
+    to the ranks): the slices are rank slices, and every rank of the group
+    must run the same calls (see the module docstring).
 
     ``tenants`` is a prioritized list of background jobs (``BgTenant``);
     each gap's free device ranges are packed among them largest-chunk-to-
@@ -638,6 +656,7 @@ class Collocator:
     cache: Optional[ExecutableCache] = None
     interference: InterferenceModel = field(default_factory=InterferenceModel)
     device_ids: Optional[Sequence[int]] = None
+    ranks: Optional[Sequence[int]] = None
 
     def __post_init__(self):
         # priority order is fixed at construction: slot 0 = highest priority
@@ -944,6 +963,34 @@ class Collocator:
             return [card] * self.plan.num_gpus
         return host_devices()
 
+    def _positions(self) -> dict:
+        """The carving's keyword arguments for this collocator's positions:
+        ranks of the process group, or one device per plan position."""
+        if self.ranks is not None:
+            return dict(ranks=list(self.ranks), ids=self.device_ids)
+        return dict(devices=self._device_list(), ids=self.device_ids)
+
+    def _agree(self, t: float, stage_dts: List[float],
+               outstanding: List[List[float]]) -> Tuple[float, List[float], List[List[float]]]:
+        """One iteration's timing record agreed across the process group (an
+        all-reduce, MAX) when the positions are ranks of a group of several;
+        else as it is."""
+        if self.ranks is None:
+            return t, stage_dts, outstanding
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return t, stage_dts, outstanding
+        from repro_torch.launch.mesh import rank_device
+
+        n = len(stage_dts)
+        rec = torch.tensor([t, *stage_dts, *(x for row in outstanding for x in row)],
+                           dtype=torch.float64, device=rank_device())
+        dist.all_reduce(rec, op=dist.ReduceOp.MAX)
+        vals = rec.tolist()
+        return vals[0], vals[1:n + 1], [vals[1 + n + i * n:1 + n + (i + 1) * n]
+                                        for i in range(n)]
+
     def submeshes(self, *, fg_model: int = 1, bg_model: int = 1,
                   tenants: Optional[int] = None,
                   tenant_quanta: Optional[Sequence[int]] = None):
@@ -961,8 +1008,7 @@ class Collocator:
         n = tenants if tenants is not None else max(1, len(self.tenants))
         if tenant_quanta is None and any(t.quantum for t in self.tenants[:n]):
             tenant_quanta = self._roster_quanta(self._roster_for(n), bg_model)
-        return split_mesh_for_plan(self.plan, devices=self._device_list(),
-                                   ids=self.device_ids,
+        return split_mesh_for_plan(self.plan, **self._positions(),
                                    fg_model=fg_model, bg_model=bg_model,
                                    tenants=n, tenant_quanta=tenant_quanta)
 
@@ -1267,7 +1313,13 @@ class Collocator:
         ``torch.cuda.stream(slice.stream)`` and followed by a
         ``torch.cuda.Event`` recorded on that stream; the loop waits on
         those events only (on the CPU, where slices have no stream, a call's
-        own result stands for it).
+        own result stands for it).  Over ranks (``self.ranks``) every rank
+        runs this loop: ``make_fg_stage_fn`` and a tenant's
+        ``step_fn_factory`` are called, and their functions issued, only on
+        the ranks their slice holds, while every rank carves every slice
+        and looks every step up in the cache, in the same order; each
+        iteration's timing record is agreed across the group before the
+        feedback loop reads it (see the module docstring).
 
         Runs ``iterations`` isolated iterations (recording per-stage
         baselines), ``iterations`` collocated ones, plus one final settled
@@ -1296,7 +1348,7 @@ class Collocator:
             if t.step_fn_factory is None:
                 raise ValueError(f"tenant {t.job!r} has no step_fn_factory")
 
-        devs = self._device_list()
+        where = self._positions()
         # re-derive QoS state for this plan's ops from measurement so stale
         # (possibly simulated-domain) baselines can't poison the feedback
         self.reset_measured_qos()
@@ -1322,10 +1374,11 @@ class Collocator:
             if rng not in mesh_cache:
                 model = fg_model if st.gpus % fg_model == 0 else 1
                 mesh_cache[rng] = submesh_from_range(
-                    rng[0], rng[1], model=model, devices=devs,
-                    ids=self.device_ids, stream=fg_stream,
+                    rng[0], rng[1], model=model, stream=fg_stream, **where,
                 )
-            fg_fns.append(make_fg_stage_fn(st, mesh_cache[rng]))
+            # a stage whose slice does not hold this rank is another rank's
+            fg_fns.append(make_fg_stage_fn(st, mesh_cache[rng])
+                          if mesh_cache[rng].member else None)
 
         # per-(stage, chunk position, tenant-slot) bg step fns, built through
         # the executable cache so an unchanged gap slice reuses the built
@@ -1366,8 +1419,7 @@ class Collocator:
                 return None  # scheduler never emits this; belt-and-braces
             mesh = bg_meshes.get((cs, ce, model))
             if mesh is None:
-                mesh = submesh_from_range(cs, ce, model=model, devices=devs,
-                                          ids=self.device_ids)
+                mesh = submesh_from_range(cs, ce, model=model, **where)
                 bg_meshes[(cs, ce, model)] = mesh
             tnt = roster[slot]
 
@@ -1376,6 +1428,8 @@ class Collocator:
                 # — a warm-cache hit costs nothing and must not make
                 # run_iter discard the iteration's QoS measurements
                 lazy_builds.append(combo)
+                if not m.member:
+                    return None, None  # another rank's tenant step
                 own = _dc_replace(m, stream=priority_stream(m.device, urgent=False))
                 return t.step_fn_factory(own), own.stream
 
@@ -1419,11 +1473,15 @@ class Collocator:
                 s: [] for s in range(n_slots)
             }
             launched_by = [0] * n_slots
-            stage_dts = [0.0] * len(fg_fns)
+            n_st = len(fg_fns)
+            stage_dts = [0.0] * n_st
+            # the timing record: each stage's time, and the origins (gap
+            # stages) of the bg steps still outstanding when it ran (1.0)
+            outstanding_at = [[0.0] * n_st for _ in range(n_st)]
+            compiled_at = [False] * n_st
             builds_before = len(lazy_builds)
             t_start = time_fn()
             for si, fn in enumerate(fg_fns):
-                op = f"stage{si}"
                 for slot, pos, chunk, n_bg in sorted(by_stage.get(si, ())):
                     built = build_bg_fn(chunk, slot)  # lazy for rotated combos
                     if built is None:
@@ -1436,22 +1494,34 @@ class Collocator:
                         q.append((si, _issue(bf, bs)))
                         launched_by[slot] += 1
                 # completed steps no longer interfere — drop them so a slow
-                # stage doesn't ban origins whose work already finished
-                outstanding = set()
+                # stage doesn't ban origins whose work already finished.
+                # Another rank's step stays queued (pacing counts it, as the
+                # one-process loop does) but only its own ranks report it
                 for q in inflight.values():
                     q[:] = [(o, f) for o, f in q if not _future_done(f)]
-                    outstanding.update(o for o, _ in q)
+                    for o, f in q:
+                        if f is not _ELSEWHERE:
+                            outstanding_at[si][o] = 1.0
                 t0 = time_fn()
                 _block(_issue(fn, fg_stream))
-                dt = time_fn() - t0
-                stage_dts[si] = dt
-                compiled = len(lazy_builds) > builds_before
+                stage_dts[si] = time_fn() - t0
+                compiled_at[si] = len(lazy_builds) > builds_before
+            for q in inflight.values():
+                for _, f in q:
+                    _block(f)
+            t_iter = time_fn() - t_start
+            t_iter, stage_dts, outstanding_at = self._agree(t_iter, stage_dts,
+                                                            outstanding_at)
+            # the feedback loop, stage by stage on the (agreed) record
+            for si in range(n_st):
+                op, dt = f"stage{si}", stage_dts[si]
+                outstanding = {o for o in range(n_st) if outstanding_at[si][o]}
                 if not collocate:
                     prev = self.monitor.baseline.get(op)
                     self.monitor.record_baseline(
                         op, dt if prev is None else min(prev, dt)
                     )
-                elif not compiled:
+                elif not compiled_at[si]:
                     # an iteration that lazily built a rotated combo is a
                     # warm-up sample: its stage times include the build +
                     # state-replica setup, which must not feed the slowdown
@@ -1467,14 +1537,11 @@ class Collocator:
                         self.monitor.banned.update(
                             f"stage{o}" for o in outstanding
                         )
-            for q in inflight.values():
-                for _, f in q:
-                    _block(f)
             if collocate:
                 # fair sharing: book per-slot launches into the deficit
                 # counters and advance the rotation round
                 self.note_launched(launched_by, roster)
-            return (time_fn() - t_start, launched_by, rows, stage_dts,
+            return (t_iter, launched_by, rows, stage_dts,
                     len(lazy_builds) > builds_before)
 
         iso = [run_iter(False)[0] for _ in range(max(1, iterations))]
@@ -1676,10 +1743,19 @@ def _fit_density_slope(measured, prior: float) -> float:
     return min(10.0, b1 / b0)
 
 
-def _issue(fn: Callable, stream):
+# what issuing another rank's work gives on this rank: nothing to wait for,
+# and nothing this rank can see complete
+_ELSEWHERE = object()
+
+
+def _issue(fn: Optional[Callable], stream):
     """Call ``fn`` on ``stream`` and return what ``_block`` waits on: the
     event recorded on the stream right after the call (CUDA), or the
-    call's own result (the CPU, where a slice has no stream)."""
+    call's own result (the CPU, where a slice has no stream).  ``fn`` is
+    None for work whose slice does not hold this rank: nothing is issued,
+    and waiting for it returns at once."""
+    if fn is None:
+        return _ELSEWHERE
     with torch.cuda.stream(stream):  # no-op for None
         out = fn()
     if stream is None:

@@ -79,10 +79,12 @@ query head over its slice, merges, and keeps its own heads' rows for the
 row-parallel out-projection.  The new token's K/V are written by the rank
 whose slice holds position ``n`` only (``models.attention.cache_write``:
 a clamped index and ``torch.where``, no read on the host).  Decoding runs
-under ``torch.no_grad()``, so the helpers need no backward.  Prefill
-builds no split cache: ``transformer.prefill`` and the serving engines fill
-a whole one, and the production prefill cells run ``jit_forward``, which
-builds none.
+under ``torch.no_grad()``, so the helpers need no backward.  A prefill
+into a split cache (``train.step.jit_prefill``, the serving engine's)
+runs ``transformer.prefill`` on the rank's rows and heads, which fills the
+whole sequence, then keeps the rank's slice of it (a local narrow, no
+collective); the production prefill cells run ``jit_forward``, which
+builds no cache.
 
 The layouts local compute does not run (ROADMAP item 11b) are refused
 once, by the sharded step factories (``train.step._check_layout``):

@@ -8,8 +8,8 @@ names (``pod``, ``data``, ``model``): gloo on the CPU, NCCL on cards.
 ``make_production_mesh`` builds the reference's (16, 16) or (2, 16, 16)
 mesh, or an ``AbstractMesh`` of that shape when the world is smaller, for
 the rules to read.  ``fake_world`` is a process group whose collectives
-move nothing, where this process plays rank 0 of a world of any size: the
-meshes built on it are of the device type a dry-run models
+move nothing, where this process plays any one rank of a world of any
+size: the meshes built on it are of the device type a dry-run models
 (``launch/dryrun.py``).  ``pow2_mesh_shape``/``largest_pow2_mesh`` and
 ``remesh_for_pool`` are the elastic re-carving over a surviving pool of
 ranks, and ``split_mesh_for_serving`` the prefill/decode carving.
@@ -19,20 +19,27 @@ The plan carving (``submesh_from_range``, ``PlanSubmeshes``,
 ``[start, end)``, the ``torch.device`` at each of those positions, the
 ``(data, model)`` shape, the ids of the positions (what the executable
 cache keys on), the CUDA stream its work is issued on (``None`` on the
-CPU) and, for a slice over several ranks (``rank_slice``), the
-``DeviceMesh`` over them.
+CPU) and, for a slice over several ranks, the ``DeviceMesh`` over them.
 
 Devices are taken by position, so two disjoint index ranges always give
-disjoint slices of the plan.  Where the positions are distinct cards
-(the reference's TPU submesh mode) that is disjoint hardware.  On one
-card, the paper's own GPU mode (``MultiplexConfig.collocate_same_device``),
-every position is that card, and the slices differ only by their streams:
-the foreground on one of the greatest priority, each background tenant on
-its own of the least.  A step runs in one process on one device: a slice
-of several cards runs through the ``DeviceMesh`` of a ``rank_slice``,
-each rank issuing its own share.  The plan carving does not build rank
-slices yet, so its slices of several cards raise ``NotImplementedError``
-when a step asks for their device (ROADMAP item 11b).
+disjoint slices of the plan.  The positions are one of three kinds:
+
+  - the ranks of the process group (``ranks=``): each slice is a rank
+    slice, a ``DeviceMesh`` over its ranks, and each rank issues its own
+    share of the slice's work on its own device (``DeviceSlice.member``
+    says whether this rank holds the slice).  Building a ``DeviceMesh``
+    is collective over the whole group, so every rank carves, in the same
+    order; the meshes are kept by ``(ranks, shape)`` for the life of the
+    group, so carving the same slice again builds no new communicators.
+    This is the reference's TPU submesh mode: one card per position;
+  - one card listed once per position (the paper's own GPU mode,
+    ``MultiplexConfig.collocate_same_device``): the slices differ only by
+    their streams, the foreground on one of the greatest priority, each
+    background tenant on its own of the least;
+  - devices of this process (the CPU, or a list of cards).  A step runs
+    in one process on one device, so a slice over several cards here
+    raises ``NotImplementedError`` when a step asks for its device: carve
+    it over ranks instead.
 """
 from __future__ import annotations
 
@@ -71,11 +78,11 @@ _FAKE_DEVICE_TYPE: List[str] = []
 
 
 @contextmanager
-def fake_world(world_size: int, device_type: str):
+def fake_world(world_size: int, device_type: str, rank: int = 0):
     """A fake process group of ``world_size`` ranks in which this process is
-    rank 0: its collectives return at once and move nothing
+    ``rank``: its collectives return at once and move nothing
     (``torch.testing._internal.distributed.fake_pg``), so a step runs as
-    rank 0 of a world no machine here has.  The meshes built on it are of
+    that rank of a world no machine here has.  The meshes built on it are of
     ``device_type``, the device a dry-run models; for ``meta`` they are CPU
     meshes holding meta tensors (DTensor asks a mesh's device module how
     many devices a host has, and meta has none).  The group is destroyed
@@ -85,7 +92,9 @@ def fake_world(world_size: int, device_type: str):
 
     if dist.is_initialized():
         raise RuntimeError("fake_world needs a process without a process group")
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside a world of {world_size}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
     _FAKE_DEVICE_TYPE.append("cpu" if device_type == "meta" else device_type)
     try:
         yield
@@ -224,27 +233,39 @@ class DeviceSlice:
     shape: Tuple[int, int]  # (data, model)
     ids: Tuple[int, ...]    # the positions' ids: the executable cache's key
     stream: Optional[object] = None  # torch.cuda.Stream; None on the CPU
-    mesh: Optional[object] = None    # DeviceMesh over the ranks (rank_slice)
+    mesh: Optional[object] = None    # DeviceMesh over the ranks (a rank slice)
 
     @property
     def size(self) -> int:
         return self.end - self.start
 
     @property
+    def ranks(self) -> Optional[Tuple[int, ...]]:
+        """A rank slice's ranks, row-major; None for a slice of devices."""
+        if self.mesh is None:
+            return None
+        return tuple(int(r) for r in self.mesh.mesh.flatten().tolist())
+
+    @property
+    def member(self) -> bool:
+        """Whether this process issues the slice's work: always for a slice
+        of devices; for a rank slice, when this rank is one of its ranks."""
+        return self.mesh is None or self.mesh.get_coordinate() is not None
+
+    @property
     def device(self) -> torch.device:
         """The one device this process issues the slice's work on: every
-        position's, or for a ``rank_slice`` this rank's own.  A slice of
-        several cards in one process (what ``split_mesh_for_plan`` and
-        ``split_mesh_for_serving`` carve from a list of cards) raises
-        ``NotImplementedError``: turning a plan's slices into rank slices
-        under a process group is ROADMAP item 11b."""
+        position's, or for a rank slice this rank's own.  A slice of
+        several cards in one process raises ``NotImplementedError``: a
+        step over several cards runs one process per card, on the rank
+        slice that carving the positions as ranks (``ranks=``) gives."""
         distinct = list(dict.fromkeys(self.devices))
         if len(distinct) > 1:
             raise NotImplementedError(
                 f"positions [{self.start}, {self.end}) span {len(distinct)} devices "
                 f"{[str(d) for d in distinct]} in one process: a step over several cards "
-                "runs one process per card, on a rank_slice, and carving a plan into rank "
-                "slices is not ported (ROADMAP Queue 1, item 11b)")
+                "runs one process per card, so carve the positions as the ranks of a "
+                "process group (ranks=), which gives a rank slice")
         return distinct[0]
 
 
@@ -255,33 +276,55 @@ def rank_device() -> torch.device:
     return torch.device("cpu")
 
 
+# the rank slices' meshes by (ranks, shape), for the process group they were
+# built in (the first entry of _SLICE_WORLD)
+_SLICE_MESHES: Dict[tuple, object] = {}
+_SLICE_WORLD: List[object] = []
+
+
+def _slice_mesh(ranks: Sequence[int], shape: Tuple[int, int]):
+    """The (data, model) DeviceMesh of ``shape`` over ``ranks``, built once
+    per process group: every rank of the group takes part in the first
+    build, and every later call returns that mesh without communicating."""
+    import torch.distributed as dist
+
+    world = dist.group.WORLD
+    if not _SLICE_WORLD or _SLICE_WORLD[0] is not world:
+        _SLICE_MESHES.clear()
+        _SLICE_WORLD[:] = [world]
+    key = (tuple(int(r) for r in ranks), tuple(shape))
+    if key not in _SLICE_MESHES:
+        _SLICE_MESHES[key] = _rank_mesh(key[0], key[1], ("data", "model"))
+    return _SLICE_MESHES[key]
+
+
 def rank_slice(start: int, end: int, *, model: int = 1, stream=None) -> DeviceSlice:
     """A (data, model) slice over the ranks [start, end) of the process
     group, with the ``DeviceMesh`` over them; every rank calls it (building
     a mesh is collective).  Each rank issues its share of the slice's work
     on its own device."""
-    n = end - start
-    if n <= 0 or n % model:
-        raise ValueError(f"rank range [{start}, {end}) is empty or not divisible by "
-                         f"model={model}")
-    mesh = _rank_mesh(range(start, end), (n // model, model), ("data", "model"))
-    return DeviceSlice(start, end, (rank_device(),) * n, (n // model, model),
-                       tuple(range(start, end)), stream, mesh)
+    return submesh_from_range(start, end, model=model, ranks=range(_world()), stream=stream)
 
 
 def submesh_from_range(start: int, end: int, *, model: int = 1,
                        devices: Optional[Sequence] = None,
                        ids: Optional[Sequence[int]] = None,
-                       stream=None) -> DeviceSlice:
-    """A (data, model) slice over the device-index range [start, end).
+                       stream=None,
+                       ranks: Optional[Sequence[int]] = None) -> DeviceSlice:
+    """A (data, model) slice over the position range [start, end).
 
-    Devices are taken positionally from ``devices`` (default: the
-    process's cards), so two non-overlapping index ranges always yield
-    disjoint slices — the invariant the collocator relies on.  ``ids``
-    names each position of ``devices`` (default: its index); the slice
-    keeps the ids of its own.
+    The positions are ``devices`` (default: the process's cards) or, with
+    ``ranks``, ranks of the process group, taken positionally, so two
+    non-overlapping index ranges always yield disjoint slices — the
+    invariant the collocator relies on.  Over ranks the slice is a rank
+    slice (its ``DeviceMesh`` over ``ranks[start:end]``), and every rank
+    of the group must carve it.  ``ids`` names each position (default: its
+    index, or its rank); the slice keeps the ids of its own.
     """
-    devs = list(devices) if devices is not None else host_devices()
+    if ranks is not None and devices is not None:
+        raise ValueError("the positions are devices or ranks, not both")
+    devs = list(ranks) if ranks is not None else (
+        list(devices) if devices is not None else host_devices())
     n = end - start
     if n <= 0:
         raise ValueError(f"empty device range [{start}, {end})")
@@ -291,9 +334,16 @@ def submesh_from_range(start: int, end: int, *, model: int = 1,
         )
     if n % model:
         raise ValueError(f"range size {n} not divisible by model={model}")
-    pos_ids = tuple(range(len(devs))) if ids is None else tuple(ids)
-    return DeviceSlice(start, end, tuple(devs[start:end]), (n // model, model),
-                       pos_ids[start:end], stream)
+    shape = (n // model, model)
+    if ids is not None:
+        pos_ids = tuple(ids)
+    else:
+        pos_ids = tuple(int(r) for r in devs) if ranks is not None else tuple(range(len(devs)))
+    if ranks is None:
+        return DeviceSlice(start, end, tuple(devs[start:end]), shape, pos_ids[start:end],
+                           stream)
+    return DeviceSlice(start, end, (rank_device(),) * n, shape, pos_ids[start:end], stream,
+                       _slice_mesh(devs[start:end], shape))
 
 
 @dataclass(frozen=True)
@@ -335,8 +385,14 @@ def split_mesh_for_plan(plan, *, devices: Optional[Sequence] = None,
                         fg_model: int = 1, bg_model: int = 1,
                         tenants: int = 1,
                         tenant_quanta: Optional[Sequence[int]] = None,
+                        ranks: Optional[Sequence[int]] = None,
                         ) -> PlanSubmeshes:
     """Carve the device set into the plan's fg slice + per-gap bg slices.
+
+    The positions are ``devices`` (default: the process's cards) or, with
+    ``ranks``, ranks of the process group, whose slices are rank slices
+    (``submesh_from_range``): every rank carves, in this order — the
+    foreground's peak range, then each gap's slots.
 
     For each ``GapWindow`` the free set is ``plan.free_device_ranges(stage)``
     — the gap's idle devices minus any ``BranchPlacement`` ranges hosting
@@ -351,16 +407,19 @@ def split_mesh_for_plan(plan, *, devices: Optional[Sequence] = None,
     satisfy gets ``None`` in ``bg_tenants`` (the tenant is dropped from that
     gap — admission control / the starvation rotation decide what to do).
     """
-    devs = list(devices) if devices is not None else host_devices()
-    if len(devs) < plan.num_gpus:
+    if ranks is None and devices is None:
+        devices = host_devices()
+    n_pos = len(ranks if ranks is not None else devices)
+    if n_pos < plan.num_gpus:
         raise ValueError(
-            f"plan wants {plan.num_gpus} devices, process has {len(devs)}"
+            f"plan wants {plan.num_gpus} devices, process has {n_pos}"
         )
+    where = dict(devices=devices, ids=ids, ranks=ranks)
     stages = plan.stages()
     fg_peak = max(s.gpus for s in stages)
     if fg_peak % fg_model:
         fg_model = 1
-    fg_mesh = submesh_from_range(0, fg_peak, model=fg_model, devices=devs, ids=ids)
+    fg_mesh = submesh_from_range(0, fg_peak, model=fg_model, **where)
     bg: Dict[int, Tuple[Tuple[int, int], DeviceSlice]] = {}
     bg_tenants: Dict[int, Tuple[Optional[Tuple[Tuple[int, int], DeviceSlice]], ...]] = {}
     stage_fg: Dict[int, Tuple[int, int]] = {
@@ -379,7 +438,7 @@ def split_mesh_for_plan(plan, *, devices: Optional[Sequence] = None,
                 c, submesh_from_range(
                     c[0], c[1],
                     model=quanta[slot] if quanta is not None else bg_model,
-                    devices=devs, ids=ids,
+                    **where,
                 )
             )
             for slot, c in enumerate(chunks)
@@ -423,23 +482,30 @@ class ServingSubmeshes:
 def split_mesh_for_serving(n_prefill: int, *,
                            devices: Optional[Sequence] = None,
                            prefill_model: int = 1,
-                           decode_model: int = 1) -> ServingSubmeshes:
+                           decode_model: int = 1,
+                           ranks: Optional[Sequence[int]] = None) -> ServingSubmeshes:
     """Carve the device list into disjoint prefill + decode slices.
 
     Reuses the ``split_mesh_for_plan`` carving over a ``serving_plan`` —
     prefill as the foreground stage, decode as its burst gap — so the
     positional-disjointness invariant of ``submesh_from_range`` carries
     over.  ``devices`` defaults to the process's cards; on one card pass
-    it twice (``[card, card]``): two positions of the same card.
+    it twice (``[card, card]``): two positions of the same card.  With
+    ``ranks`` the positions are ranks of the process group and both
+    slices are rank slices (every rank carves them).
     """
-    devs = list(devices) if devices is not None else host_devices()
-    plan = serving_plan(len(devs), n_prefill)
-    split = split_mesh_for_plan(plan, devices=devs, fg_model=prefill_model,
-                                bg_model=decode_model)
+    if ranks is not None:
+        n_pos, where = len(ranks), dict(ranks=list(ranks))
+    else:
+        devs = list(devices) if devices is not None else host_devices()
+        n_pos, where = len(devs), dict(devices=devs)
+    plan = serving_plan(n_pos, n_prefill)
+    split = split_mesh_for_plan(plan, fg_model=prefill_model, bg_model=decode_model,
+                                **where)
     hit = split.bg.get(0)
     if hit is None:
         raise ValueError(
-            f"no decode carving: {len(devs) - n_prefill} free devices can't "
+            f"no decode carving: {n_pos - n_prefill} free devices can't "
             f"fit a decode submesh with model={decode_model}"
         )
     (ds, de), dmesh = hit

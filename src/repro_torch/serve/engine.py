@@ -10,6 +10,18 @@ feeding the prompt through ``decode_step`` one token at a time, as the
 reference does.  An encoder-decoder model so decodes against the cache's
 encoder memory as ``init_cache`` made it: all zeros, as in the reference.
 
+With ``mesh`` (a ``DeviceMesh``) and ``rules`` (default: the decode
+cell's, ``sharding_rules(cfg, mesh, decode shape)``) it serves SPMD, every
+rank of the mesh making the same calls: the weights and the cache are
+DTensors placed by the rules (``kvcache.init_cache(..., mesh, rules)``),
+decode runs through the sharded decode step
+(``train.step.jit_decode_step``; split-KV where the rules split the
+cache's sequence), and the fused prefill through ``train.step.jit_prefill``,
+which keeps each rank's share of the cache it builds, so the cache stays
+where the rules place it (the reference's prefill replaces its placed
+cache with an unplaced one).  Every rank gathers the logits and picks the
+same tokens.
+
 ``ContinuousBatchingEngine`` serves a request *stream*: a paged KV pool
 (``serve/kvcache.py``) replaces the contiguous per-batch cache, each batch
 lane holds one live request with its own page table and length, and
@@ -18,12 +30,22 @@ drives it over a request trace.  Like the reference's, it accepts an
 encoder-decoder config (``block_type`` ``attn_mlp``) and fails at the first
 ``admit``, since that family has no ``prefill``.  With ``submeshes``
 (``launch.mesh.split_mesh_for_serving``) it disaggregates: prefill runs on
-the prefill slice's device and stream, decode on the decode slice's; the
-weights are placed on both (one copy when both are one card), the page
-pool lives on the decode slice, and at each admit the prefilled pages are
-handed off to the decode slice's device and stream before they are
+the prefill slice, decode on the decode slice; the weights are placed on
+both, the page pool lives on the decode slice, and at each admit the
+prefilled pages are handed off to the decode slice before they are
 written into the pool.  On one card (the paper's same-device mode) both
-slices are that card, each on a stream of its own.
+slices are that card, each on a stream of its own, and the weights are
+one copy.  Over rank slices (``split_mesh_for_serving(..., ranks=)``, one
+card per rank) every rank runs the same scheduler: each prefill rank holds
+the weights and runs the prefill, replicated (as the reference replicates
+the weights over its prefill carving); each decode rank holds the weights
+and the page pool and decodes, replicated; the handoff is a
+point-to-point transfer of the pages and the first token from the prefill
+slice's first rank to each decode rank (and of the token to every other
+rank), each decode tick's tokens reach every rank in one broadcast from
+the decode slice's first rank, and ``agreed_now`` hands the scheduler that
+rank's clock once a tick, so every rank admits the same requests in the
+same order.
 
 Both engines take ``device`` (default: the card; they raise when there is
 none) and cast the weights to ``cfg.dtype`` once at construction — the
@@ -46,7 +68,7 @@ import torch
 
 from repro_torch._device import DeviceLike, as_dtype, resolve_device, sync
 from repro_torch.models.api import ModelAPI, get_model
-from repro_torch.models.layers import keeps_fp32, tree_leaves, tree_map
+from repro_torch.models.layers import keeps_fp32, tree_leaves, tree_map, zeros
 from repro_torch.serve.kvcache import (
     SCRATCH_PAGE,
     PageAllocator,
@@ -93,21 +115,61 @@ def serving_params(api: ModelAPI, params: dict, device: torch.device) -> dict:
 
 class ServingEngine:
     def __init__(self, cfg, params, batch: int, capacity: int,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None, rules=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.api = get_model(cfg)
-        self.params = serving_params(self.api, params, self.device)
         self.batch = batch
         self.capacity = capacity
+        self.mesh = mesh
+        self.rules = rules
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.params = serving_params(self.api, params, self.device)
+        else:
+            from repro_torch.configs.base import ShapeConfig
+            from repro_torch.dist.sharding import device_put, sharding_rules
+            from repro_torch.launch.mesh import rank_device
+            from repro_torch.train.step import jit_decode_step, jit_prefill
+
+            self.device = rank_device()
+            if device is not None and resolve_device(device).type != self.device.type:
+                raise ValueError(f"device {device} is not the mesh's ({self.device.type})")
+            shape = ShapeConfig("serve", capacity, batch, "decode")
+            self.rules = rules = rules or sharding_rules(cfg, mesh, shape)
+            # a MoE groups a step's tokens as its batch rows are split: with
+            # the batch whole, every rank routes it as one group, as the
+            # reference's engine does (the rules' act_tokens count the
+            # cell's cache positions, not a step's tokens)
+            step_rules = dict(rules, act_tokens=tuple(rules.get("act_batch", ())))
+            self._decode_fn, p_sh, self._decode_sh = jit_decode_step(self.api, mesh, shape,
+                                                                     step_rules)
+            if self.api.prefill is not None:
+                self._prefill_fn = jit_prefill(self.api, mesh, shape, step_rules)[0]
+            self.params = device_put(serving_params(self.api, params, self.device), p_sh)
         self.stats = ServeStats()
         self.reset()
 
     def reset(self) -> None:
         """Fresh KV state: every batch decodes against its own cache, never
         a predecessor's leftover entries."""
-        self._cache = init_cache(self.api, self.batch, self.capacity, self.device)
+        self._cache = init_cache(self.api, self.batch, self.capacity, self.device,
+                                 self.mesh, self.rules)
         self._len = 0
+
+    def _step(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One decode step of the whole batch at ``self._len``: the
+        (batch, V) logits, gathered on every rank where the engine has a
+        mesh."""
+        if self.mesh is None:
+            logits, self._cache = self.api.decode_step(self.params, tokens, self._cache,
+                                                       self._len)
+            return logits
+        from repro_torch.dist.sharding import device_put
+
+        batch = device_put({"token": tokens, "cache_len": self._len, "cache": self._cache},
+                           self._decode_sh)
+        logits, self._cache = self._decode_fn(self.params, batch)
+        return logits.full_tensor()
 
     def _ids(self, tokens: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
@@ -122,14 +184,17 @@ class ServingEngine:
         if B != self.batch:
             raise ValueError(f"got {B} prompts for a batch of {self.batch}")
         if self.api.prefill is not None:
-            last_logits, self._cache = self.api.prefill(self.params, self._ids(prompts),
-                                                        self.capacity)
+            if self.mesh is None:
+                last_logits, self._cache = self.api.prefill(self.params, self._ids(prompts),
+                                                            self.capacity)
+            else:
+                last_logits, self._cache = self._prefill_fn(self.params, self._ids(prompts))
+                last_logits = last_logits.full_tensor()
             self._len = P
         else:
             ids = self._ids(prompts)
             for i in range(P):
-                last_logits, self._cache = self.api.decode_step(
-                    self.params, ids[:, i:i + 1], self._cache, self._len)
+                last_logits = self._step(ids[:, i:i + 1])
                 self._len += 1
         sync(self.device)
         self.stats.prefill_s += time.perf_counter() - t0
@@ -157,9 +222,7 @@ class ServingEngine:
                 # would be discarded, so neither compute nor count the step
                 break
             live = int((~done).sum()) if eos_id is not None else self.batch
-            logits, self._cache = self.api.decode_step(
-                self.params, self._ids(cur[:, None]), self._cache, self._len
-            )
+            logits = self._step(self._ids(cur[:, None]))
             self._len += 1
             tok = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
             self.stats.decode_steps += 1
@@ -197,8 +260,21 @@ class ContinuousBatchingEngine:
                 f"paged serving needs a KV-cache family, got {cfg.block_type}"
             )
         self.submeshes = submeshes
+        # over rank slices: the prefill and decode slices' ranks, and whether
+        # this rank prefills / decodes (a single slice, or one process, does both)
+        self._ranks = None
+        self.on_prefill = self.on_decode = True
         if submeshes is None:
             self.device = self.prefill_device = resolve_device(device)
+        elif submeshes.prefill_mesh.ranks is not None:
+            from repro_torch.launch.mesh import rank_device
+
+            pf, dc = submeshes.prefill_mesh, submeshes.decode_mesh
+            self._ranks = (pf.ranks, dc.ranks)
+            self.on_prefill, self.on_decode = pf.member, dc.member
+            self.device = self.prefill_device = rank_device()
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not this rank's {self.device}")
         else:
             self.prefill_device = submeshes.prefill_mesh.device
             self.device = submeshes.decode_mesh.device  # the pool's
@@ -215,18 +291,25 @@ class ContinuousBatchingEngine:
         # (admit/step/retire/reset) — cheap O(pages) sets, off by default,
         # on in tests
         self.debug_checks = debug_checks
-        self.params = serving_params(self.api, params, self.device)  # decode's
-        self.params_prefill = (self.params if self.prefill_device == self.device
-                               else serving_params(self.api, params, self.prefill_device))
+        # decode's weights, and prefill's (one copy where both are one device;
+        # over rank slices each rank holds only its own slice's)
+        self.params = (serving_params(self.api, params, self.device)
+                       if self.on_decode else None)
+        self.params_prefill = (
+            None if not self.on_prefill
+            else self.params if self.on_decode and self.prefill_device == self.device
+            else serving_params(self.api, params, self.prefill_device))
         self.prefill_stream = self.decode_stream = None  # the current stream
-        if submeshes is not None and self.device.type == "cuda":
+        if submeshes is not None and self._ranks is None and self.device.type == "cuda":
             self.prefill_stream = (submeshes.prefill_mesh.stream
                                    or torch.cuda.Stream(device=self.prefill_device))
             self.decode_stream = (submeshes.decode_mesh.stream
                                   or torch.cuda.Stream(device=self.device))
         self.handoff_s: List[float] = []  # each admit's handoff (disaggregated)
-        with torch.cuda.stream(self.decode_stream):
-            self.pool = init_paged_cache(self.api, n_pages, page_tokens, self.device)
+        self.pool = None  # on the decode slice only
+        if self.on_decode:
+            with torch.cuda.stream(self.decode_stream):
+                self.pool = init_paged_cache(self.api, n_pages, page_tokens, self.device)
         self.tables = np.full((lanes, self.max_pages), SCRATCH_PAGE, np.int64)
         self.lens = np.zeros((lanes,), np.int64)
         self.lane_tok = np.zeros((lanes,), np.int64)
@@ -237,8 +320,9 @@ class ContinuousBatchingEngine:
         """Fresh serving state (pool, tables, allocator, stats)."""
         n_pages = self.alloc.n_pages
         self.alloc = PageAllocator(n_pages, self.page_tokens)
-        with torch.cuda.stream(self.decode_stream):
-            self.pool = init_paged_cache(self.api, n_pages, self.page_tokens, self.device)
+        if self.on_decode:
+            with torch.cuda.stream(self.decode_stream):
+                self.pool = init_paged_cache(self.api, n_pages, self.page_tokens, self.device)
         self.handoff_s = []
         self.tables[:] = SCRATCH_PAGE
         self.lens[:] = 0
@@ -293,16 +377,21 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         P = req.prompt_len
         n_pf = self.alloc.pages_for(P)
-        with torch.cuda.stream(self.prefill_stream):
-            logits, cache = self.api.prefill(
-                self.params_prefill,
-                torch.as_tensor(req.prompt[None, :].astype(np.int64), device=self.prefill_device),
-                n_pf * self.page_tokens,
-            )
-            chunks = cache_to_pages(cache, self.page_tokens)
-            first = int(torch.argmax(logits[0]))  # waits for the prefill
+        chunks = first = None
+        if self.on_prefill:
+            with torch.cuda.stream(self.prefill_stream):
+                logits, cache = self.api.prefill(
+                    self.params_prefill,
+                    torch.as_tensor(req.prompt[None, :].astype(np.int64),
+                                    device=self.prefill_device),
+                    n_pf * self.page_tokens,
+                )
+                chunks = cache_to_pages(cache, self.page_tokens)
+                first = int(torch.argmax(logits[0]))  # waits for the prefill
         if self.submeshes is None:
             write_pages(self.pool, pages[:n_pf], chunks)
+        elif self._ranks is not None:
+            first = self._handoff_ranks(pages[:n_pf], chunks, first)
         else:
             self._handoff(pages[:n_pf], chunks)
         sync(self.device)
@@ -336,21 +425,79 @@ class ContinuousBatchingEngine:
             self.decode_stream.synchronize()
         self.handoff_s.append(time.perf_counter() - t0)
 
+    def _handoff_ranks(self, pages, chunks, first: Optional[int]) -> int:
+        """The handoff over rank slices: the prefill slice's first rank
+        sends the prefilled pages and the first token to each decode rank
+        (and the token alone to every rank outside both slices), point to
+        point; each decode rank writes the pages into its pool.  Returns
+        the first token, on every rank; timed on each rank to its own end
+        (``handoff_s``)."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        (prefill_ranks, decode_ranks), me = self._ranks, dist.get_rank()
+        src = prefill_ranks[0]
+        tok = torch.tensor([first or 0], dtype=torch.int64, device=self.device)
+        if me == src:
+            for dst in range(dist.get_world_size()):
+                if dst in prefill_ranks:
+                    continue
+                if dst in decode_ranks:
+                    for x in tree_leaves(chunks):
+                        dist.send(x.contiguous(), dst)
+                dist.send(tok, dst)
+        elif me not in prefill_ranks:
+            if self.on_decode:
+                chunks = cache_to_pages(zeros(self.api.cache_schema(
+                    1, len(pages) * self.page_tokens), self.device), self.page_tokens)
+                for x in tree_leaves(chunks):
+                    dist.recv(x, src)
+            dist.recv(tok, src)
+            first = int(tok)
+        if self.on_decode:
+            write_pages(self.pool, pages, chunks)
+            sync(self.device)
+        self.handoff_s.append(time.perf_counter() - t0)
+        return first
+
+    def agreed_now(self, now: float) -> float:
+        """The scheduler's clock, agreed once a tick: over rank slices the
+        decode slice's first rank's (one broadcast), so every rank moves the
+        same arrivals into its queue; else ``now`` as it is."""
+        if self._ranks is None:
+            return now
+        import torch.distributed as dist
+
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        dist.broadcast(t, src=self._ranks[1][0])
+        return float(t)
+
     def step(self) -> List[object]:
         """One decode tick over every live lane; returns newly finished
-        requests (their lanes already retired)."""
+        requests (their lanes already retired).  Over rank slices the
+        decode slice's first rank broadcasts the tokens to every rank."""
         live = [i for i, r in enumerate(self.lane_req) if r is not None]
         if not live:
             return []
         t0 = time.perf_counter()
-        with torch.cuda.stream(self.decode_stream):
-            tables = self._to_device(self.tables)
-            lens = self._to_device(self.lens)
-            view = gather_view(self.pool, tables)
-            logits, view = self.api.decode_step(
-                self.params, self._to_device(self.lane_tok[:, None]), view, lens)
-            scatter_token(self.pool, view, tables, lens)
-            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = None
+        if self.on_decode:
+            with torch.cuda.stream(self.decode_stream):
+                tables = self._to_device(self.tables)
+                lens = self._to_device(self.lens)
+                view = gather_view(self.pool, tables)
+                logits, view = self.api.decode_step(
+                    self.params, self._to_device(self.lane_tok[:, None]), view, lens)
+                scatter_token(self.pool, view, tables, lens)
+                nxt = torch.argmax(logits, dim=-1).cpu()  # waits for the decode
+        if self._ranks is not None:
+            import torch.distributed as dist
+
+            t = (nxt.to(self.device) if nxt is not None
+                 else torch.zeros(self.lanes, dtype=torch.int64, device=self.device))
+            dist.broadcast(t, src=self._ranks[1][0])
+            nxt = t.cpu()
+        nxt = nxt.numpy()
         sync(self.device)
         self.stats.decode_s += time.perf_counter() - t0
         self.stats.decode_steps += 1

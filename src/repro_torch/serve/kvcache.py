@@ -3,9 +3,11 @@
 The port of ``repro/serve/kvcache.py``.  Two layers:
 
 - ``init_cache``/``cache_bytes`` — the contiguous cache: one
-  (L, batch, capacity, KV, hd) block per k/v leaf.  ``ServingEngine``
-  (fixed-batch) decodes against it directly; ``dist.sharding.device_put``
-  places it for ``train.step.jit_decode_step``.
+  (L, batch, capacity, KV, hd) block per k/v leaf, optionally placed on a
+  mesh by the same rules that place the parameters (as the reference
+  shards it), each rank allocating its own shard.  ``ServingEngine``
+  (fixed-batch) decodes against it, through ``train.step.jit_decode_step``
+  when it is placed.
 
 - Paged serving (continuous batching): the physical store is a *page pool* —
   the very same ``init_cache`` schema instantiated with ``batch=n_pages`` and
@@ -35,9 +37,21 @@ from repro_torch._device import as_dtype
 from repro_torch.models.layers import tree_leaves, tree_map, zeros
 
 
-def init_cache(api, batch: int, capacity: int, device) -> Any:
-    """Concrete zeroed cache on ``device``."""
-    return zeros(api.cache_schema(batch, capacity), device)
+def init_cache(api, batch: int, capacity: int, device, mesh=None, rules=None) -> Any:
+    """Concrete zeroed cache on ``device``; with ``mesh`` and ``rules``,
+    each leaf a DTensor placed by ``param_shardings(cache_schema, rules,
+    mesh)`` on the mesh's devices (``device`` is then unused), every rank
+    allocating only its shard."""
+    schema = api.cache_schema(batch, capacity)
+    if mesh is None or rules is None:
+        return zeros(schema, device)
+    from torch.distributed import tensor as dt
+
+    from repro_torch.dist.sharding import param_shardings
+
+    return tree_map(lambda s, sh: dt.zeros(s.shape, dtype=as_dtype(s.dtype), device_mesh=mesh,
+                                           placements=sh.placements),
+                    schema, param_shardings(schema, rules, mesh))
 
 
 def cache_bytes(api, batch: int, capacity: int) -> int:
@@ -53,10 +67,11 @@ def cache_bytes(api, batch: int, capacity: int) -> int:
 SCRATCH_PAGE = 0  # never allocated; dead-lane writes land here
 
 
-def init_paged_cache(api, n_pages: int, page_tokens: int, device):
+def init_paged_cache(api, n_pages: int, page_tokens: int, device, mesh=None, rules=None):
     """Physical page pool: the ``init_cache`` schema at ``batch=n_pages``,
-    ``capacity=page_tokens`` — leaves (L, n_pages, page_tokens, KV, hd)."""
-    return init_cache(api, n_pages, page_tokens, device)
+    ``capacity=page_tokens`` — leaves (L, n_pages, page_tokens, KV, hd),
+    placed by ``rules`` on ``mesh`` when both are given."""
+    return init_cache(api, n_pages, page_tokens, device, mesh, rules)
 
 
 class PageAllocator:

@@ -223,7 +223,9 @@ class ContinuousScheduler:
       ``has_free_lane()``, ``live_count()``, ``can_fit(req)``,
       ``admit(req) -> bool`` (False = pages exhausted, request stays
       queued), ``step() -> list[Request]`` (one decode tick over all live
-      lanes; returns newly finished, already retired).
+      lanes; returns newly finished, already retired), and optionally
+      ``agreed_now(now) -> now`` (the clock at the top of each tick, as an
+      engine over several ranks agrees it).
     """
 
     def __init__(self, engine, admission: Optional[ServingAdmission] = None,
@@ -260,7 +262,13 @@ class ContinuousScheduler:
         ready: deque = deque()
         completed: List[Request] = []
         clk = self.clock
+        # an engine over rank slices agrees the clock across its ranks once a
+        # tick, so every rank queues the same arrivals (its ops' measured
+        # times differ from rank to rank)
+        agree = getattr(self.engine, "agreed_now", None)
         while pending or ready or self.engine.live_count():
+            if agree is not None:
+                clk.now = agree(clk.now)
             while pending and pending[0].arrival <= clk.now + 1e-12:
                 ready.append(pending.popleft())
             allow = self._admit_budget(len(ready))

@@ -8,8 +8,9 @@ the encoder-decoder (``frames`` batches) and vision (``patch_embeds``)
 ones included.
 
 ``jit_train_step``, ``jit_forward`` and ``jit_decode_step`` keep the
-reference's names so a reader finds the counterpart, but nothing is
-jitted: each closes the step over a mesh (a ``DeviceMesh``, one process
+reference's names so a reader finds the counterpart (``jit_prefill``, the
+serving engine's prefill into a placed cache, is the port's own), but
+nothing is jitted: each closes the step over a mesh (a ``DeviceMesh``, one process
 per position) and returns ``(fn, state or param shardings, batch
 shardings)``.  Parameters, optimizer state, batches and caches are
 DTensors placed by those shardings (``dist.sharding.device_put``); the
@@ -31,6 +32,7 @@ it.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -40,6 +42,7 @@ from repro_torch.dist import fsdp
 from repro_torch.dist.sharding import (
     NamedSharding,
     batch_pspecs,
+    device_put,
     mesh_axis_sizes,
     param_shardings,
     pspec,
@@ -285,6 +288,55 @@ def jit_decode_step(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None,
     return decode_with_fsdp, p_sh, bt_sh
 
 
+def _seq_share(x: torch.Tensor, spec) -> torch.Tensor:
+    """This rank's share of a whole cache leaf along its sequence
+    (``act_kv_seq``, split over ``fsdp.kv_seq_axes()``): a local slice, no
+    collective.  Inside a ``fsdp.context``."""
+    axes = fsdp.kv_seq_axes()
+    if "act_kv_seq" not in spec.axes or not axes:
+        return x
+    dim = spec.axes.index("act_kv_seq")
+    mesh = fsdp.active()[0]
+    local = x.shape[dim] // math.prod(mesh_axis_sizes(mesh)[a] for a in axes)
+    return x.narrow(dim, fsdp.kv_seq_offset(local), local).contiguous()
+
+
+def jit_prefill(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None,
+                report=None):
+    """The fused prefill into a cache placed by the rules.  ``shape`` is the
+    decode cell (global batch, cache capacity); returns ``(fn,
+    param_shardings, cache_shardings)``; ``fn(params, tokens)`` takes the
+    (batch, prompt) ids on every rank and gives ``(last-position logits,
+    cache)``, both DTensors, the cache placed as ``cache_shardings`` say
+    (those of ``jit_decode_step``'s cache).  Each rank runs the prefill on
+    its batch rows and heads (tensor parallelism as ``jit_forward``), which
+    builds the whole sequence, and keeps its share of it where the rules
+    split the cache along its sequence (``act_kv_seq``): a local slice, so
+    the placement survives the prefill with no collective."""
+    cfg = api.cfg
+    if api.prefill is None:
+        raise NotImplementedError(f"{cfg.name}: this family has no fused prefill; feed the "
+                                  "prompt through the decode step")
+    rules = rules or sharding_rules(cfg, mesh, shape)
+    _check_layout(api, mesh, rules, shape)
+    p_sh = param_shardings(api.schema, rules, mesh, report)
+    schema = api.cache_schema(shape.global_batch, shape.seq_len)
+    c_sh = param_shardings(schema, rules, mesh, report)
+    spec = _logits_spec(api, rules, mesh, 2)
+
+    @torch.no_grad()
+    def prefill_with_fsdp(params, tokens):
+        tok_spec = pspec(("act_batch", "act_seq"), tokens.shape, rules, mesh)  # as a batch's
+        with fsdp.context(mesh, rules):
+            tokens = _local(device_put(tokens, NamedSharding(mesh, tok_spec)))
+            logits, cache = api.prefill(params, tokens, shape.seq_len)
+            cache = tree_map(lambda x, s, sh: _from_local(_seq_share(x, s), mesh, sh.spec),
+                             cache, schema, c_sh)
+        return _from_local(logits, mesh, spec), cache
+
+    return prefill_with_fsdp, p_sh, c_sh
+
+
 def bg_step_factory(arch: str = "qwen2-1.5b", *, batch: int = 4, seq: int = 8,
                     seed: int = 0, on_loss: Optional[Callable] = None,
                     per_device_batch: Optional[int] = None):
@@ -320,7 +372,6 @@ def bg_step_factory(arch: str = "qwen2-1.5b", *, batch: int = 4, seq: int = 8,
     and shape, so per-device sizing never aliases across chunk widths.)
     """
     from repro_torch.configs import get_config
-    from repro_torch.dist.sharding import device_put
     from repro_torch.models.api import get_model, make_batch
     from repro_torch.optim.optimizer import make_optimizer
     from repro_torch.train.state import init_state

@@ -316,9 +316,200 @@ def run_collectives(name, case, ref, out, rank):
                        "primitives": prim.collectives, "world": dist.get_world_size()}, f)
 
 
+def _colloc():
+    """The collocation scenarios' namespace over the port's modules, and
+    its plans by name (the reference's cost model)."""
+    from _colloc_cases import PLANS, scenario_namespace
+    from repro_torch.configs.vgg16 import CONFIG as VGG
+    from repro_torch.core import coordinator, costmodel, multiplex as mx, planner
+    from repro_torch.models import graph
+
+    A100 = dataclasses.asdict(costmodel.A100)
+    ns = scenario_namespace(coordinator=coordinator, mx=mx, costmodel=costmodel, graph=graph,
+                            VGG=VGG, A100=A100)
+    plans = {name: planner.plan(eval(expr, {"graph": graph, "VGG": VGG}), G, amp_limit=amp,
+                                hw=costmodel.Hardware(**A100))
+             for name, (expr, G, amp) in PLANS.items() if not name.startswith("llama")}
+    return ns, plans
+
+
+def _counting(ns, log):
+    """The scenario's stage factory and a tenant wrapper that count each
+    call of a built stage or step in ``log``, by the slice it was built
+    on (its position ids and shape)."""
+    def make_fg(stage, mesh):
+        fn, key = ns["make_fg"](stage, mesh), json.dumps(["fg", stage.start, list(mesh.ids)])
+
+        def call():
+            log[key] = log.get(key, 0) + 1
+            return fn()
+
+        return call
+
+    def wrap_tenant(t):
+        def factory(mesh):
+            fn = t.step_fn_factory(mesh)
+            key = json.dumps(["bg", t.job, list(mesh.ids), list(mesh.shape)])
+
+            def call():
+                log[key] = log.get(key, 0) + 1
+                return fn()
+
+            return call
+
+        factory.signature = t.step_fn_factory.signature
+        return dataclasses.replace(t, step_fn_factory=factory)
+
+    return make_fg, wrap_tenant
+
+
+def run_exec(name, case, ref, out, rank):
+    """``run_executable`` over rank slices of the whole world, cold and
+    warm, for each case: every rank writes its results and the stage and
+    step calls it issued, beside the calls of the same case on 8 CPU
+    positions of this process that hold this rank (its share)."""
+    from _colloc_cases import exec_runs
+
+    ns, plans = _colloc()
+    world = dist.get_world_size()
+    got = []
+    for p, r, fb in case["cases"]:
+        issued, alone = {}, {}
+        runs = exec_runs(ns, plans[p], (p, r, fb), *_counting(ns, issued), ranks=range(world))
+        exec_runs(ns, plans[p], (p, r, fb), *_counting(ns, alone),
+                  devices=[torch.device("cpu")] * world)
+        share = {k: n for k, n in alone.items() if rank in json.loads(k)[2]}
+        got.append({"runs": runs, "issued": issued, "share": share})
+    with open(os.path.join(out, f"{name}-port-{rank}.json"), "w") as f:
+        json.dump(got, f)
+
+
+def run_coord(name, case, ref, out, rank):
+    """The coordinator scenario in submesh mode, its positions the ranks."""
+    from repro_torch.core import coordinator, multiplex as mx
+
+    ns, _ = _colloc()
+    with open(os.path.join(out, f"{name}-port-{rank}.json"), "w") as f:
+        json.dump(ns["COORD"]((coordinator, mx), same_device=False), f)
+
+
+def run_tp_tenant(name, case, ref, out, rank):
+    """A tenant of quantum 2 on the widest gap slice the collocator carves
+    for it over the ranks (a (k, 2) rank slice: tensor parallelism):
+    ``case["steps"]`` steps on the slice's ranks, then on one CPU
+    position of this process.  The tenant trains ``case["arch"]`` in fp32
+    (registered as ``<arch>-fp32``), so the two agree to rounding."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import register
+    from repro_torch.core import multiplex as mx
+    from repro_torch.launch.mesh import submesh_from_range
+    from repro_torch.train.step import bg_step_factory
+
+    _, plans = _colloc()
+    cfg = get_config(case["arch"])
+    register(dataclasses.replace(cfg, name=f"{cfg.name}-fp32", dtype="float32"))
+    build = bg_step_factory(f"{cfg.name}-fp32", batch=case["batch"], seq=16, seed=2)
+    col = mx.Collocator(plans["vgg16@8"], mx.MultiplexConfig(),
+                        tenants=[mx.BgTenant("tp", 1, build, quantum=2)],
+                        ranks=range(dist.get_world_size()))
+    slices = [e[1] for slots in col.submeshes().bg_tenants.values() for e in slots if e]
+    sl = max(slices, key=lambda m: (m.size, -m.start))
+    got = {"shape": list(sl.shape), "ranks": list(sl.ranks), "member": sl.member}
+    if sl.member:
+        step = build(sl)
+        got["sharded"] = [float(step()) for _ in range(case["steps"])]
+        plain = build(submesh_from_range(0, 1, devices=[torch.device("cpu")]))
+        got["plain"] = [float(plain()) for _ in range(case["steps"])]
+    with open(os.path.join(out, f"{name}-port-{rank}.json"), "w") as f:
+        json.dump(got, f)
+
+
+def _placed_as_the_rules_say(tree, shardings) -> bool:
+    """Every leaf a DTensor on its sharding's mesh with its placements,
+    holding the local shape those placements give."""
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.dist.sharding import mesh_axis_sizes
+
+    leaves, shs = flatten(tree), flatten(shardings)
+    ok = sorted(leaves) == sorted(shs)
+    for k, x in leaves.items():
+        sh = shs[k]
+        sizes = mesh_axis_sizes(sh.mesh)
+        want = list(x.shape)
+        for d, e in enumerate(sh.spec):
+            for a in ((e,) if isinstance(e, str) else e or ()):
+                want[d] //= sizes[a]
+        ok &= (tuple(x.placements) == tuple(sh.placements)
+               and list(x.to_local().shape) == want)
+    return bool(ok)
+
+
+def run_engine(name, case, ref, out, rank):
+    """``ServingEngine(mesh=, rules=)`` on the reference's weights and
+    prompts: ``generate``'s tokens, then the prefill's logits and the last
+    decode step's of the same run by hand; whether the cache sits where
+    the rules say after the prefill and after the last step (every rank)."""
+    from repro_torch.checkpoint.ckpt import params_from_numpy
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.dist.sharding import param_shardings, sharding_rules
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = _config(case["arch"])
+    mesh = _mesh(case["mesh"])
+    flat = _load(ref, name)
+    params = params_from_numpy(_sub(flat, "params/"), device="cpu")
+    B, cap, new = case["batch"], case["capacity"], case["new"]
+    rules = sharding_rules(cfg, mesh, ShapeConfig("d", cap, B, "decode"))
+    eng = ServingEngine(cfg, params, B, cap, device="cpu", mesh=mesh, rules=rules)
+    res = {"tokens": eng.generate(flat["prompts"], new)}
+    cache_sh = param_shardings(get_model(cfg).cache_schema(B, cap), rules, mesh)
+    eng.reset()
+    logits = eng.prefill(flat["prompts"])
+    placed = [_placed_as_the_rules_say(eng._cache, cache_sh)]
+    res["prefill_logits"] = logits.numpy()
+    tok = logits.argmax(-1)
+    for _ in range(new - 1):
+        logits = eng._step(tok[:, None])
+        eng._len += 1
+        tok = logits.argmax(-1)
+    placed.append(_placed_as_the_rules_say(eng._cache, cache_sh))
+    res["last_logits"] = logits.numpy()
+    with open(os.path.join(out, f"{name}-placed-{rank}.json"), "w") as f:
+        json.dump(placed, f)
+    if rank == 0:
+        np.savez(os.path.join(out, f"{name}-port.npz"), **res)
+
+
+def run_disagg(name, case, ref, out, rank):
+    """``ContinuousBatchingEngine(submeshes=split_mesh_for_serving(...,
+    ranks=))`` over the world on the reference's weights and trace: every
+    rank writes each request's tokens, its handoffs and admits, and the
+    pages still held."""
+    from repro_torch.checkpoint.ckpt import params_from_numpy
+    from repro_torch.launch.mesh import split_mesh_for_serving
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.scheduler import ContinuousScheduler
+    from repro_torch.serve.trace import load_requests
+
+    cfg = _config(case["arch"])
+    params = params_from_numpy(_sub(_load(ref, name), "params/"), device="cpu")
+    sm = split_mesh_for_serving(case["n_prefill"], ranks=range(dist.get_world_size()))
+    eng = ContinuousBatchingEngine(cfg, params, submeshes=sm, debug_checks=True,
+                                   device="cpu", **case["engine"])
+    rep = ContinuousScheduler(eng).run(load_requests(case["trace"]))
+    with open(os.path.join(out, f"{name}-port-{rank}.json"), "w") as f:
+        json.dump({"tokens": {str(r.rid): [int(t) for t in r.tokens] for r in rep.completed},
+                   "handoffs": len(eng.handoff_s), "prefills": eng.stats.prefills,
+                   "decode_steps": eng.stats.decode_steps, "used_pages": eng.alloc.used_pages,
+                   "roles": [eng.on_prefill, eng.on_decode],
+                   "ranges": [list(sm.prefill_range), list(sm.decode_range)]}, f)
+
+
 RUN = {"train": run_train, "powersgd": run_powersgd, "serve": run_serve, "restore": run_restore,
        "raises": run_raises, "bg_slice": run_bg_slice, "remesh": run_remesh,
-       "collectives": run_collectives}
+       "collectives": run_collectives, "exec": run_exec, "coord": run_coord,
+       "tp_tenant": run_tp_tenant, "engine": run_engine, "disagg": run_disagg}
 
 
 def _rank(rank, world, ref, out, cases):

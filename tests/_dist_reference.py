@@ -9,7 +9,8 @@ device count is fixed when JAX starts).  The mesh is built with
 reference's ``fsdp`` constraints apply (``jax.make_mesh`` gives Explicit
 axes, where they raise).  For each case it writes, under ``OUT_DIR``,
 ``<case>-in.npz`` (the initial parameters and the batch, which the port
-loads) and ``<case>-out.npz`` (what the port must reproduce).
+loads) and ``<case>-out.npz`` (what the port must reproduce; JSON for the
+collocation cases, ``tests/_colloc_cases.py``).
 """
 import dataclasses
 import json
@@ -163,7 +164,95 @@ def run_remesh(name, case, out):
         json.dump(got, f)
 
 
-RUN = {"train": run_train, "serve": run_serve, "remesh": run_remesh}
+def _colloc():
+    """The collocation scenarios' namespace over the reference's modules,
+    and its plans by name."""
+    from _colloc_cases import PLANS, scenario_namespace
+    from repro.configs.vgg16 import CONFIG as VGG
+    from repro.core import coordinator, costmodel, multiplex as mx, planner
+    from repro.models import graph
+
+    A100 = dataclasses.asdict(costmodel.A100)
+    ns = scenario_namespace(coordinator=coordinator, mx=mx, costmodel=costmodel, graph=graph,
+                            VGG=VGG, A100=A100)
+    plans = {name: planner.plan(eval(expr, {"graph": graph, "VGG": VGG}), G, amp_limit=amp,
+                                hw=costmodel.Hardware(**A100))
+             for name, (expr, G, amp) in PLANS.items() if not name.startswith("llama")}
+    return ns, plans
+
+
+def run_exec(name, case, out):
+    """``run_executable`` on the 8 devices under the scripted clock, cold
+    and warm, for each ``(plan, roster, feedback)`` of ``case["cases"]``."""
+    from _colloc_cases import exec_runs
+
+    ns, plans = _colloc()
+    got = [exec_runs(ns, plans[p], (p, r, fb)) for p, r, fb in case["cases"]]
+    with open(os.path.join(out, f"{name}-out.json"), "w") as f:
+        json.dump(got, f)
+
+
+def run_coord(name, case, out):
+    """The coordinator scenario in submesh mode on the 8 devices: admission,
+    a failure of device 2 (a re-plan and re-carve over 7), the join."""
+    ns, _ = _colloc()
+    with open(os.path.join(out, f"{name}-out.json"), "w") as f:
+        json.dump(ns["COORD"](same_device=False), f)
+
+
+def run_engine(name, case, out):
+    """``ServingEngine(mesh=, rules=)`` with the decode cell's rules: the
+    tokens of ``generate``, then the prefill's logits and those of the
+    last decode step of the same run by hand (``generate``'s loop)."""
+    from repro.serve.engine import ServingEngine
+
+    cfg = config(case["arch"])
+    api = get_model(cfg)
+    mesh = make_mesh(tuple(case["mesh"]))
+    B, cap, P, new = case["batch"], case["capacity"], case["prompt"], case["new"]
+    params = api.init(jax.random.PRNGKey(0))
+    prompts = np.random.default_rng(8).integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    rules = sharding_rules(cfg, mesh, ShapeConfig("d", cap, B, "decode"))
+    eng = ServingEngine(cfg, params, B, cap, mesh, rules)
+    tokens = eng.generate(prompts, new)
+    eng.reset()
+    logits = eng.prefill(prompts)
+    res = {"tokens": tokens, "prefill_logits": np.asarray(logits)}
+    tok = np.asarray(jnp.argmax(logits, axis=-1), np.int32)
+    for _ in range(new - 1):
+        logits, eng._cache = eng._decode(eng.params, jnp.asarray(tok[:, None]), eng._cache,
+                                         eng._len)
+        eng._len = eng._len + 1
+        tok = np.asarray(jnp.argmax(logits, axis=-1), np.int32)
+    res["last_logits"] = np.asarray(logits)
+    res["act_kv_seq"] = np.array(list(rules["act_kv_seq"]) or [""])
+    inputs = {"params/" + k: np.asarray(v) for k, v in _flatten(params).items()}
+    np.savez(os.path.join(out, f"{name}-in.npz"), prompts=prompts, **inputs)
+    np.savez(os.path.join(out, f"{name}-out.npz"), **res)
+
+
+def run_disagg(name, case, out):
+    """``ContinuousBatchingEngine(submeshes=split_mesh_for_serving(...))``
+    over the 8 devices on a request trace: each request's tokens."""
+    from repro.launch.mesh import split_mesh_for_serving
+    from repro.serve.engine import ContinuousBatchingEngine
+    from repro.serve.scheduler import ContinuousScheduler
+    from repro.serve.trace import load_requests
+
+    cfg = config(case["arch"])
+    params = get_model(cfg).init(jax.random.PRNGKey(0))
+    eng = ContinuousBatchingEngine(cfg, params, submeshes=split_mesh_for_serving(
+        case["n_prefill"]), debug_checks=True, **case["engine"])
+    rep = ContinuousScheduler(eng).run(load_requests(case["trace"]))
+    inputs = {"params/" + k: np.asarray(v) for k, v in _flatten(params).items()}
+    np.savez(os.path.join(out, f"{name}-in.npz"), **inputs)
+    with open(os.path.join(out, f"{name}-out.json"), "w") as f:
+        json.dump({"tokens": {str(r.rid): [int(t) for t in r.tokens] for r in rep.completed},
+                   "used_pages": eng.alloc.used_pages}, f)
+
+
+RUN = {"train": run_train, "serve": run_serve, "remesh": run_remesh, "exec": run_exec,
+       "coord": run_coord, "engine": run_engine, "disagg": run_disagg}
 
 
 def main():

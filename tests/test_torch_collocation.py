@@ -48,20 +48,16 @@ from repro_torch.serve import scheduler as sched
 from repro_torch.train.loop import TrainConfig, train
 from repro_torch.train.state import init_state
 from repro_torch.train.step import bg_step_factory, make_train_step
+from _colloc_cases import COORD_SRC, PLANS, ROSTERS, SCRIPTED, exec_runs
 from test_torch_planner import plain
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 CPU8 = [torch.device("cpu")] * 8
 A100 = dataclasses.asdict(ref_costmodel.A100)
 
-# -- the cases, shared with the reference script as literals ------------------
+# -- the cases, shared with the reference script as literals (the plans, the
+# rosters, the scripted clock and the coordinator scenario: tests/_colloc_cases.py)
 
-PLANS = {  # name -> (graph expression in either package, devices, amp limit)
-    "vgg16@8": ("graph.build_vgg_graph(VGG, 32)", 8, 1.5),
-    "llama3-8b@8": ("graph.build_lm_graph(get_config('llama3-8b'), TRAIN_4K)", 8, 2.0),
-    "vgg16@8-amp2": ("graph.build_vgg_graph(VGG, 32)", 8, 2.0),
-    "inception@8": ("graph.build_inception_like_graph(32, n_blocks=3)", 8, 1.5),
-}
 CARVE_CASES = [  # (plan, tenants, tenant_quanta, fg_model, bg_model)
     (p, n, q, fm, bm)
     for p in ("vgg16@8", "llama3-8b@8")
@@ -71,44 +67,9 @@ CARVE_CASES = [  # (plan, tenants, tenant_quanta, fg_model, bg_model)
 ERROR_CASES = [  # submesh_from_range arguments over 8 positions
     (3, 3, 1), (-1, 2, 1), (0, 9, 1), (0, 3, 2), (5, 4, 1),
 ]
-ROSTERS = {  # name -> [(job, priority, signature, weight, quantum)]
-    "two": [("jobA", 2, "A", 1.0, None), ("jobB", 1, "B", 1.0, None)],
-    "mixed": [("hi", 2, "H", 1.0, 2), ("eq1", 1, "E1", 1.0, None),
-              ("eq2", 1, "E2", 2.0, None)],
-}
 EXEC_CASES = [(p, r, fb) for p in ("vgg16@8", "vgg16@8-amp2", "inception@8")
               for r in sorted(ROSTERS) for fb in (False, True)]
 
-# the scripted clock and the plain-object stage and step functions, the same
-# source in both packages
-SCRIPTED = """
-def make_clock():
-    k, t = [0], [0.0]
-
-    def time_fn():
-        k[0] += 1
-        t[0] += 1e-3 * (1 + (k[0] * 7919 % 13) / 8)
-        return t[0]
-
-    return time_fn
-
-
-def make_fg(stage, mesh):
-    return lambda: ("fg", stage.start)
-
-
-def mk_factory(sig):
-    def factory(mesh):
-        return lambda: ("bg", sig)
-
-    factory.signature = sig
-    return factory
-
-
-def roster(pkg_mx, name):
-    return [pkg_mx.BgTenant(job, prio, mk_factory(sig), weight=w, quantum=q)
-            for job, prio, sig, w, q in ROSTERS[name]]
-"""
 exec(SCRIPTED)  # defines make_clock, make_fg, mk_factory, roster here
 
 
@@ -139,19 +100,6 @@ def _split_record(split):
         "bg_tenants": {str(k): [None if e is None else [list(e[0]), rng(e[1])] for e in v]
                        for k, v in split.bg_tenants.items()},
     }
-
-
-def _exec_runs(pkg_mx, plan, case, **kw):
-    """Cold then warm run of one executable case under the scripted clock."""
-    _, rname, fb = case
-    cfg = pkg_mx.MultiplexConfig(max_inflight=2, use_feedback=fb)
-    cache = pkg_mx.ExecutableCache()
-    out = []
-    for _ in range(2):
-        col = pkg_mx.Collocator(plan, cfg, tenants=roster(pkg_mx, rname), cache=cache, **kw)
-        res = col.run_executable(make_fg, iterations=2, time_fn=make_clock())
-        out.append([_as_json(res), sorted(col.monitor.banned), col._round])
-    return out
 
 
 REF_SCRIPT = SCRIPTED + """
@@ -242,52 +190,6 @@ out["coord"] = COORD()
 print("RESULT " + json.dumps(out))
 """
 
-# the coordinator scenario, the same source in both packages: tenants with
-# and without their own factory, a calibrated interference model that makes
-# admission reject the marginal tenant, a failure of a low-index device, a
-# bound that admits nobody
-COORD_SRC = """
-def COORD(pkg=None, **kw):
-    pkg = pkg or (coordinator, mx)
-    pc, pm = pkg
-    c = pc.ClusterCoordinator(8, costmodel.Hardware(**A100), clock=lambda: 0.0)
-    c.submit_foreground(pc.Job("fg", "foreground", graph.build_vgg_graph(VGG, 32), 1.5))
-    for name, prio, sig in (("bgA", 3, "A"), ("bgB", 2, "B"), ("bgC", 1, None), ("bgD", 1, "D")):
-        c.submit_background(pc.Job(name, "background", [], priority=prio,
-                                   step_fn_factory=mk_factory(sig) if sig else None))
-    cfg = pm.MultiplexConfig(max_inflight=2, use_feedback=False, collocate_same_device=True)
-    rows = []
-
-    def run(bound=1.33):
-        r = c.collocate(cfg, executable=True, make_fg_stage_fn=make_fg,
-                        make_bg_step_fn=mk_factory("default"), iterations=2,
-                        admission_bound=bound, **kw)
-        # the settled phase's length follows the monitor's wall-clock bans,
-        # so only whether iterations ran, and what each launched, compare
-        rows.append({
-            "rejected": list(r.rejected_tenants), "ran": r.iterations > 0,
-            "tenants": [[t.job, t.bg_steps_per_iter, list(t.gap_stages), t.devices]
-                        for t in r.tenants],
-            "bg_steps_per_iter": r.bg_steps_per_iter,
-            "iter_steps": sorted({n for _, n in r.iter_details}),
-            "cache": [r.cache_hits, r.cache_misses, c.exec_cache.hits, c.exec_cache.misses,
-                      c.exec_cache.evictions, len(c.exec_cache)],
-            "admission": c.last_admission.row() if c.last_admission else None,
-        })
-        return r
-
-    run()
-    c.interference = pm.InterferenceModel(gap_inflation=1.3, density_slope=0.8)
-    run()
-    c.handle_failure(2)
-    run()
-    c.handle_join([2])
-    run()
-    nobody = run(bound=1.0)
-    rows.append(as_json(dataclasses.replace(nobody, banned_ops=())))  # bans: wall clock
-    rows.append([[e.kind, e.detail] for e in c.events])
-    return rows
-"""
 exec(COORD_SRC)  # defines COORD here
 
 
@@ -345,6 +247,65 @@ def test_carving_errors_match_reference(ref, port_plans):
     assert str(e.value) == ref["short"] == "plan wants 8 devices, process has 4"
 
 
+@pytest.mark.parametrize("i", range(len(CARVE_CASES)),
+                         ids=[f"{p}-n{n}-q{q}-fm{fm}-bm{bm}" for p, n, q, fm, bm in CARVE_CASES])
+def test_rank_carving_matches_reference(ref, port_plans, i):
+    """The same carving over the 8 ranks of a fake process group, played as
+    rank 0, 3 and 7: the reference's ranges, shapes and errors; every slice
+    a rank slice whose ranks are its positions, held by this rank exactly
+    when one of them is."""
+    p, n, q, fm, bm = CARVE_CASES[i]
+    for rank in (0, 3, 7):
+        with mesh.fake_world(8, "cpu", rank=rank):
+            try:
+                split = mesh.split_mesh_for_plan(port_plans[p], ranks=range(8), fg_model=fm,
+                                                 bg_model=bm, tenants=n, tenant_quanta=q)
+            except ValueError as e:
+                assert {"error": str(e)} == ref["carve"][i]
+                continue
+            assert _split_record(split) == ref["carve"][i]
+            slices = [split.fg_mesh] + [e[1] for v in split.bg_tenants.values() for e in v if e]
+            for sl in slices:
+                assert sl.ranks == sl.ids == tuple(range(sl.start, sl.end))
+                assert sl.member == (rank in sl.ranks) and sl.mesh.shape == sl.shape
+
+
+def test_rank_carving_errors_and_serving_split():
+    """Over ranks, ``submesh_from_range`` raises the reference's errors
+    (``ERROR_CASES``) and a short rank list the plan's; the serving split
+    carves prefill [0, 2) and decode [2, 8) as rank slices; a slice carved
+    again is the same mesh (no new communicators); ``fake_world`` refuses a
+    rank outside its world."""
+    with mesh.fake_world(8, "cpu", rank=5):
+        got = []
+        for start, end, model in ERROR_CASES:
+            try:
+                mesh.submesh_from_range(start, end, model=model, ranks=range(8))
+                got.append(None)
+            except ValueError as e:
+                got.append(str(e))
+        want = []
+        for start, end, model in ERROR_CASES:
+            try:
+                mesh.submesh_from_range(start, end, model=model, devices=CPU8)
+                want.append(None)
+            except ValueError as e:
+                want.append(str(e))
+        assert got == want and all(got[:4])
+        with pytest.raises(ValueError, match="plan wants 8 devices, process has 4"):
+            mesh.split_mesh_for_plan(_port_plan("vgg16@8"), ranks=range(4))
+        sm = mesh.split_mesh_for_serving(2, ranks=range(8))
+        assert (sm.prefill_range, sm.decode_range) == ((0, 2), (2, 8)) and sm.disjoint()
+        assert sm.prefill_mesh.ranks == (0, 1) and not sm.prefill_mesh.member
+        assert sm.decode_mesh.ranks == tuple(range(2, 8)) and sm.decode_mesh.member
+        again = mesh.submesh_from_range(2, 8, ranks=range(8))
+        assert again.mesh is sm.decode_mesh.mesh
+        assert mesh.rank_slice(0, 8, model=2).shape == (4, 2)
+    with pytest.raises(ValueError, match="rank 8 outside a world of 8"):
+        with mesh.fake_world(8, "cpu", rank=8):
+            pass
+
+
 def test_slices_take_devices_and_ids_by_position():
     devs = [torch.device("cuda", i) for i in range(4)]
     s = mesh.submesh_from_range(1, 3, devices=devs, ids=[10, 11, 12, 13])
@@ -352,8 +313,8 @@ def test_slices_take_devices_and_ids_by_position():
     assert s.devices == (torch.device("cuda", 1), torch.device("cuda", 2))
     one = mesh.submesh_from_range(4, 8, model=2, devices=CPU8)
     assert one.device == torch.device("cpu") and one.stream is None and one.ids == (4, 5, 6, 7)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        s.device  # noqa: B018 — a step over two cards waits for process groups
+    with pytest.raises(NotImplementedError, match="as the ranks of a process group"):
+        s.device  # noqa: B018 — a step over two cards runs on a rank slice
 
 
 # -- the executable path under a scripted clock --------------------------------
@@ -363,7 +324,7 @@ def test_slices_take_devices_and_ids_by_position():
                          ids=[f"{p}-{r}-feedback{fb}" for p, r, fb in EXEC_CASES])
 def test_run_executable_equals_reference(ref, port_plans, i):
     case = EXEC_CASES[i]
-    got = _exec_runs(mx, port_plans[case[0]], case, devices=CPU8)
+    got = exec_runs(globals(), port_plans[case[0]], case, devices=CPU8)
     want = ref["exec"][i]
     assert got == want
     (cold, _, _), (warm, _, _) = got
@@ -593,7 +554,7 @@ def test_bg_step_factory_signatures_match_reference():
 def test_bg_step_over_two_cards_raises_with_its_roadmap_item():
     two = mesh.submesh_from_range(0, 2, devices=[torch.device("cuda", 0),
                                                  torch.device("cuda", 1)])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="as the ranks of a process group"):
         bg_step_factory("qwen2-1.5b")(two)
 
 

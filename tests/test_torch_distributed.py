@@ -21,6 +21,14 @@ and decode logits and the written cache to 1e-5 of the largest
 magnitude.  The decode cases run the rules' own decode layout, so where
 the cache is split along its sequence (``act_kv_seq``) both sides decode
 it split.
+
+The (4, 2) spawn also runs the plan carving over ranks: the reference's
+``run_executable`` and ``collocate(executable=True)`` in submesh mode on
+its 8 devices against the port's on 8 ranks (``tests/_colloc_cases.py``'s
+scripted clock and coordinator scenario: every rank's results equal, and
+each rank issued exactly its share), a quantum-2 tenant on a
+tensor-parallel rank slice, ``ServingEngine(mesh=, rules=)`` and
+``ContinuousBatchingEngine`` over ``split_mesh_for_serving(2, ranks=)``.
 """
 import dataclasses
 import json
@@ -74,6 +82,34 @@ SPLIT_KV = {  # the cases whose cache the rules split along its sequence -> act_
     "serve-zamba-b1-4x2": ["data"], "serve-moe-b1-4x2": ["data", "model"],
     "serve-seamless-b1-4x2": ["data"]}
 CACHE_CAP, CACHE_LEN = 32, 20  # a decode cache of 32 positions, 20 filled
+# the plan carving over ranks (ROADMAP item 11b): run_executable's cases, each
+# cold and warm, and the coordinator scenario, in submesh mode on 8 ranks
+EXEC_RANK_CASES = [[p, r, fb] for p in ("vgg16@8", "inception@8") for r in ("mixed", "two")
+                   for fb in (False, True)]
+ENGINES = {  # case -> (arch, global batch): ServingEngine on (4, 2), decode rules
+    "engine-llama-4x2": ("llama3-8b", 8),  # the cache's sequence on 'model'
+    "engine-moe-b1-4x2": ("qwen3-moe-30b-a3b", 1),  # on ('data', 'model')
+    "engine-rwkv-4x2": ("rwkv6-1.6b", 8),  # the prompt token by token
+    "engine-seamless-4x2": ("seamless-m4t-large-v2", 8),
+}
+ENGINE_SPLIT = {"engine-llama-4x2": ["model"], "engine-moe-b1-4x2": ["data", "model"]}
+SMOKE_TRACE = os.path.join(HERE, "..", "benchmarks", "traces", "requests_smoke.json")
+DISAGG = {"kind": "disagg", "arch": "llama3-8b", "n_prefill": 2, "trace": SMOKE_TRACE,
+          "engine": {"lanes": 4, "n_pages": 25, "page_tokens": 4, "lane_capacity": 24}}
+
+
+def _engine_case(name):
+    arch, batch = ENGINES[name]
+    # 12 prompt tokens and 8 new ones: the writes cross from the first cache
+    # slice into the next where the sequence is split
+    return {"kind": "engine", "arch": arch, "mesh": [4, 2], "batch": batch, "capacity": 32,
+            "prompt": 12, "new": 8}
+
+
+RANK_CASES = {"exec-8": {"kind": "exec", "cases": EXEC_RANK_CASES},
+              "coord-8": {"kind": "coord"},
+              **{n: _engine_case(n) for n in ENGINES},
+              "disagg-8": DISAGG}
 RAISE_LAYOUTS = {  # name -> (arch, step kind, global batch, cfg overrides, rules overrides)
     "sequence-parallel": ("llama3-8b", "train", 8, {"sequence_parallel": True}, {}),
     "kv-heads-split-query-heads-whole": ("seamless-m4t-large-v2", "decode", 8, {},
@@ -122,7 +158,10 @@ SPAWNS = [  # (mesh, cases), in order: the restore reads the (4, 2) spawn's chec
     ([4, 2], {**{n: _train_case(n) for n in TRAIN if TRAIN[n][1] == [4, 2]},
               **{n: _serve_case(n) for n in SERVE},
               "raises-4x2": {"kind": "raises", "mesh": [4, 2], "layouts": RAISE_LAYOUTS},
-              "collectives-4x2": {"kind": "collectives", "arch": "llama3-8b", "mesh": [4, 2]}}),
+              "collectives-4x2": {"kind": "collectives", "arch": "llama3-8b", "mesh": [4, 2]},
+              **RANK_CASES,
+              "tp-tenant": {"kind": "tp_tenant", "arch": "qwen2-1.5b", "batch": 6,
+                            "steps": 3}}),
     ([8, 1], {"moe-8x1": _train_case("moe-8x1"),
               "remesh": {"kind": "remesh", "pools": POOLS}}),
     ([4, 1], {**{n: _train_case(n) for n in ("qwen72-4x1", "rwkv-4x1", "zamba-4x1",
@@ -154,6 +193,7 @@ def runs(tmp_path_factory):
     ref_cases = {n: _train_case(n) for n in TRAIN}
     ref_cases.update({n: _serve_case(n) for n in SERVE})
     ref_cases["remesh"] = {"kind": "remesh", "pools": POOLS}
+    ref_cases.update(RANK_CASES)
     _check([sys.executable, os.path.join(HERE, "_dist_reference.py"), ref,
             json.dumps(ref_cases)],
            _env(XLA_FLAGS="--xla_force_host_platform_device_count=8", JAX_PLATFORMS="cpu"),
@@ -622,3 +662,107 @@ def test_train_cli_under_torch_distributed_run(tmp_path):
     got, want = ([float(x) for x in ln.split("loss ")[1].split(" restarts")[0].split(" -> ")]
                  for ln in (lines[1], done))
     np.testing.assert_allclose(got, want, rtol=1e-2)
+
+
+# -- burst-parallel plans carved into rank slices (ROADMAP item 11b) ----------
+
+
+def _per_rank(port, name):
+    out = os.path.dirname(_port_file(port, name, "json"))
+    return [json.load(open(os.path.join(out, f"{name}-port-{r}.json"))) for r in range(8)]
+
+
+@pytest.mark.parametrize("i", range(len(EXEC_RANK_CASES)),
+                         ids=["-".join(map(str, c)) for c in EXEC_RANK_CASES])
+def test_run_executable_over_rank_slices_matches_reference(runs, i):
+    """``Collocator(ranks=range(8)).run_executable`` under the scripted
+    clock, cold then warm: on every rank the result (floats exact), the
+    bans and the rotation round equal the reference's on 8 devices; each
+    rank called exactly the stage and step functions whose slices hold it,
+    as many times as the same case issues them on 8 CPU positions of one
+    process."""
+    ref_dir, port = runs
+    with open(os.path.join(ref_dir, "exec-8-out.json")) as f:
+        want = json.load(f)[i]
+    issued = set()
+    for rank, got in enumerate(_per_rank(port, "exec-8")):
+        got = got[i]
+        assert got["runs"] == want, rank
+        assert got["issued"] == got["share"], rank
+        issued |= {tuple(json.loads(k)[:2]) for k in got["issued"]}
+    (cold, _, _), (warm, _, _) = want
+    # the ranks issued stages, and tenant steps where the plan's gaps take any
+    # (the inception's parallel branches fill its gap)
+    assert {k for k, _ in issued} == ({"fg", "bg"} if cold[1]["bg_steps_per_iter"] else {"fg"})
+    assert cold[1]["iterations"] > 0 and warm[1]["cache_misses"] == 0
+
+
+def test_collocate_over_ranks_matches_reference(runs):
+    """``ClusterCoordinator.collocate(executable=True)`` in submesh mode
+    with its positions on the 8 ranks: admission, the run, a failure of
+    position 2 (its cache entries evicted, the plan re-carved over the 7
+    surviving ranks, rank 2 holding no slice), the join and a bound that
+    admits nobody give every rank the reference's rows and events."""
+    ref_dir, port = runs
+    with open(os.path.join(ref_dir, "coord-8-out.json")) as f:
+        want = json.load(f)
+    for rank, got in enumerate(_per_rank(port, "coord-8")):
+        assert got == want, rank
+    kinds = [k for k, _ in want[-1]]
+    assert "fallback" not in kinds and "evict" in kinds and ["replan", "G=7"] in want[-1]
+
+
+def test_tp_tenant_on_a_rank_slice(runs):
+    """A tenant of quantum 2 on the widest gap slice VGG-16@8's plan gives
+    it over the ranks, a (3, 2) rank slice (tensor parallelism over its
+    'model' axis): its fp32 losses equal the same tenant's on one CPU
+    position to 1e-5; the ranks outside the slice build nothing."""
+    _, port = runs
+    got = _per_rank(port, "tp-tenant")
+    assert {tuple(g["shape"]) for g in got} == {(3, 2)}
+    ranks = got[0]["ranks"]
+    for rank, g in enumerate(got):
+        assert g["member"] == (rank in ranks), rank
+        if g["member"]:
+            np.testing.assert_allclose(g["sharded"], g["plain"], rtol=LOSS_TOL)
+            assert g["sharded"][-1] < g["sharded"][0]
+
+
+@pytest.mark.parametrize("name", sorted(ENGINES))
+def test_serving_engine_on_a_mesh_matches_reference(runs, name):
+    """``ServingEngine(mesh=(4, 2), rules=decode rules)`` on the reference's
+    weights and prompts: ``generate``'s tokens equal the reference's
+    engine on the same mesh; the prefill's last logits and the last
+    decode step's to 1e-5 of the largest; on every rank the cache is
+    placed as the rules say after the prefill and after the last step
+    (the fused prefill keeps each rank's share of the sequence where the
+    rules split it)."""
+    ref_dir, port = runs
+    want = _npz(os.path.join(ref_dir, f"{name}-out.npz"))
+    got = _npz(_port_file(port, name))
+    assert [a for a in want["act_kv_seq"].tolist() if a] == ENGINE_SPLIT.get(name, [])
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    for key in ("prefill_logits", "last_logits"):
+        np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                   atol=OUT_TOL * np.abs(want[key]).max(), err_msg=key)
+    out = os.path.dirname(_port_file(port, name))
+    for rank in range(8):
+        with open(os.path.join(out, f"{name}-placed-{rank}.json")) as f:
+            assert json.load(f) == [True, True], rank
+
+
+def test_disaggregated_over_rank_slices_matches_reference(runs):
+    """``ContinuousBatchingEngine(submeshes=split_mesh_for_serving(2,
+    ranks=))``: prefill on ranks [0, 2), decode on [2, 8).  Over the smoke
+    trace every rank holds each request's tokens equal to the reference's
+    disaggregated engine on 8 devices, one handoff per admit, and no page
+    held."""
+    ref_dir, port = runs
+    with open(os.path.join(ref_dir, "disagg-8-out.json")) as f:
+        want = json.load(f)
+    assert len(want["tokens"]) == 24 and want["used_pages"] == 0
+    for rank, got in enumerate(_per_rank(port, "disagg-8")):
+        assert got["tokens"] == want["tokens"], rank
+        assert got["handoffs"] == got["prefills"] == 24 and got["used_pages"] == 0, rank
+        assert got["ranges"] == [[0, 2], [2, 8]]
+        assert got["roles"] == [rank < 2, rank >= 2], rank

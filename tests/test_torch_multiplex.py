@@ -240,7 +240,8 @@ def test_coordinator_admission_and_churn():
 def test_executable_path_raises_with_its_roadmap_item():
     """The executable path runs on 8 CPU positions (the reference's
     results, field for field, are in ``tests/test_torch_collocation.py``);
-    only a step over more than one card still raises, naming item 11."""
+    only a step over more than one card in one process still raises,
+    naming the rank carving that runs it."""
     import torch
 
     from repro_torch.launch.mesh import submesh_from_range
@@ -263,7 +264,7 @@ def test_executable_path_raises_with_its_roadmap_item():
     assert isinstance(got, mx.CollocationResult) and got.iterations > 0
     two_cards = submesh_from_range(0, 2, devices=[torch.device("cuda", 0),
                                                   torch.device("cuda", 1)])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="as the ranks of a process group"):
         two_cards.device  # noqa: B018
 
 
