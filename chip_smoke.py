@@ -282,11 +282,13 @@ Slice 10, the dry-run and the example entry points (after 12a; a
      to 13a's exactly; ``max_memory_allocated`` net of what was allocated
      before the state within ``DRYRUN_PEAK_TOL`` of 13a's peak; the
      achieved TFLOP/s of the counted FLOPs over 11b's median step.
-  13c. the dry-run CLI, a process a cell: llama3-8b ``train_4k`` on the
-     (16, 16) production mesh (256 fake ranks) writes its record; a layout
-     the port refuses (seamless-m4t-large-v2 ``train_4k`` with sequence
-     parallelism, ``--cfg-override``) exits non-zero naming item 11b; the
-     wall time of each.
+  13c. the dry-run CLI, a process a cell, the cells at once: llama3-8b
+     ``train_4k`` on the (16, 16) production mesh (256 fake ranks) writes
+     its record, and so do the layouts of ``DRYRUN_CELLS``' overrides
+     (sequence parallelism on seamless-m4t-large-v2, zamba2-2.7b and
+     rwkv6-1.6b ``train_4k``, zamba2-2.7b ``train_4k`` with ``attn_tp``
+     off, llama3-8b ``decode_32k`` with ``norm`` on 'model'); the wall time
+     of each.
   13d. ``launch.burst_plan_demo``, ``launch.train_lm`` (the ~100M config,
      ``TRAIN_LM_STEPS`` steps: losses fall) and ``launch.serve_lm`` for
      qwen2-1.5b and rwkv6-1.6b on the card, launches from the counters.
@@ -302,7 +304,9 @@ line comes before ``slice10``):
      in depth) on real CUDA tensors as rank 0 of a fake 256-rank world,
      under ``launch.op_analysis``'s counters: FLOPs equal to the dry-run's
      of the same cell exactly, ``max_memory_allocated`` net within
-     ``DRYRUN_PEAK_TOL`` of its peak; each cell's step time and launches.
+     ``DRYRUN_PEAK_TOL`` of its peak (the step starts from an emptied
+     cache; the peak of the next step, from the cache that step left, is
+     printed beside it and not held); each cell's step time and launches.
 Slice 12, split-KV decoding and seamless's tensor parallelism (after 14b;
 a ``slice12: {...}`` line comes before ``slice11``):
   15a. the flash kernels at seamless's rank shapes of the (16, 16) mesh at
@@ -350,6 +354,18 @@ Slice 13, burst-parallel plans carved into rank slices (a ``slice13:
      rank's tenant shape (2 x 8 tokens, 4/1 heads of 32), timed and held
      against the plain version as 14a does (the flash records'
      ``rank_share``).
+Slice 14, sequence parallelism over 'model' (a ``slice14: {...}`` line
+comes before ``slice13``):
+  17. rank 0's step of each ``SP_CELLS`` cell (seamless-m4t-large-v2,
+     zamba2-2.7b and rwkv6-1.6b ``train_4k``, full width and depth) with
+     ``sequence_parallel`` on, through ``tp_cell`` with a profiled step:
+     FLOPs equal to the dry-run's and to the twin's without it (15b's,
+     14b's; those twins are profiled too) and, for seamless, to 13c's
+     record; peak within ``DRYRUN_PEAK_TOL``; its family's kernels
+     launched.  Printed beside the twin: step ms, peak GiB, collective
+     bytes by kind, the elementwise share of device time.  The dry-run's
+     predictions of the three cells are 13c's records (its cells run at
+     once, as processes of their own).
 Phase 3 sweeps d_head 80 too.  Every timed kernel prints its TFLOP/s (of
 the function's own operation count) and its share of the bound (bound ms /
 kernel ms), and its JSON record carries both.  The last line is ``{"ok":
@@ -2458,15 +2474,18 @@ KERNEL_FAMILIES = {  # kernel-name substrings -> family, for the profiles' summa
 }
 
 
-def _profile(label, fn, top=8):
+def _profile(label, fn, top=8, host=True):
     """Device time by kernel over ``fn()`` (torch.profiler/CUPTI), and the
     share of the wall time the device was busy; returns ``{kernel: (count,
-    device ms)}``."""
+    device ms)}``.  ``host=False`` records the device's kernels alone, not
+    the host's operators (whose tens of thousands of events a full step's
+    profile spends tens of seconds sorting)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3907,11 +3926,19 @@ def phase_live_loop(mesh, smi, losses11b, median11b_ms):
 # tolerance PERF.md states, about 70 MB of 13b's 65.6 GiB peak, where the gap
 # read 3.67 MB in two runs, and 14b's widest reading +0.045% (zamba2 decode)
 DRYRUN_PEAK_TOL = 0.001
-DRYRUN_CELLS = (  # 13c: (arch, shape, what the CLI must do, CLI overrides)
-    ("llama3-8b", "train_4k", "record", []),
-    # sequence parallelism on a 'model' axis: still item 11b
-    ("seamless-m4t-large-v2", "train_4k", "refuse",
-     ["--cfg-override", '{"sequence_parallel": true}']),
+DRYRUN_CELLS = (  # 13c: (arch, shape, CLI overrides), each must write its record
+    ("llama3-8b", "train_4k", []),
+    # sequence parallelism on the 'model' axis (also 17's prediction of rank
+    # 0's step; its FLOPs equal those of 15b's cell without it)
+    ("seamless-m4t-large-v2", "train_4k", ["--cfg-override", '{"sequence_parallel": true}']),
+    # 32 KV heads split 16 ways with the query heads whole; ssm_inner split
+    # while the SSM heads stay whole
+    ("zamba2-2.7b", "train_4k", ["--cfg-override", '{"attn_tp": false}']),
+    # a parameter split on 'model' along an axis outside TP_AXES
+    ("llama3-8b", "decode_32k", ["--rules-override", '{"norm": ["model"]}']),
+    # 17's predictions of the other cells with sequence parallelism
+    ("zamba2-2.7b", "train_4k", ["--cfg-override", '{"sequence_parallel": true}']),
+    ("rwkv6-1.6b", "train_4k", ["--cfg-override", '{"sequence_parallel": true}']),
 )
 TRAIN_LM_STEPS = 60  # 13d: launch.train_lm's ~100M config on the card
 
@@ -3963,6 +3990,18 @@ def phase_dryrun_predict():
     return dict(rec, wall_s=wall)
 
 
+def _fresh_allocator():
+    """Release the cached blocks the state's construction freed, then reset
+    the peak: a step held to the dry-run starts from no free cached
+    segment, as the dry-run's counter models the caching allocator
+    (``launch.op_analysis._LargePool``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def _hold_to_dryrun(label, costs, peak, pred):
     """Fails unless a real step's FLOPs (``costs``, ``launch.op_analysis``)
     equal the dry-run's prediction ``pred`` exactly and its
@@ -4008,8 +4047,7 @@ def phase_dryrun_check(mesh, smi, pred, median11b_ms):
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = device_put(init_state(api, opt, gen, "cuda"), st_sh)
     batch = device_put(make_batch(cfg, shape.global_batch, shape.seq_len, gen, "cuda"), bt_sh)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _fresh_allocator()
     _reset_counts()
     t0 = time.perf_counter()
     costs = analyze_step(fn, state, batch)
@@ -4041,44 +4079,45 @@ def phase_dryrun_check(mesh, smi, pred, median11b_ms):
 
 
 def phase_dryrun_cli():
-    """Phase 13c: the dry-run CLI, each cell a process of its own, as a user
-    runs it: llama3-8b ``train_4k`` on the (16, 16) production mesh (256
-    fake ranks, fake cuda tensors) writes its record; a layout the port
-    refuses (seamless-m4t-large-v2 ``train_4k`` with sequence parallelism,
-    through ``--cfg-override``) exits non-zero naming item 11b.  The wall
-    time of each."""
-    out = os.path.join(ROOT, "build", "dryrun13c.jsonl")
-    if os.path.exists(out):
-        os.remove(out)
+    """Phase 13c: the dry-run CLI, a process a cell, as a user runs it, on
+    the (16, 16) production mesh (256 fake ranks, fake cuda tensors):
+    llama3-8b ``train_4k`` writes its record, and so do the layouts the
+    overrides give (``DRYRUN_CELLS``: seamless-m4t-large-v2 ``train_4k``
+    with sequence parallelism, zamba2-2.7b ``train_4k`` with ``attn_tp``
+    off, llama3-8b ``decode_32k`` with ``norm`` on 'model', and zamba2's and
+    rwkv6's ``train_4k`` with sequence parallelism, phase 17's
+    predictions).  The cells run at once (they use the host, not the
+    card); the wall time of each and of the phase; the records by cell."""
+    t0 = time.perf_counter()
+    procs = []
+    for i, (arch, shape, overrides) in enumerate(DRYRUN_CELLS):
+        out = os.path.join(ROOT, "build", f"dryrun13c-{i}.jsonl")
+        if os.path.exists(out):
+            os.remove(out)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "single", "--out", out] + overrides
+        procs.append((arch, shape, overrides, out, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))))
     stats = {}
-    for arch, shape, want, overrides in DRYRUN_CELLS:
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                            "--shape", shape, "--mesh", "single", "--out", out] + overrides,
-                           cwd=ROOT, capture_output=True, text=True, timeout=900,
-                           env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
-        wall = time.perf_counter() - t0
-        if want == "record":
-            with open(out) as f:
-                recs = [json.loads(x) for x in f]
-            if r.returncode != 0 or len(recs) != 1:
-                fail(f"13c {arch} {shape}: exit {r.returncode}, {len(recs)} records: "
-                     f"{r.stderr[-3000:]}")
-            rec = recs[0]
-            print(f"13c dryrun {arch} {shape} single ({rec['n_devices']} fake ranks, "
-                  f"{rec['device']}): {wall:.1f} s wall (the step {rec['run_s']} s); peak "
-                  f"{rec['peak_bytes'] / 2**30:.2f} GiB per device, {rec['flops'] / 1e12:.2f} "
-                  f"TFLOP, collective bytes {rec['collective_bytes']}", flush=True)
-            stats[arch] = dict(wall_s=wall, **{k: rec[k] for k in (
-                "peak_bytes", "flops", "collective_bytes", "run_s", "device")})
-        else:
-            msg = r.stderr.strip().splitlines()[-1] if r.stderr.strip() else ""
-            print(f"13c dryrun {arch} {shape} single: exit {r.returncode} in {wall:.1f} s: "
-                  f"{msg}", flush=True)
-            if r.returncode == 0 or "item 11b" not in r.stderr:
-                fail(f"13c: the refused cell {arch} {shape} did not fail naming item 11b "
-                     f"(exit {r.returncode}): {r.stderr[-2000:]}")
-            stats[arch] = dict(wall_s=wall, refused=msg)
+    for arch, shape, overrides, out, start, proc in procs:
+        _, err = proc.communicate(timeout=900)
+        wall = time.perf_counter() - start
+        recs = [json.loads(x) for x in open(out)] if os.path.exists(out) else []
+        if proc.returncode != 0 or len(recs) != 1:
+            fail(f"13c {arch} {shape} {overrides}: exit {proc.returncode}, {len(recs)} "
+                 f"records: {err[-3000:]}")
+        rec = recs[0]
+        os.remove(out)
+        key = " ".join([arch, shape] + overrides[1:])
+        print(f"13c dryrun {key} single ({rec['n_devices']} fake ranks, "
+              f"{rec['device']}): {wall:.1f} s wall (the step {rec['run_s']} s); peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB per device, {rec['flops'] / 1e12:.2f} "
+              f"TFLOP, collective bytes {rec['collective_bytes']}", flush=True)
+        stats[key] = dict(wall_s=wall, **{k: rec[k] for k in (
+            "peak_bytes", "flops", "flops_by_op", "bytes_written", "collective_bytes", "run_s",
+            "device")})
+    print(f"13c: {len(procs)} cells at once in {time.perf_counter() - t0:.1f} s", flush=True)
     return stats
 
 
@@ -4225,15 +4264,23 @@ def rank_step(cfg, shape, mesh, device, gen):
     return fn, first, batch
 
 
-def tp_cell(arch, shape_name, layers, smi, tag="14b"):
+def tp_cell(arch, shape_name, layers, smi, tag="14b", cfg_over=None, profile=False,
+            pred=None):
     """One 14b cell: the dry-run's prediction of rank 0's step of ``arch``
     x ``shape_name`` on the (16, 16) mesh (a fake world of 256 ranks, fake
     cuda tensors), then the same step for real on the card, as rank 0 of a
     fake world (whose collectives move nothing, so the values are not
-    checked here), under the same counters; then one uncounted step, timed.
-    Fails unless the FLOPs are equal and ``max_memory_allocated``, net of
-    what was allocated before the state was built, is within
-    ``DRYRUN_PEAK_TOL`` of the predicted peak (``_hold_to_dryrun``)."""
+    checked here), under the same counters, from an emptied cache
+    (``_fresh_allocator``); then one uncounted step, timed, whose peak (from
+    the cache the held step left, as a training loop's later steps run) is
+    printed and not held, and with ``profile`` one more under the profiler
+    (the share of device time by kernel family).  ``cfg_over`` overrides config fields (17:
+    sequence parallelism); ``pred`` is the dry-run's record of the cell
+    where a process of its own made it (13c).  Fails unless the FLOPs are
+    equal and
+    ``max_memory_allocated``, net of what was allocated before the state
+    was built, is within ``DRYRUN_PEAK_TOL`` of the predicted peak
+    (``_hold_to_dryrun``)."""
     import torch
 
     from repro_torch.configs import SHAPES, get_config
@@ -4242,22 +4289,23 @@ def tp_cell(arch, shape_name, layers, smi, tag="14b"):
     from repro_torch.launch.mesh import fake_world, make_production_mesh
     from repro_torch.launch.op_analysis import analyze_step
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(cfg_over or {}))
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     shape = SHAPES[shape_name]
-    label = f"{arch}{f' x{layers} layers' if layers else ''} {shape_name}"
+    label = (f"{arch}{f' x{layers} layers' if layers else ''} {shape_name}"
+             f"{' ' + json.dumps(cfg_over) if cfg_over else ''}")
     t0 = time.perf_counter()
-    with fake_world(256, "cuda"):
-        pred = run_step(cfg, shape, make_production_mesh(), "cuda")
+    if pred is None:
+        with fake_world(256, "cuda"):
+            pred = run_step(cfg, shape, make_production_mesh(), "cuda")
     predict_s = time.perf_counter() - t0
     _free_card()
     gen = torch.Generator(device="cuda").manual_seed(14)
     with fake_world(256, "cuda"):
         base = torch.cuda.memory_allocated()
         fn, first, batch = rank_step(cfg, shape, make_production_mesh(), "cuda", gen)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _fresh_allocator()
         _reset_counts()
         t1 = time.perf_counter()
         costs = analyze_step(fn, first, batch)
@@ -4266,22 +4314,44 @@ def tp_cell(arch, shape_name, layers, smi, tag="14b"):
         peak = torch.cuda.max_memory_allocated() - base
         launches = dict(_counts(), wkv=dict(wk.launches))
         costs.out = None
+        torch.cuda.reset_peak_memory_stats()  # the next step, from the cache the last one left
         t1 = time.perf_counter()
         out = fn(first, batch)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t1
-        del out, first, batch
+        warm = torch.cuda.max_memory_allocated() - base
+        del out
+        shares = _family_shares(_profile(f"{tag} {label}", lambda: fn(first, batch), top=4,
+                                         host=False)) if profile else None
+        del first, batch
     _free_card()
     print(f"{tag} {label}, rank 0 of (16, 16) on {smi}: collective bytes "
           f"{costs.collectives}; step {step_s * 1e3:.1f} ms (the counted step "
           f"{counted_s * 1e3:.1f} ms, the prediction {predict_s:.1f} s); launches {launches}",
           flush=True)
     off = _hold_to_dryrun(f"{tag} {label}", costs, peak, pred)
+    warm_off = warm / pred["peak_bytes"] - 1
+    print(f"{tag} {label}: the next step, from the cache the held step left (not held): "
+          f"max_memory_allocated {warm} bytes net, {100 * warm_off:+.4f}% from the dry-run's",
+          flush=True)
     return launches, dict(flops=costs.flops, predicted_flops=pred["flops"], peak_bytes=peak,
                           predicted_peak_bytes=pred["peak_bytes"], peak_off=off,
+                          warm_peak_bytes=warm, warm_peak_off=warm_off,
                           collective_bytes=costs.collectives, step_ms=step_s * 1e3,
                           counted_step_ms=counted_s * 1e3, predict_s=predict_s,
-                          layers=cfg.num_layers)
+                          layers=cfg.num_layers, shares=shares)
+
+
+def _family_shares(rows) -> dict:
+    """{kernel family (``KERNEL_FAMILIES``, else elementwise): its share of
+    the profiled device time}, from ``_profile``'s rows."""
+    busy = sum(ms for _, ms in rows.values())
+    out: dict = {}
+    for key, (_, ms) in rows.items():
+        fam = next((f for f, keys in KERNEL_FAMILIES.items() if any(k in key for k in keys)),
+                   "elementwise")
+        out[fam] = out.get(fam, 0.0) + ms / busy
+    return dict(out, busy_ms=busy)
 
 
 def phase_tp_cells(smi):
@@ -4291,7 +4361,8 @@ def phase_tp_cells(smi):
     launches, stats = {}, {}
     for arch, shape, layers in TP_CELLS:
         key = f"{arch}{f' x{layers}' if layers else ''} {shape}"
-        launches[key], stats[key] = tp_cell(arch, shape, layers, smi)
+        launches[key], stats[key] = tp_cell(arch, shape, layers, smi,
+                                            profile=(arch, shape) in SP_TWINS)
         need = {"rwkv6-1.6b": ["wkv"], "zamba2-2.7b": ["ssd", "flash"]}.get(arch, ["flash"])
         if shape == "train_4k" and any(not all(launches[key][k].values()) for k in need):
             fail(f"14b {key}: the step launched {launches[key]}, not each of {need}")
@@ -4408,7 +4479,8 @@ def phase_split_cells(smi):
     launches, stats = {}, {}
     for arch, shape, layers in SPLIT_CELLS:
         key = f"{arch}{f' x{layers}' if layers else ''} {shape}"
-        launches[key], stats[key] = tp_cell(arch, shape, layers, smi, tag="15b")
+        launches[key], stats[key] = tp_cell(arch, shape, layers, smi, tag="15b",
+                                            profile=(arch, shape) in SP_TWINS)
         flash = launches[key]["flash"]
         if shape == "train_4k" and not (flash["fwd"] and flash["bwd"]):
             fail(f"15b {key}: the step launched {launches[key]}, not the flash forward and "
@@ -4629,91 +4701,171 @@ def phase_rank_collocation(smi):
                            "flash_attention_bwd": dict(bwd, path=path)}
 
 
+# ---------------------------------------------------------------------------
+# Slice 14: sequence parallelism over 'model' (17)
+# ---------------------------------------------------------------------------
+
+SP = {"sequence_parallel": True}
+SP_CELLS = (  # 17: (arch, shape, the phase that runs its twin without sequence parallelism)
+    ("seamless-m4t-large-v2", "train_4k", "15b"),
+    ("zamba2-2.7b", "train_4k", "14b"),
+    ("rwkv6-1.6b", "train_4k", "14b"),
+)
+SP_TWINS = {(arch, shape) for arch, shape, _ in SP_CELLS}  # 14b and 15b profile these
+
+
+def phase_sp_cells(smi, twins=None, cli13=None):
+    """Phase 17: rank 0's step of each ``SP_CELLS`` cell on the (16, 16)
+    mesh with sequence parallelism, at full width and depth, through
+    ``tp_cell`` with a profiled step (no process group may be live).  Fails
+    unless each holds the dry-run's FLOPs and its peak within
+    ``DRYRUN_PEAK_TOL`` (the dry-run's record of the cell: 13c's, where
+    ``cli13`` is given), its FLOPs equal its twin's (``twins``: 14b's and
+    15b's stats, or, run alone, the twins' cells run here, profiled; the
+    same work), and it launched its family's kernels.  Prints each beside its twin:
+    step ms, peak GiB, collective bytes by kind, the share of device time
+    in elementwise kernels.  Returns the launches and the numbers."""
+    if twins is None:
+        import torch
+
+        # the library's workspaces, which the full script made in earlier
+        # phases, before a cell measures its peak
+        for dt in (torch.bfloat16, torch.float32):
+            a = torch.ones(64, 64, device="cuda", dtype=dt, requires_grad=True)
+            (a @ a).sum().backward()
+        del a
+        twins = {"14b": {}, "15b": {}}
+        for arch, shape, tag in SP_CELLS:
+            twins[tag][f"{arch} {shape}"] = tp_cell(arch, shape, None, smi, tag=tag,
+                                                    profile=True)[1]
+    launches, stats = {}, {}
+    for arch, shape, twin_tag in SP_CELLS:
+        key = f"{arch} {shape}"
+        pred = (cli13 or {}).get(f'{key} {{"sequence_parallel": true}}')
+        launches[key], st = tp_cell(arch, shape, None, smi, tag="17", cfg_over=SP, profile=True,
+                                    pred=pred)
+        twin = twins[twin_tag][key]
+        need = {"rwkv6-1.6b": ["wkv"], "zamba2-2.7b": ["ssd", "flash"]}.get(arch, ["flash"])
+        if any(not all(launches[key][k].values()) for k in need):
+            fail(f"17 {key}: the step launched {launches[key]}, not each of {need}")
+        if st["flops"] != twin["flops"]:
+            fail(f"17 {key}: {st['flops']} FLOP with sequence parallelism, {twin['flops']} "
+                 f"without (the same work)")
+        print(f"17 {key} on {smi}, with sequence parallelism / without ({twin_tag}): step "
+              f"{st['step_ms']:.1f} / {twin['step_ms']:.1f} ms; peak "
+              f"{st['peak_bytes'] / 2**30:.2f} / {twin['peak_bytes'] / 2**30:.2f} GiB; "
+              f"collective bytes {st['collective_bytes']} / {twin['collective_bytes']}; "
+              f"elementwise {100 * st['shares']['elementwise']:.1f}% / "
+              f"{100 * twin['shares']['elementwise']:.1f}% of device time "
+              f"({st['shares']['busy_ms']:.1f} / {twin['shares']['busy_ms']:.1f} ms busy)",
+              flush=True)
+        stats[key] = dict(st, twin={k: twin[k] for k in (
+            "flops", "step_ms", "peak_bytes", "collective_bytes", "shares")})
+    return launches, stats
+
+
 def main() -> None:
-    name, smi = phase_device()
+    t_start = time.perf_counter()
+
+    def run(phase, *args):
+        """``phase(*args)``, printing its wall time and the script's."""
+        t0 = time.perf_counter()
+        try:
+            return phase(*args)
+        finally:
+            print(f"[{phase.__name__}: {time.perf_counter() - t0:.1f} s, the script at "
+                  f"{time.perf_counter() - t_start:.1f} s]", flush=True)
+
+    name, smi = run(phase_device)
 
     import torch
 
     from repro_torch.configs import get_config
 
-    phase_build()
-    planning = phase_plan(smi)
+    run(phase_build)
+    planning = run(phase_plan, smi)
     cfg = get_config("llama3-8b")
-    flash = phase_kernels([r["prompt_len"] for r in slice_trace(cfg.vocab_size).requests])
-    wkv_fwd, wkv_bwd = phase_wkv6()
-    ssd_fwd, ssd_bwd = phase_ssd()
-    flash["d80"], flash_bwd = phase_flash_bwd()
-    flash["qwen2"], flash_bwd["qwen2"] = phase_flash_qwen2()
-    phase_model(cfg)
-    serve_launches, eng, rep5 = phase_slice(cfg, smi)
+    flash = run(phase_kernels, [r["prompt_len"] for r in slice_trace(cfg.vocab_size).requests])
+    wkv_fwd, wkv_bwd = run(phase_wkv6)
+    ssd_fwd, ssd_bwd = run(phase_ssd)
+    flash["d80"], flash_bwd = run(phase_flash_bwd)
+    flash["qwen2"], flash_bwd["qwen2"] = run(phase_flash_qwen2)
+    run(phase_model, cfg)
+    serve_launches, eng, rep5 = run(phase_slice, cfg, smi)
     stats5 = dataclasses.replace(eng.stats)  # phase 6 resets the engine
     tokens5 = {r.rid: tuple(r.tokens) for r in rep5.completed}
     ttft5 = (rep5.ttft_percentile(50), rep5.ttft_percentile(99))
-    phase_profile(eng, cfg)
+    run(phase_profile, eng, cfg)
     del eng
     torch.cuda.empty_cache()
-    phase_rwkv_model()
-    counts, state = phase_rwkv_train(smi)
+    run(phase_rwkv_model)
+    counts, state = run(phase_rwkv_train, smi)
     wkv_fwd["launches"], wkv_bwd["launches"] = counts["fwd"], counts["bwd"]
-    phase_rwkv_profile(state)
+    run(phase_rwkv_profile, state)
     del state
     torch.cuda.empty_cache()
-    phase_zamba_model()
-    counts, state = phase_zamba_train(smi)
-    phase_zamba_profile(state)
+    run(phase_zamba_model)
+    counts, state = run(phase_zamba_train, smi)
+    run(phase_zamba_profile, state)
     del state
     torch.cuda.empty_cache()
     ssd_fwd["launches"], ssd_bwd["launches"] = counts["ssd"]["fwd"], counts["ssd"]["bwd"]
-    phase_qwen_model()
-    qwen = phase_qwen_train(smi)
-    quick = phase_quickstart()
-    alone = phase_bg_tenants()
-    fg_mux, bg_mux, _ = phase_multiplex_train(smi)
-    bg_exec, _ = phase_run_executable()
-    serve_adm = phase_admission(cfg, smi, stats5, ttft5)
-    flash["softcap"], flash_bwd["softcap"], sweep_n = phase_softcap()
-    phase_moe_model()
-    serve_moe = phase_moe_slice(smi)
-    serve_grok = phase_grok(smi)
-    phase_recurrent_serving(smi)
-    big = phase_big_train(smi)
-    flash["seamless"], flash_bwd["seamless"] = phase_flash_seamless()
-    sm_check = phase_seamless_model()
-    sm_train, sm_train_stats = phase_seamless_train(smi)
-    sm_fwd, sm_serve = phase_seamless_serve(smi)
-    px_serve, px_check, px_stats = phase_pixtral(smi)
-    px_train, px_train_stats = phase_pixtral_train(smi)
-    vgg_stats = phase_vgg(smi)
-    mesh, mesh_rules = phase_mesh()
-    sharded, sharded_stats, losses11b = phase_sharded_train(mesh, smi)
-    fam_counts, fam_stats = phase_sharded_families(mesh, smi)
-    psgd = phase_powersgd(smi)
-    disagg, disagg_stats, params11e = phase_disaggregated(cfg, smi, tokens5, stats5)
-    mesh_serve, mesh_serve_stats = phase_mesh_serving(mesh, cfg, params11e, smi)
+    run(phase_qwen_model)
+    qwen = run(phase_qwen_train, smi)
+    quick = run(phase_quickstart)
+    alone = run(phase_bg_tenants)
+    fg_mux, bg_mux, _ = run(phase_multiplex_train, smi)
+    bg_exec, _ = run(phase_run_executable)
+    serve_adm = run(phase_admission, cfg, smi, stats5, ttft5)
+    flash["softcap"], flash_bwd["softcap"], sweep_n = run(phase_softcap)
+    run(phase_moe_model)
+    serve_moe = run(phase_moe_slice, smi)
+    serve_grok = run(phase_grok, smi)
+    run(phase_recurrent_serving, smi)
+    big = run(phase_big_train, smi)
+    flash["seamless"], flash_bwd["seamless"] = run(phase_flash_seamless)
+    sm_check = run(phase_seamless_model)
+    sm_train, sm_train_stats = run(phase_seamless_train, smi)
+    sm_fwd, sm_serve = run(phase_seamless_serve, smi)
+    px_serve, px_check, px_stats = run(phase_pixtral, smi)
+    px_train, px_train_stats = run(phase_pixtral_train, smi)
+    vgg_stats = run(phase_vgg, smi)
+    mesh, mesh_rules = run(phase_mesh)
+    sharded, sharded_stats, losses11b = run(phase_sharded_train, mesh, smi)
+    fam_counts, fam_stats = run(phase_sharded_families, mesh, smi)
+    psgd = run(phase_powersgd, smi)
+    disagg, disagg_stats, params11e = run(phase_disaggregated, cfg, smi, tokens5, stats5)
+    mesh_serve, mesh_serve_stats = run(phase_mesh_serving, mesh, cfg, params11e, smi)
     del params11e
     _free_card()
-    live, live_stats = phase_live_loop(mesh, smi, losses11b, sharded_stats["median_step_ms"])
+    live, live_stats = run(phase_live_loop, mesh, smi, losses11b,
+                           sharded_stats["median_step_ms"])
     t13 = time.perf_counter()
-    pred13 = phase_dryrun_predict()
-    counted13, dryrun_stats = phase_dryrun_check(mesh, smi, pred13,
-                                                 sharded_stats["median_step_ms"])
+    pred13 = run(phase_dryrun_predict)
+    counted13, dryrun_stats = run(phase_dryrun_check, mesh, smi, pred13,
+                                  sharded_stats["median_step_ms"])
     import torch.distributed as dist
 
     dist.destroy_process_group()
-    cli13 = phase_dryrun_cli()
-    ex_launches, ex_stats = phase_examples(smi)
+    cli13 = run(phase_dryrun_cli)
+    ex_launches, ex_stats = run(phase_examples, smi)
     ex_stats["phase13_s"] = time.perf_counter() - t13
     t14 = time.perf_counter()
-    tp_rows = phase_tp_kernels(smi)
-    tp_launches, tp_stats = phase_tp_cells(smi)
+    tp_rows = run(phase_tp_kernels, smi)
+    tp_launches, tp_stats = run(phase_tp_cells, smi)
     tp_stats["phase14_s"] = time.perf_counter() - t14
     t15 = time.perf_counter()
-    split_rows, split_merges = phase_split_kernels(smi)
-    split_launches, split_stats = phase_split_cells(smi)
+    split_rows, split_merges = run(phase_split_kernels, smi)
+    split_launches, split_stats = run(phase_split_cells, smi)
     split_stats["phase15_s"] = time.perf_counter() - t15
-    rank_launches, rank_stats, rank_rows = phase_rank_collocation(smi)
+    rank_launches, rank_stats, rank_rows = run(phase_rank_collocation, smi)
+    t17 = time.perf_counter()
+    sp_launches, sp_stats = run(phase_sp_cells, smi, {"14b": tp_stats, "15b": split_stats}, cli13)
+    sp_stats["phase17_s"] = time.perf_counter() - t17
     tp_path = {f"{k} rank 0 of (16, 16) (14b)": c for k, c in tp_launches.items()}
     tp_path.update({f"{k} rank 0 of (16, 16) (15b)": c for k, c in split_launches.items()})
+    tp_path.update({f"{k} rank 0 of (16, 16), sequence parallel (17)": c
+                    for k, c in sp_launches.items()})
     bg = {k: alone[k] + bg_mux[k] + bg_exec[k] for k in ("fwd", "bwd")}
     flash["launches_by_path"] = {"serve llama3-8b": serve_launches,
                                  "train zamba2-2.7b": counts["flash"]["fwd"],
@@ -4800,6 +4952,7 @@ def main() -> None:
         rec["rank_share"] = rank_rows[rec["name"]]
     slice8 = dict(mesh=mesh_rules, sharded_train=sharded_stats, families=fam_stats,
                   powersgd=psgd, disaggregated_serve=disagg_stats)
+    print(f"slice14: {json.dumps(dict(sp_cells=sp_stats))}")
     print(f"slice13: {json.dumps(dict(mesh_serve=mesh_serve_stats, rank_share=rank_stats))}")
     print(f"slice12: {json.dumps(dict(split_cells=split_stats, split_merge=split_merges))}")
     print(f"slice11: {json.dumps(dict(tp_cells=tp_stats))}")

@@ -22,8 +22,10 @@ Port-only, for the global reductions local compute must make itself:
 ``batch_sum`` (a sum over the ranks the batch is split over, whose
 backward is the identity: each rank's gradient is its own share), and
 the tensor-parallel crossings over the ``model`` axis, with
-``model_max``, ``model_size`` and ``model_rank``, and the split-KV
-decode's ``kv_seq_axes``, ``kv_seq_offset``, ``seq_max`` and ``seq_sum``.
+``model_max``, ``model_size`` and ``model_rank``, the
+split-KV decode's ``kv_seq_axes``, ``kv_seq_offset`` and ``reduce_over``,
+and sequence parallelism's ``sp_enter``, ``sp_exit``, ``sp_slice``,
+``token_sum`` and ``input_split``.
 
 Tensor parallelism over ``model`` (the dense and MoE decoder blocks,
 rwkv6, Mamba-2 and zamba2's shared block, pixtral's vision projection, the
@@ -63,16 +65,21 @@ every rank's encoder.
 Split-KV decoding.  A decode cell whose rules give ``act_kv_seq`` live
 mesh axes holds each cache leaf with that axis (the KV caches of the dense,
 MoE and zamba2 blocks, seamless's self-attention and encoder memory) split
-along its sequence over ``kv_seq_axes()``, in the rules' order with the
+along its sequence over ``kv_seq_axes(leaf)``, in the rules' order with the
 first axis major (as ``pspec`` and ``placements`` lay out a dim split over
 a tuple of axes).  A rank holds positions ``[off, off + S_loc)``, with
-``off = seq_index() * S_loc`` (``kv_seq_offset``).  Each rank attends over
-its slice, masking by global position, and returns its partial output with
+``off`` this rank's index along the axes times ``S_loc``
+(``kv_seq_offset``).  The axes are the leaf's own: where the divisibility
+guard keeps one leaf whole (a capacity not divisible by the split) it
+decodes whole on every rank, with no merge, while another leaf of the same
+cache (seamless's encoder memory) splits.  Each rank attends over its
+slice, masking by global position, and returns its partial output with
 the row's log-sum-exp (``models.attention.decode_attention_partial``); the
-partials merge as ``m = seq_max(lse)``, ``w = exp(lse - m)``, ``out =
-seq_sum(o w) / seq_sum(w)``, in fp32 (``merge_partials``; the two sums
-travel in one all-reduce).  A rank whose whole slice is masked has its
-``lse`` near the finite ``NEG_INF`` and so a weight of exactly 0.  Where
+partials merge as ``m = max(lse)``, ``w = exp(lse - m)``, ``out =
+sum(o w) / sum(w)`` over the leaf's axes (``reduce_over``), in fp32
+(``merge_partials``; the two sums travel in one all-reduce).  A rank whose
+whole slice is masked has its ``lse`` near the finite ``NEG_INF`` and so a
+weight of exactly 0.  Where
 'model' carries the sequence while the query heads are split over it, a
 rank gathers ``q`` over 'model' (``tp_gather(q, 2)``), attends with every
 query head over its slice, merges, and keeps its own heads' rows for the
@@ -86,13 +93,57 @@ whole sequence, then keeps the rank's slice of it (a local narrow, no
 collective); the production prefill cells run ``jit_forward``, which
 builds no cache.
 
-The layouts local compute does not run (ROADMAP item 11b) are refused
-once, by the sharded step factories (``train.step._check_layout``):
-sequence parallelism on a ``model`` axis larger than 1, KV heads split
-with the query heads whole, a Mamba-2 ``d_inner`` split that is not whole
-heads, a parameter split on ``model`` along another logical axis than
-``TP_AXES``, and a cache leaf whose sequence the divisibility guard keeps
-whole where the rules split it.
+Kept whole over ``model``.  A parameter the rules split on ``model``
+along a logical axis that no block computes on locally (one outside
+``TP_AXES``: a norm scale, ``embed``, ``head_dim``, ...) is gathered whole at
+its use like an FSDP shard (``_tp_only_rules`` strips ``model`` there), and
+its ``Replicate`` gradient goes back onto its shards.  KV heads split while
+the query heads stay whole: each rank takes the query heads of its own KV
+groups, a slice of the whole ``wq`` and ``wo`` read through ``tp_copy``, and
+the out-projection is row-parallel (``models/transformer.py``).  A Mamba-2
+``d_inner`` split over whole heads (``ssm_inner`` split, ``heads`` whole)
+gathers the channels after the causal conv and runs the scan over every head
+(``models/mamba2.py``).
+
+Sequence parallelism (the Megatron form of the reference's "SP for
+norms/residual").  Where the placement of a step's input splits its
+sequence over ``model`` (``act_seq`` on a live ``model``, the divisibility
+guard keeping the split), the residual stream of that input is local: a
+rank holds positions ``[r S/m, (r + 1) S/m)``, ``r = model_rank()``, ``m =
+model_size()``, and the embeddings' output, the norms in front of every
+block and the residual adds run on that slice.  The step wrappers record
+which inputs split, and whether the decoder's residual stream does
+(``"residual"``: the tokens, after pixtral's patches), by the same guard
+(``context(..., layout=)``, read by ``input_split``); the models read it at
+their entry and pass it down as ``seq``.  A block needs the whole
+sequence, so it is gathered at the block's entry and scattered at its exit:
+
+  - entry into a tensor-parallel block: ``sp_enter`` (all-gather along the
+    sequence forward, reduce-scatter backward), in place of ``tp_copy``;
+  - exit from a row-parallel product: ``sp_exit`` (reduce-scatter along the
+    sequence forward, all-gather backward), in place of ``tp_sum``;
+  - a block the rules keep whole over ``model`` (qwen2's and minicpm's
+    attention, the MoE's routing and dispatch, Mamba-2 over whole heads,
+    rwkv6's token shifts) computes on every rank alike: it enters through
+    ``tp_gather(x, 1)`` (gather forward, slice backward) and leaves through
+    ``sp_slice`` (this rank's slice forward, all-gather backward).
+
+Between ``sp_enter`` and ``sp_exit`` each rank's compute is its share, so a
+parameter the rules keep whole that it reads (a K/V projection over whole
+KV heads, Mamba-2's ``B``/``C``) enters through ``tp_copy``, as does a
+whole parameter read by the sequence-local compute (the norm scales):
+their gradients sum over ``model``.  Token ids gather whole before the
+vocab-parallel lookup, which leaves by ``sp_exit``.  The loss
+sums over every rank that holds a share of the tokens (``token_sum``).  The
+kernels see the gathered sequence at this rank's heads, the shapes of the
+tensor-parallel step.  An input the guard keeps whole (a decode step's one
+token, a length not divisible by ``m``) runs as without sequence
+parallelism.
+
+Each cache leaf decodes by its own placement: ``kv_seq_axes(leaf)`` reads
+the live axes of the leaf's ``act_kv_seq`` dim from the step's layout, so a
+leaf the guard keeps whole decodes whole on every rank while another leaf
+of the same cache splits.
 
 Every hook is the identity outside a ``context(mesh, rules)`` block, so
 single-device code runs the same model code unsharded, and every
@@ -108,20 +159,29 @@ import torch
 
 from repro_torch.dist.sharding import DP_AXES, axis_names, mesh_axis_sizes, placements, pspec
 
-ITEM_11B = "ROADMAP Queue 1, item 11b"
+# The logical parameter axes tensor parallelism over 'model' splits: the
+# blocks compute on such a leaf's local shard.  A leaf split on 'model'
+# along any other axis is gathered whole at its use.
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "embed_out", "ssm_inner", "expert", "moe_mlp")
 
-# Stack of (mesh, rules) — LIFO so contexts nest.
+# Stack of (mesh, rules) — LIFO so contexts nest — and of the steps' layouts.
 _CTX: list = []
+_LAYOUT: list = []
 
 
 @contextmanager
-def context(mesh, rules):
-    """Activate (mesh, rules) for the hooks."""
+def context(mesh, rules, layout: Optional[dict] = None):
+    """Activate (mesh, rules) for the hooks.  ``layout`` is what the
+    placement of a step's inputs says (``train.step``): ``{"seq": the
+    names of the inputs whose sequence splits over 'model', "kv_seq":
+    {cache leaf: the live mesh axes its sequence splits over}}``."""
     _CTX.append((mesh, rules))
+    _LAYOUT.append(layout)
     try:
         yield
     finally:
         _CTX.pop()
+        _LAYOUT.pop()
 
 
 def active() -> Optional[tuple]:
@@ -139,10 +199,11 @@ def group_count(axis: str) -> int:
 
 
 def _tp_only_rules(rules) -> dict:
-    """The rule set with DP/FSDP axes stripped (what a gathered weight keeps)."""
+    """The rule set with DP/FSDP axes stripped, and 'model' on the logical
+    axes outside ``TP_AXES`` (what a gathered weight keeps)."""
     dp = set(DP_AXES)
     return {
-        k: tuple(a for a in v if a not in dp)
+        k: tuple(a for a in v if a not in dp and (a != "model" or k in TP_AXES))
         for k, v in rules.items()
         if isinstance(v, (tuple, list))
     }
@@ -267,47 +328,166 @@ def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _GatherSliceGrad.apply(x, dim % x.dim()) if model_size() > 1 else x
 
 
-def _max(x: torch.Tensor, axes) -> torch.Tensor:
-    """The elementwise max over the mesh axes ``axes`` (no gradient)."""
+def _gather_along(x: torch.Tensor, dim: int, axes=("model",)) -> torch.Tensor:
+    """The all-gather of ``x`` along ``dim`` over ``axes`` (the first axis
+    major), no autograd."""
+    import torch.distributed as dist
+
+    for g in reversed(_groups(axes)):  # the innermost axis first
+        y = x.movedim(dim, 0).contiguous()
+        out = y.new_empty((g.size() * y.shape[0],) + tuple(y.shape[1:]))
+        dist.all_gather_into_tensor(out, y, group=g)
+        x = out.movedim(0, dim)
+    return x
+
+
+def _scatter_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The reduce-scatter of ``x`` along ``dim`` over 'model': this rank's
+    slice of the sum, no autograd."""
+    import torch.distributed as dist
+
+    y = x.movedim(dim, 0).contiguous()
+    out = y.new_empty((y.shape[0] // model_size(),) + tuple(y.shape[1:]))
+    dist.reduce_scatter_tensor(out, y, group=_groups(("model",))[0])
+    return out.movedim(0, dim)
+
+
+def _slice(x: torch.Tensor, dim: int) -> torch.Tensor:
+    n = x.shape[dim] // model_size()
+    return x.narrow(dim, model_rank() * n, n).contiguous()
+
+
+class _GatherScatterGrad(torch.autograd.Function):
+    """Forward: the all-gather over 'model' along ``dim``; backward: the
+    reduce-scatter of the (partial) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return _gather_along(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_along(g, ctx.dim), None
+
+
+class _ScatterGatherGrad(torch.autograd.Function):
+    """Forward: the reduce-scatter over 'model' along ``dim``; backward: the
+    all-gather of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return _scatter_along(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_along(g, ctx.dim), None
+
+
+class _SliceGatherGrad(torch.autograd.Function):
+    """Forward: this rank's slice along ``dim``; backward: the all-gather of
+    the gradient over 'model'."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return _slice(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_along(g, ctx.dim), None
+
+
+def sp_enter(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Enter a tensor-parallel region from a sequence slice: the ranks'
+    slices gathered along ``dim``, each rank's share of the gradient
+    reduce-scattered back (the sequence-parallel ``tp_copy``)."""
+    return _GatherScatterGrad.apply(x, dim % x.dim()) if model_size() > 1 else x
+
+
+def sp_exit(x: torch.Tensor) -> torch.Tensor:
+    """Leave a tensor-parallel region onto a sequence slice: this rank's
+    slice of the ranks' partial sums (a reduce-scatter along dim 1), the
+    gradient gathered back (the sequence-parallel ``tp_sum``)."""
+    return _ScatterGatherGrad.apply(x, 1) if model_size() > 1 else x
+
+
+def sp_slice(x: torch.Tensor) -> torch.Tensor:
+    """Leave a region every rank computed alike onto a sequence slice: this
+    rank's slice along dim 1, the gradient gathered back over 'model'."""
+    return _SliceGatherGrad.apply(x, 1) if model_size() > 1 else x
+
+
+def input_split(name: str) -> bool:
+    """Whether the step's input ``name`` (``tokens``, ``labels``,
+    ``frames``, ``patch_embeds``, ``token``) holds this rank's slice of its
+    sequence over 'model' (its placement, recorded by the step); for
+    ``"residual"``, whether the decoder's residual stream does (the tokens,
+    after pixtral's patches, split by the same guard)."""
+    layout = _LAYOUT[-1] if _LAYOUT else None
+    return layout is not None and name in layout.get("seq", ())
+
+
+def token_sum(x: torch.Tensor, seq: bool) -> torch.Tensor:
+    """``x`` summed over every rank holding a share of the tokens: the batch
+    axes, and 'model' where the sequence is split over it (``seq``); the
+    gradient flows back to this rank's own share."""
+    axes = batch_axes() + (("model",) if seq and model_size() > 1 else ())
+    return _SumIdentityGrad.apply(x, axes) if axes else x
+
+
+def batch_index() -> int:
+    """This rank's index among the ranks the batch is split over."""
+    return _index(batch_axes())
+
+
+def batch_gather(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The ranks' batch shards of ``x`` (no gradient) gathered along ``dim``
+    over the batch axes, in the batch's order."""
+    axes = batch_axes()
+    return _gather_along(x.detach(), dim, axes) if axes else x
+
+
+def reduce_over(x: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+    """The elementwise sum (``op="max"``: the max) of ``x`` over the mesh
+    axes ``axes``, no gradient; ``x`` itself for no axes."""
     import torch.distributed as dist
 
     x = x.detach()
-    return _all_reduce(x, axes, dist.ReduceOp.MAX) if axes else x
+    if not axes:
+        return x
+    return _all_reduce(x, axes, dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
 
 
 def model_max(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max over ``model`` (no gradient)."""
-    return _max(x, ("model",) if model_size() > 1 else ())
+    return reduce_over(x, ("model",) if model_size() > 1 else (), "max")
 
 
-def kv_seq_axes() -> Tuple[str, ...]:
-    """The mesh axes (of size > 1) a decode cache is split over along its
-    sequence: the active rules' ``act_kv_seq``; () outside a context."""
-    if active() is None:
-        return ()
-    return _live(active()[1].get("act_kv_seq", ()))
+def kv_seq_axes(leaf: str) -> Tuple[str, ...]:
+    """The mesh axes (of size > 1) the decode cache leaf ``leaf`` is split
+    over along its sequence: its placement's, as the step's layout records
+    it; () outside a step."""
+    layout = _LAYOUT[-1] if _LAYOUT else None
+    return tuple((layout or {}).get("kv_seq", {}).get(leaf, ()))
 
 
-def kv_seq_offset(local_len: int) -> int:
-    """The global position of this rank's first cache entry, for a slice of
-    ``local_len`` positions: its index along ``kv_seq_axes()`` (the first
-    axis major) times ``local_len``; 0 outside a context."""
+def _index(axes) -> int:
+    """This rank's index along the mesh axes ``axes`` (the first axis
+    major); 0 for no axes."""
     index = 0
-    for a in kv_seq_axes():
+    for a in axes:
         mesh = active()[0]
         index = index * mesh_axis_sizes(mesh)[a] + mesh.get_local_rank(a)
-    return index * local_len
+    return index
 
 
-def seq_max(x: torch.Tensor) -> torch.Tensor:
-    """The elementwise max over ``kv_seq_axes()`` (no gradient)."""
-    return _max(x, kv_seq_axes())
-
-
-def seq_sum(x: torch.Tensor) -> torch.Tensor:
-    """The elementwise sum over ``kv_seq_axes()`` (no gradient)."""
-    axes = kv_seq_axes()
-    return _all_reduce(x.detach(), axes) if axes else x
+def kv_seq_offset(local_len: int, axes: Tuple[str, ...]) -> int:
+    """The global position of this rank's first cache entry, for a slice of
+    ``local_len`` positions split over ``axes``: its index along them (the
+    first axis major) times ``local_len``; 0 for no axes."""
+    return _index(axes) * local_len
 
 
 def gather_leaf(x, axes: Tuple[str, ...]):

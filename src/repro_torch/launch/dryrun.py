@@ -40,10 +40,12 @@ counterpart; ``scan_trip_count`` has none either, since eager execution
 dispatches every layer; ``lower_s`` and ``compile_s`` become ``run_s``, the
 wall time of the fake call.  ``device`` names the modelled device.
 
-Every production cell runs.  A layout the port refuses, asked for through
-``--cfg-override`` or ``--rules-override`` (``NotImplementedError``, ROADMAP
-item 11b), fails: its message is printed and the command exits 1, as do
-``--all`` sweeps with a failed cell.
+Every production cell runs, and so does every layout the overrides give
+(``--cfg-override '{"sequence_parallel": true}'``, ``--rules-override
+'{"norm": ["model"]}'``, ...).  A layout no model computes on (an input
+split along its sequence over another axis than 'model', a batch split
+over 'model': ``ValueError``) fails: its message is printed and the
+command exits 1, as do ``--all`` sweeps with a failed cell.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k --mesh single
@@ -263,7 +265,7 @@ def main(argv=None):
     cfg_over = json.loads(args.cfg_override) if args.cfg_override else None
     try:
         run_cell(args.arch, args.shape, args.mesh, args.out, override, cfg_over, args.device)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         print(f"FAILED: {args.arch} × {args.shape} × {args.mesh}: {e}", file=sys.stderr)
         return 1
     return 0

@@ -20,10 +20,15 @@ and a dispatch mode of its own:
     redistribution) and the in-place ``c10d.*_`` operators
     ``torch.distributed`` issues (``dist/fsdp.py``);
   - the peak of live device memory: the bytes of every storage off the
-    CPU alive at once, the arguments' included, each rounded up to the
-    512-byte blocks of PyTorch's CUDA caching allocator, so the peak
-    compares with ``torch.cuda.max_memory_allocated``.  The functional
-    collectives' results hold no memory of their own: an
+    CPU alive at once, the arguments' included, each as the block PyTorch's
+    CUDA caching allocator gives it (``_LargePool``: rounded up to 512
+    bytes; a request over 1 MiB takes the smallest free block that fits,
+    or a new segment, and holds the whole block where splitting it would
+    leave 1 MiB or less), so the peak compares with
+    ``torch.cuda.max_memory_allocated`` of a step that starts with no free
+    cached segment (the arguments count at their sizes: their blocks were
+    made before the step).  The functional collectives' results hold no
+    memory of their own: an
     ``AsyncCollectiveTensor`` counts as the tensor it wraps, and the
     outputs of ``_wrap_tensor_autograd`` and ``wait_tensor`` (on real
     tensors that wrapper and the input itself; on fake ones fresh tensors)
@@ -40,6 +45,7 @@ dry-run, ``launch/dryrun.py``) and on real ones (``chip_smoke.py`` phase
 """
 from __future__ import annotations
 
+import bisect
 import weakref
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -51,6 +57,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 BLOCK = 512  # the CUDA caching allocator's rounding of every block
+MIB = 1 << 20  # requests up to this size take the small pool's exact blocks
 
 # collective operators -> (the reference's kind, index of the operand argument)
 _COLLECTIVES = {
@@ -125,6 +132,53 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+class _LargePool:
+    """The CUDA caching allocator's large pool (requests over 1 MiB) on one
+    stream, as it hands out and takes back blocks: the smallest free block
+    that fits, else a new segment (20 MiB below 10 MiB, else the request
+    rounded up to 2 MiB); the rest split off as a free block only where it
+    exceeds 1 MiB, else held whole; a freed block merged with its free
+    neighbours in its segment.  Blocks are ``(segment, offset)``."""
+
+    def __init__(self):
+        self.free: List[tuple] = []  # sorted (size, segment, offset)
+        self.blocks: List[Dict[int, list]] = []  # per segment: offset -> [size, in use]
+
+    def malloc(self, n: int) -> tuple:
+        """-> (segment, offset, the block's bytes) for a request of ``n``
+        bytes (a multiple of ``BLOCK``, over 1 MiB)."""
+        i = bisect.bisect_left(self.free, (n, -1, -1))
+        if i < len(self.free):
+            size, seg, off = self.free.pop(i)
+        else:
+            size = 20 * MIB if n < 10 * MIB else -(-n // (2 * MIB)) * (2 * MIB)
+            seg, off = len(self.blocks), 0
+            self.blocks.append({})
+        if size - n > MIB:
+            self.blocks[seg][off + n] = [size - n, False]
+            bisect.insort(self.free, (size - n, seg, off + n))
+            size = n
+        self.blocks[seg][off] = [size, True]
+        return seg, off, size
+
+    def release(self, seg: int, off: int) -> None:
+        blocks = self.blocks[seg]
+        size = blocks[off][0]
+        nxt = blocks.get(off + size)
+        if nxt is not None and not nxt[1]:
+            self.free.remove((nxt[0], seg, off + size))
+            del blocks[off + size]
+            size += nxt[0]
+        prev = next((o for o, b in blocks.items() if o + b[0] == off and not b[1]), None)
+        if prev is not None:
+            self.free.remove((blocks[prev][0], seg, prev))
+            del blocks[off]
+            size += blocks[prev][0]
+            off = prev
+        blocks[off] = [size, False]
+        bisect.insort(self.free, (size, seg, off))
+
+
 def _writes(func, i: int) -> bool:
     """Whether output ``i`` of ``func`` is written by it: a fresh output,
     or one that aliases an input and is written (in place, ``out=``);
@@ -143,9 +197,14 @@ class _Counter(TorchDispatchMode):
         self.live: Dict[int, int] = {}  # storage key -> rounded bytes
         self.refs: Dict[int, weakref.ref] = {}
         self.alias: Dict[int, int] = {}  # storage key -> the key whose memory it is
+        self.pool = _LargePool()
+        self.held: Dict[int, tuple] = {}  # storage key -> its large-pool block
         self.current = 0
 
-    def track(self, t: torch.Tensor) -> None:
+    def track(self, t: torch.Tensor, pooled: bool = True) -> None:
+        """Count ``t``'s storage as live; ``pooled``: a block the step asks
+        the allocator for (an argument's block was made before the step, by
+        a history the counter does not see, so it counts at its size)."""
         t = _local(t)
         if t.device.type == "cpu":  # host memory (a step counter), not the device's
             return
@@ -154,6 +213,9 @@ class _Counter(TorchDispatchMode):
         if key in self.live:
             return
         n = -(-st.nbytes() // BLOCK) * BLOCK
+        if pooled and n > MIB:
+            seg, off, n = self.pool.malloc(n)
+            self.held[key] = (seg, off)
         self.live[key] = n
         self.refs[key] = weakref.ref(st, lambda _, k=key: self._free(k))
         self.current += n
@@ -162,6 +224,8 @@ class _Counter(TorchDispatchMode):
     def _free(self, key: int) -> None:
         self.current -= self.live.pop(key, 0)
         self.refs.pop(key, None)
+        if key in self.held:
+            self.pool.release(*self.held.pop(key))
 
     def same_memory(self, out: torch.Tensor, inp: torch.Tensor) -> None:
         """``out``'s storage is ``inp``'s memory: views of it count as
@@ -208,7 +272,7 @@ def analyze_step(fn: Callable, *args) -> OpCosts:
     costs = OpCosts(argument_bytes=[sum(_nbytes(t) for t in _tensors(a)) for a in args])
     counter = _Counter(costs)
     for t in _tensors(args):
-        counter.track(t)
+        counter.track(t, pooled=False)
     held = {_local(t).untyped_storage()._cdata for t in _tensors(args)}
     flop_counter = FlopCounterMode(display=False)
     try:

@@ -32,7 +32,12 @@ the replicated encoder output, which enters through ``fsdp.tp_copy``
 ``enc_k``/``enc_v`` are split by KV heads over 'model', and along their
 sequence where the rules put ``act_kv_seq`` on live axes (a batch of 1):
 both attentions then decode split-KV (``transformer.decode_attend``,
-``dist/fsdp.py``), the encoder memory with every position valid.
+``dist/fsdp.py``), the encoder memory with every position valid, each
+leaf by its own placement (at a capacity the divisibility guard keeps
+whole, the self-attention cache decodes whole while the encoder memory
+splits).  Under sequence parallelism the frames and the decoder tokens
+each split by their own placement, and the cross-attention's K/V gather
+the encoder output whole.
 """
 from __future__ import annotations
 
@@ -50,20 +55,21 @@ from repro_torch.models.layers import (
     cast,
     mlp_schema,
     rms_norm,
-    softmax_xent,
     stack_schema,
     tree_map,
     unstack,
 )
 from repro_torch.models.transformer import (
     _attn_out,
+    _group_heads,
     _heads_split,
     _kv_for_heads,
     _mlp,
-    _positions,
     _qkv,
+    _whole_positions,
     decode_attend,
     embed_tokens,
+    lm_xent,
     unembed,
     write_kv,
 )
@@ -115,103 +121,127 @@ def _block(cfg, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _enc_block(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
+def _enc_block(lp: dict, h: torch.Tensor, positions: torch.Tensor, cfg,
+               seq: bool = False) -> torch.Tensor:
     lp = fsdp.gather(lp, encoder_block_schema(cfg))
-    a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(lp["attn"], a_in, cfg)
+    a_in = rms_norm(h, fsdp.tp_copy(lp["ln1"]) if seq else lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(lp["attn"], a_in, cfg, seq)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     Hq = q.shape[2]
     out = attn_lib.attend(q, _kv_for_heads(k, Hq, cfg), _kv_for_heads(v, Hq, cfg), causal=False)
-    h = h + _attn_out(lp["attn"], out, cfg)
-    m_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    return h + _mlp(lp["mlp"], m_in, cfg)
+    h = h + _attn_out(lp["attn"], out, cfg, seq)
+    m_in = rms_norm(h, fsdp.tp_copy(lp["ln2"]) if seq else lp["ln2"], cfg.norm_eps)
+    return h + _mlp(lp["mlp"], m_in, cfg, seq)
 
 
-def encode(params: dict, frames, cfg) -> torch.Tensor:
+def encode(params: dict, frames, cfg, seq: bool = False) -> torch.Tensor:
     """frames: (B, S_enc, D) precomputed frame embeddings (frontend stub),
     cast to ``cfg.dtype`` before the ``frontend_proj`` product (column-
-    parallel, then gathered along D, where ``embed_out`` is split)."""
+    parallel, then gathered along D, where ``embed_out`` is split).  Under
+    ``seq`` ``frames`` is this rank's slice of the sequence and so is the
+    encoder output: a split ``frontend_proj`` takes the frames gathered
+    whole (its output columns of every position), a whole one reads this
+    rank's frames."""
     fp = fsdp.gather_leaf(params["frontend_proj"], ("embed", "embed_out"))
     h = torch.as_tensor(frames, device=fp.device).to(as_dtype(cfg.dtype))
     if fp.shape[1] < cfg.d_model:
-        h = fsdp.tp_gather(fsdp.tp_copy(h) @ cast(fp, h.dtype), -1)
+        x = fsdp.tp_gather(h, 1) if seq else h
+        h = fsdp.tp_gather(fsdp.tp_copy(x) @ cast(fp, h.dtype), -1)
+        h = fsdp.sp_slice(h) if seq else h
     else:
-        h = h @ cast(fp, h.dtype)
-    B, S, _ = h.shape
-    positions = _positions(B, S, h.device)
+        h = h @ cast(fsdp.tp_copy(fp) if seq else fp, h.dtype)
+    positions = _whole_positions(h, seq)
     for lp in unstack(params["enc_layers"], cfg.num_encoder_layers):
-        h = _block(cfg, _enc_block, lp, h, positions, cfg)
-    return rms_norm(h, fsdp.gather_leaf(params["enc_norm"], ("norm",)), cfg.norm_eps)
+        h = _block(cfg, _enc_block, lp, h, positions, cfg, seq)
+    ln = fsdp.gather_leaf(params["enc_norm"], ("norm",))
+    return rms_norm(h, fsdp.tp_copy(ln) if seq else ln, cfg.norm_eps)
 
 
-def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg) -> tuple:
+def _enc_kv(lp: dict, enc_out: torch.Tensor, cfg, seq: bool = False) -> tuple:
     """Cross-attention k, v (B, S_enc, KV, hd) from the (replicated) encoder
     output; under TP this rank's KV heads, from an input that entered the
     parallel region (``tp_copy``), so the encoder's gradient sums every
     rank's heads, or, where the KV heads stay whole while the query heads
-    split, all of them, each entering on its own."""
+    split, all of them, each entering on its own.  Under ``seq``
+    ``enc_out`` is this rank's slice of the frames, gathered whole here:
+    through ``fsdp.sp_enter`` for this rank's KV heads, else alike on every
+    rank (``fsdp.tp_gather``)."""
     pa = lp["cross_attn"]
     kv_split = pa["wk"].shape[1] < cfg.num_kv_heads
-    x = fsdp.tp_copy(enc_out) if kv_split else enc_out
+    if seq:
+        x = fsdp.sp_enter(enc_out) if kv_split else fsdp.tp_gather(enc_out, 1)
+    else:
+        x = fsdp.tp_copy(enc_out) if kv_split else enc_out
     k, v = _proj_in(x, pa["wk"]), _proj_in(x, pa["wv"])
     if _heads_split(pa, cfg) and not kv_split:
         k, v = fsdp.tp_copy(k), fsdp.tp_copy(v)
     return k, v
 
 
-def _cross_q(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
+def _cross_q(lp: dict, h: torch.Tensor, cfg, seq: bool = False) -> torch.Tensor:
     """The cross-attention's query from the decoder's ``lnx`` output
-    (``wq`` alone, no RoPE): this rank's heads under TP."""
+    (``wq`` alone, no RoPE): this rank's heads under TP, over the gathered
+    sequence under ``seq``."""
     pa = lp["cross_attn"]
-    x = rms_norm(h, lp["lnx"], cfg.norm_eps)
-    return _proj_in(fsdp.tp_copy(x) if _heads_split(pa, cfg) else x, pa["wq"])
+    x = rms_norm(h, fsdp.tp_copy(lp["lnx"]) if seq else lp["lnx"], cfg.norm_eps)
+    if _heads_split(pa, cfg):
+        x = fsdp.sp_enter(x) if seq else fsdp.tp_copy(x)
+    elif seq:
+        x = fsdp.tp_gather(x, 1)
+    return _proj_in(x, _group_heads(pa, "wq", 1, cfg))
 
 
-def _cross_attend(lp: dict, h: torch.Tensor, enc_kv: tuple, positions, cfg) -> torch.Tensor:
+def _cross_attend(lp: dict, h: torch.Tensor, enc_kv: tuple, positions, cfg,
+                  seq: bool = False) -> torch.Tensor:
     """Cross-attention: q from the decoder's h, k/v precomputed from the
     encoder, not causal; ``positions`` is unused, as in the reference."""
-    q = _cross_q(lp, h, cfg)
+    q = _cross_q(lp, h, cfg, seq)
     k, v = enc_kv
     Hq = q.shape[2]
     out = attn_lib.attend(q, _kv_for_heads(k, Hq, cfg), _kv_for_heads(v, Hq, cfg), causal=False)
-    return h + _attn_out(lp["cross_attn"], out, cfg)
+    return h + _attn_out(lp["cross_attn"], out, cfg, seq)
 
 
 def _dec_block(lp: dict, h: torch.Tensor, enc_out: torch.Tensor, positions: torch.Tensor,
-               cfg) -> torch.Tensor:
+               cfg, seq: bool = False, enc_seq: bool = False) -> torch.Tensor:
     lp = fsdp.gather(lp, decoder_block_schema(cfg))
-    a_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(lp["self_attn"], a_in, cfg)
+    a_in = rms_norm(h, fsdp.tp_copy(lp["ln1"]) if seq else lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(lp["self_attn"], a_in, cfg, seq)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     Hq = q.shape[2]
     out = attn_lib.attend(q, _kv_for_heads(k, Hq, cfg), _kv_for_heads(v, Hq, cfg), causal=True)
-    h = h + _attn_out(lp["self_attn"], out, cfg)
-    h = _cross_attend(lp, h, _enc_kv(lp, enc_out, cfg), positions, cfg)
-    m_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    return h + _mlp(lp["mlp"], m_in, cfg)
+    h = h + _attn_out(lp["self_attn"], out, cfg, seq)
+    h = _cross_attend(lp, h, _enc_kv(lp, enc_out, cfg, enc_seq), positions, cfg, seq)
+    m_in = rms_norm(h, fsdp.tp_copy(lp["ln2"]) if seq else lp["ln2"], cfg.norm_eps)
+    return h + _mlp(lp["mlp"], m_in, cfg, seq)
+
+
+def _decoder(params: dict, frames, tokens, cfg) -> tuple:
+    """The decoder's output and whether it is this rank's slice of the
+    sequence: the frames and the tokens each split by their own placement."""
+    enc_seq = fsdp.input_split("frames")
+    enc_out = encode(params, frames, cfg, enc_seq)
+    seq = fsdp.input_split("tokens")
+    h = embed_tokens(params, tokens, cfg, seq)
+    positions = _whole_positions(h, seq)
+    for lp in unstack(params["dec_layers"], cfg.num_layers):
+        h = _block(cfg, _dec_block, lp, h, enc_out, positions, cfg, seq, enc_seq)
+    return h, seq
 
 
 def forward(params: dict, frames, tokens, cfg) -> torch.Tensor:
     """Teacher-forced logits (B, S_dec, padded vocab)."""
-    enc_out = encode(params, frames, cfg)
-    h = embed_tokens(params, tokens, cfg)
-    B, S, _ = h.shape
-    positions = _positions(B, S, h.device)
-    for lp in unstack(params["dec_layers"], cfg.num_layers):
-        h = _block(cfg, _dec_block, lp, h, enc_out, positions, cfg)
-    return unembed(params, h, cfg)
+    h, seq = _decoder(params, frames, tokens, cfg)
+    return unembed(params, h, cfg, seq)
 
 
 def loss_fn(params: dict, batch: dict, cfg) -> tuple:
     """batch: frames (B, S_enc, D), tokens and labels (B, S_dec) (labels
     below 0 masked).  Masked cross-entropy, no aux term."""
-    logits = forward(params, batch["frames"], batch["tokens"], cfg)
-    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    mask = (labels >= 0).float()
-    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask,
-                        vocab_parallel=logits.shape[-1] < cfg.padded_vocab)
+    h, seq = _decoder(params, batch["frames"], batch["tokens"], cfg)
+    xent = lm_xent(params, h, batch["labels"], cfg, seq)
     return xent, {"loss": xent, "xent": xent}
 
 
@@ -233,6 +263,7 @@ def decode_step(params: dict, token, cache: dict, cache_len, cfg) -> tuple:
     B = h.shape[0]
     n = torch.as_tensor(cache_len, device=h.device).long()
     positions = n.reshape(1, 1).expand(B, 1)
+    self_axes, enc_axes = fsdp.kv_seq_axes("k"), fsdp.kv_seq_axes("enc_k")
     for i in range(cfg.num_layers):
         lp = fsdp.gather(tree_map(lambda x: x[i], params["dec_layers"]),
                          decoder_block_schema(cfg))
@@ -241,12 +272,14 @@ def decode_step(params: dict, token, cache: dict, cache_len, cfg) -> tuple:
         q, k, v = _qkv(lp["self_attn"], a_in, cfg)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        write_kv(kc, vc, k, v, n)
-        h = h + _attn_out(lp["self_attn"], decode_attend(q, kc, vc, n + 1, cfg), cfg)
+        write_kv(kc, vc, k, v, n, self_axes)
+        h = h + _attn_out(lp["self_attn"], decode_attend(q, kc, vc, n + 1, cfg, axes=self_axes),
+                          cfg)
         # cross-attention over the full encoder memory: every position valid
         qx = _cross_q(lp, h, cfg)
         h = h + _attn_out(lp["cross_attn"], decode_attend(
-            qx, cache["enc_k"][i], cache["enc_v"][i], n.new_full((), ENC_MEMORY), cfg), cfg)
+            qx, cache["enc_k"][i], cache["enc_v"][i], n.new_full((), ENC_MEMORY), cfg,
+            axes=enc_axes), cfg)
         m_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
         h = h + _mlp(lp["mlp"], m_in, cfg)
     logits = unembed(params, h, cfg)[:, 0]

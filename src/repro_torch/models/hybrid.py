@@ -20,7 +20,10 @@ family's: its query and KV heads split, and its SwiGLU MLP, through
 ``models/transformer.py``'s helpers on the 2 d_model-wide input.  At
 decode its KV caches may also be split along their sequence (a batch of
 1 leaves the data axes to ``act_kv_seq``): it decodes split-KV through
-``transformer.decode_attend`` and ``write_kv`` (``dist/fsdp.py``).
+``transformer.decode_attend`` and ``write_kv`` (``dist/fsdp.py``).  Under
+sequence parallelism the residual stream, ``h0`` and the norms hold this
+rank's slice of the sequence, and the Mamba-2 layers and the shared block
+gather it at their entry (``dist/fsdp.py``).
 """
 from __future__ import annotations
 
@@ -34,7 +37,6 @@ from repro_torch.models.layers import (
     mlp_schema,
     remat,
     rms_norm,
-    softmax_xent,
     stack_schema,
     unstack,
 )
@@ -44,8 +46,10 @@ from repro_torch.models.transformer import (
     _kv_for_heads,
     _mlp,
     _qkv,
+    _whole_positions,
     decode_attend,
     embed_tokens,
+    lm_xent,
     unembed,
     write_kv,
 )
@@ -84,59 +88,62 @@ def n_shared_invocations(cfg) -> int:
     return (cfg.num_layers + cfg.attn_every - 1) // cfg.attn_every
 
 
-def _shared_qkv(sp: dict, xcat: torch.Tensor, positions: torch.Tensor, cfg) -> tuple:
-    a_in = rms_norm(xcat, sp["ln_in"], cfg.norm_eps)
-    q, k, v = _qkv(sp, a_in, cfg)
+def _shared_qkv(sp: dict, xcat: torch.Tensor, positions: torch.Tensor, cfg,
+                seq: bool = False) -> tuple:
+    a_in = rms_norm(xcat, fsdp.tp_copy(sp["ln_in"]) if seq else sp["ln_in"], cfg.norm_eps)
+    q, k, v = _qkv(sp, a_in, cfg, seq)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _shared_out(sp: dict, h: torch.Tensor, attn_out: torch.Tensor, cfg) -> torch.Tensor:
-    h = h + _attn_out(sp, attn_out, cfg)
-    return h + _mlp(sp["mlp"], rms_norm(h, sp["ln_mlp"], cfg.norm_eps), cfg)
+def _shared_out(sp: dict, h: torch.Tensor, attn_out: torch.Tensor, cfg,
+                seq: bool = False) -> torch.Tensor:
+    h = h + _attn_out(sp, attn_out, cfg, seq)
+    ln = fsdp.tp_copy(sp["ln_mlp"]) if seq else sp["ln_mlp"]
+    return h + _mlp(sp["mlp"], rms_norm(h, ln, cfg.norm_eps), cfg, seq)
 
 
 def shared_block(sp: dict, h: torch.Tensor, h0: torch.Tensor, positions: torch.Tensor,
-                 cfg) -> torch.Tensor:
-    q, k, v = _shared_qkv(sp, torch.cat([h, h0], dim=-1), positions, cfg)
+                 cfg, seq: bool = False) -> torch.Tensor:
+    q, k, v = _shared_qkv(sp, torch.cat([h, h0], dim=-1), positions, cfg, seq)
     Hq = q.shape[2]
     attn_out = attn_lib.attend(q, _kv_for_heads(k, Hq, cfg), _kv_for_heads(v, Hq, cfg),
                                causal=True, window=cfg.sliding_window)
-    return _shared_out(sp, h, attn_out, cfg)
+    return _shared_out(sp, h, attn_out, cfg, seq)
 
 
 def _layer(lp: dict, sp: dict, h: torch.Tensor, h0: torch.Tensor, positions, idx: int,
-           cfg) -> torch.Tensor:
+           cfg, seq: bool) -> torch.Tensor:
     lp = fsdp.gather(lp, _layer_schema(cfg))
-    m_out, _ = mamba2_apply(lp["mamba"], rms_norm(h, lp["ln"], cfg.norm_eps), cfg)
+    ln = fsdp.tp_copy(lp["ln"]) if seq else lp["ln"]
+    m_out, _ = mamba2_apply(lp["mamba"], rms_norm(h, ln, cfg.norm_eps), cfg, seq=seq)
     h = h + m_out
     if idx % cfg.attn_every == 0:
-        h = shared_block(sp, h, h0, positions, cfg)
+        h = shared_block(sp, h, h0, positions, cfg, seq)
     return h
 
 
-def hidden_states(params: dict, tokens, cfg) -> torch.Tensor:
-    h = embed_tokens(params, tokens, cfg)
+def hidden_states(params: dict, tokens, cfg) -> tuple:
+    """-> (h, whether ``h`` is this rank's slice of the sequence)."""
+    seq = fsdp.input_split("tokens")
+    h = embed_tokens(params, tokens, cfg, seq)
     h0 = h
-    B, S, _ = h.shape
-    positions = torch.arange(S, device=h.device).expand(B, S)
+    positions = _whole_positions(h, seq)
     sp = fsdp.gather(params["shared"], shared_block_schema(cfg))
     for idx, lp in enumerate(unstack(params["layers"], cfg.num_layers)):
-        h = remat(cfg, _layer, lp, sp, h, h0, positions, idx, cfg)
-    return h
+        h = remat(cfg, _layer, lp, sp, h, h0, positions, idx, cfg, seq)
+    return h, seq
 
 
 def forward(params: dict, tokens, cfg) -> torch.Tensor:
-    return unembed(params, hidden_states(params, tokens, cfg), cfg)
+    h, seq = hidden_states(params, tokens, cfg)
+    return unembed(params, h, cfg, seq)
 
 
 def loss_fn(params: dict, batch: dict, cfg) -> tuple:
-    logits = forward(params, batch["tokens"], cfg)
-    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    mask = (labels >= 0).float()
-    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask,
-                        vocab_parallel=logits.shape[-1] < cfg.padded_vocab)
+    h, seq = hidden_states(params, batch["tokens"], cfg)
+    xent = lm_xent(params, h, batch["labels"], cfg, seq)
     return xent, {"loss": xent, "xent": xent}
 
 
@@ -174,8 +181,10 @@ def _shared_block_decode(sp, h, h0, k_cache, v_cache, cache_len, cfg) -> torch.T
     n = torch.as_tensor(cache_len, device=h.device).long()
     positions = n.reshape(1, 1).expand(h.shape[0], 1)
     q, k, v = _shared_qkv(sp, torch.cat([h, h0], dim=-1), positions, cfg)
-    write_kv(k_cache, v_cache, k, v, n)
-    attn_out = decode_attend(q, k_cache, v_cache, n + 1, cfg, window=cfg.sliding_window)
+    axes = fsdp.kv_seq_axes("k")
+    write_kv(k_cache, v_cache, k, v, n, axes)
+    attn_out = decode_attend(q, k_cache, v_cache, n + 1, cfg, axes=axes,
+                             window=cfg.sliding_window)
     return _shared_out(sp, h, attn_out, cfg)
 
 

@@ -240,16 +240,18 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
-                 vocab_parallel: bool = False) -> torch.Tensor:
+                 vocab_parallel: bool = False, seq: bool = False) -> torch.Tensor:
     """logits (B, S, V) any float dtype; labels int (B, S). fp32 reduction:
     the mean over ``mask``-weighted positions of ``logsumexp - gold``.
 
     Inside a sharding context the mean is over the global batch: the
-    numerator and the denominator are summed over the ranks the batch is
-    split over (``fsdp.batch_sum``), never a mean of per-rank means.  With
-    ``vocab_parallel`` the logits are this rank's contiguous slice of the
-    vocabulary: the row max, the exponentials' sum and the gold logit are
-    reduced over ``model``."""
+    numerator and the denominator are summed over every rank that holds a
+    share of the tokens (``fsdp.token_sum``: the batch axes, and 'model'
+    where ``seq`` says the positions are this rank's slice of the
+    sequence), never a mean of per-rank means.  With ``vocab_parallel``
+    the logits are this rank's contiguous slice of the vocabulary: the row
+    max, the exponentials' sum and the gold logit are reduced over
+    ``model``."""
     from repro_torch.dist import fsdp
 
     logits = logits.float()
@@ -265,14 +267,14 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
-    if fsdp.batch_shards() == 1:
+    if fsdp.batch_shards() == 1 and not (seq and fsdp.model_size() > 1):
         if mask is None:
             return nll.mean()
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     mask = torch.ones_like(nll) if mask is None else mask.float()
-    return fsdp.batch_sum((nll * mask).sum()) / torch.clamp(fsdp.batch_sum(mask.sum()),
-                                                            min=1.0)
+    return fsdp.token_sum((nll * mask).sum(), seq) / torch.clamp(
+        fsdp.token_sum(mask.sum(), seq), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,15 @@ As in the reference, the pairs are split into
 the data axes' size when the tokens split over them), each with its own
 capacity ``max(K, C // groups)`` of the global ``C``, so slots are counted
 within a group and a data shard's scatter never leaves it.  A rank holds
-the groups of its batch shard.  The load-balancing loss is over the
-global batch (``fsdp.batch_sum``).  The ``fsdp.constrain`` sites are the
-reference's.  The expert products are ``torch.bmm``: the reference leaves
-them to XLA, outside any Pallas kernel.
+the groups of its batch shard; where one group spans every rank's rows
+(the serving engine's steps, which route the whole batch as one group as
+the reference's engine does), the ranks' top-k choices, a few bytes a
+token, are gathered over the batch axes to count each pair's slot over the
+whole batch, and each rank dispatches its own pairs into those slots.  The
+load-balancing loss is over the global batch (``fsdp.batch_sum``).  The
+``fsdp.constrain`` sites are the reference's.  The expert products are
+``torch.bmm``: the reference leaves them to XLA, outside any Pallas
+kernel.
 
 Over a 'model' axis (``dist/fsdp.py``'s rule), read from the gathered
 shapes:
@@ -107,15 +112,23 @@ def moe_apply(p: dict, x: torch.Tensor, cfg) -> tuple:
     groups = fsdp.group_count("act_tokens")
     while (T_all * K) % groups != 0:  # defensive, as the reference
         groups //= 2
-    if groups % shards:
+    # one group over every rank's rows (the serving engine, as the
+    # reference's outside any context): each pair's slot counts the pairs of
+    # the whole batch before it, from the ranks' top-k choices gathered in
+    # the batch's order
+    spans = groups == 1 and shards > 1
+    if groups % shards and not spans:
         raise ValueError(f"{groups} token groups over a batch split {shards} ways")
-    G = groups // shards  # this rank's groups
+    G = 1 if spans else groups // shards  # this rank's groups
     TKg = T * K // G
     Cg = max(K, C // groups)
     flat_e = idx.reshape(G, TKg)
-    onehot = (torch.arange(E, device=x.device)[None, :, None] == flat_e[:, None, :]).int()
+    every = fsdp.batch_gather(idx.reshape(1, T * K), dim=1) if spans else flat_e
+    onehot = (torch.arange(E, device=x.device)[None, :, None] == every[:, None, :]).int()
     counts = torch.cumsum(onehot, dim=2, dtype=torch.int32)
-    slot = counts.gather(1, flat_e[:, None, :])[:, 0].long() - 1  # (G, TKg)
+    slot = counts.gather(1, every[:, None, :])[:, 0].long() - 1
+    if spans:  # this rank's pairs
+        slot = slot.narrow(1, fsdp.batch_index() * T * K, T * K)
     keep = slot < Cg
     slot_c = torch.clamp(slot, max=Cg - 1)
     base = (torch.arange(G, device=x.device)[:, None] * E + flat_e) * Cg  # (G, TKg)

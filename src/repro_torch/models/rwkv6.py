@@ -21,7 +21,10 @@ channel-mix's ``cw_k`` and ``cw_r`` are column-parallel behind
 the decay ``w`` is computed whole and sliced to the local heads, ``ln_x``
 normalises over all of D with a statistic summed over the ranks, and
 ``cw_r``'s split output is gathered (``fsdp.tp_gather``), so ``r * kv``
-is replicated.  What is split is read from the gathered shapes.
+is replicated.  What is split is read from the gathered shapes.  Under
+sequence parallelism (``seq``) each mix gathers the sequence before its
+token shift (``fsdp.sp_enter``) and leaves through ``fsdp.sp_exit``;
+``dist/fsdp.py``'s rule.
 """
 from __future__ import annotations
 
@@ -85,12 +88,26 @@ def wkv6_decode_step(r, k, v, w, u, state) -> tuple:
 
 
 def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg, state=None, decode: bool = False,
-                   shift_state=None) -> tuple:
-    B, S, D = x.shape
-    hd = cfg.d_head
+                   shift_state=None, seq: bool = False) -> tuple:
+    """The time mix; under ``seq`` ``x`` is this rank's slice of the
+    sequence (and so is the output): with the heads split it enters
+    through ``fsdp.sp_enter`` before the token shift, which reads the
+    previous position, and every whole parameter this rank's share reads
+    enters through ``fsdp.tp_copy``; with them whole the mix runs on the
+    gathered sequence, alike on every rank."""
     H = p["wr"].shape[1]  # this rank's heads
     split = H < cfg.num_heads
-    enter = fsdp.tp_copy if split else (lambda t: t)
+    if seq and not split:
+        out, new_state, last = rwkv6_time_mix(p, fsdp.tp_gather(x, 1), cfg, state)
+        return fsdp.sp_slice(out), new_state, last
+    if seq:
+        x = fsdp.sp_enter(x)
+    B, S, D = x.shape
+    hd = cfg.d_head
+    if seq:  # whole parameters read by this rank's share
+        p = dict(p, **{n: fsdp.tp_copy(p[n]) for n in (
+            "mix_r", "mix_k", "mix_v", "mix_w", "mix_g", "w0", "w_lora_a", "w_lora_b")})
+    enter = fsdp.tp_copy if split and not seq else (lambda t: t)
     xs = token_shift(x, shift_state)
     xr, xk, xv, xw, xg = (_mix(x, xs, p[f"mix_{n}"]) for n in "rkvwg")
     r, k, v, g = (_proj_in(enter(xi), p[n]) for xi, n in ((xr, "wr"), (xk, "wk"), (xv, "wv"),
@@ -102,7 +119,7 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg, state=None, decode: bool = Fal
     ln_x = p["ln_x"]
     if split:  # whole, read by this rank's heads
         lo = fsdp.model_rank() * H
-        w = fsdp.tp_copy(w)[:, :, lo:lo + H].contiguous()
+        w = enter(w)[:, :, lo:lo + H].contiguous()
         ln_x = fsdp.tp_copy(ln_x)[lo * hd:(lo + H) * hd]
     if decode:
         o, new_state = wkv6_decode_step(r, k, v, w, p["u_bonus"], state)
@@ -110,23 +127,41 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg, state=None, decode: bool = Fal
         o, new_state = ops.wkv(r, k, v, w, p["u_bonus"], init_state=state)
     o = rms_norm(o.reshape(B, S, H * hd), ln_x, cfg.norm_eps, width=D) * F.silu(g).flatten(-2)
     out = out_project(p, o.reshape(B, S, H, hd))
-    return (fsdp.tp_sum(out) if split else out), new_state, x[:, -1]
+    out = fsdp.sp_exit(out) if seq else fsdp.tp_sum(out) if split else out
+    return out, new_state, x[:, -1]
 
 
-def rwkv6_channel_mix(p: dict, x: torch.Tensor, cfg, shift_state=None) -> tuple:
+def rwkv6_channel_mix(p: dict, x: torch.Tensor, cfg, shift_state=None,
+                      seq: bool = False) -> tuple:
     """The channel mix; ``cfg`` says whether ``cw_k``/``cw_v`` (its ``d_ff``)
-    are split over 'model'."""
+    are split over 'model'.  Under ``seq`` as the time mix: with ``d_ff``
+    split it enters through ``fsdp.sp_enter``, ``r * kv`` is this rank's
+    partial sum and leaves through ``fsdp.sp_exit`` (``cw_r``'s split
+    output is gathered with its gradient reduce-scattered back); with it
+    whole the mix runs on the gathered sequence, alike on every rank."""
     dt = x.dtype
+    mlp_split = p["cw_k"].shape[1] < cfg.d_ff
+    if seq and not mlp_split:
+        out, last = rwkv6_channel_mix(p, fsdp.tp_gather(x, 1), cfg)
+        return fsdp.sp_slice(out), last
+    if seq:
+        x = fsdp.sp_enter(x)
+    if seq:  # whole parameters read by this rank's share
+        p = dict(p, **{n: fsdp.tp_copy(p[n]) for n in ("cmix_k", "cmix_r")})
+    enter = fsdp.tp_copy if mlp_split and not seq else (lambda t: t)
     xs = token_shift(x, shift_state)
     xk = _mix(x, xs, p["cmix_k"])
     xr = _mix(x, xs, p["cmix_r"])
-    mlp_split = p["cw_k"].shape[1] < cfg.d_ff
-    k = torch.square(torch.relu((fsdp.tp_copy(xk) if mlp_split else xk) @ cast(p["cw_k"], dt)))
+    k = torch.square(torch.relu(enter(xk) @ cast(p["cw_k"], dt)))
     kv = k @ cast(p["cw_v"], dt)
-    if mlp_split:
+    if mlp_split and not seq:
         kv = fsdp.tp_sum(kv)
     if p["cw_r"].shape[1] < x.shape[-1]:  # embed_out split: gathered back to all of D
-        r = torch.sigmoid(fsdp.tp_gather(fsdp.tp_copy(xr) @ cast(p["cw_r"], dt), -1))
+        if seq:
+            r = torch.sigmoid(fsdp.sp_enter(xr @ cast(p["cw_r"], dt), -1))
+        else:
+            r = torch.sigmoid(fsdp.tp_gather(fsdp.tp_copy(xr) @ cast(p["cw_r"], dt), -1))
     else:
-        r = torch.sigmoid(xr @ cast(p["cw_r"], dt))
-    return r * kv, x[:, -1]
+        r = torch.sigmoid(xr @ cast(fsdp.tp_copy(p["cw_r"]) if seq else p["cw_r"], dt))
+    out = r * kv
+    return (fsdp.sp_exit(out) if seq else out), x[:, -1]

@@ -8,7 +8,9 @@ the block's activations are recomputed in the backward pass, WKV forward
 included, and its ``fsdp.gather`` (the reference's site) with them.
 Under tensor parallelism over 'model' the blocks run on this rank's heads
 (``models/rwkv6.py``), the decode state stays split by heads
-(``cache_schema``) and the logits by vocabulary.
+(``cache_schema``) and the logits by vocabulary.  Where the tokens' placement
+splits their sequence over 'model' (sequence parallelism) the residual
+stream and the norms hold this rank's slice (``dist/fsdp.py``).
 """
 from __future__ import annotations
 
@@ -19,12 +21,11 @@ from repro_torch.models.layers import (
     ParamSpec,
     remat,
     rms_norm,
-    softmax_xent,
     stack_schema,
     unstack,
 )
 from repro_torch.models.rwkv6 import rwkv6_channel_mix, rwkv6_schema, rwkv6_time_mix
-from repro_torch.models.transformer import embed_tokens, layer_params, unembed
+from repro_torch.models.transformer import embed_tokens, layer_params, lm_xent, unembed
 
 
 def _layer_schema(cfg) -> dict:
@@ -46,43 +47,44 @@ def rwkv_lm_schema(cfg) -> dict:
     }
 
 
-def _block(lp: dict, h: torch.Tensor, cfg, decode: bool = False, states=None) -> tuple:
+def _block(lp: dict, h: torch.Tensor, cfg, decode: bool = False, states=None,
+           seq: bool = False) -> tuple:
     lp = fsdp.gather(lp, _layer_schema(cfg))
-    tm_in = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    tm_in = rms_norm(h, fsdp.tp_copy(lp["ln1"]) if seq else lp["ln1"], cfg.norm_eps)
     if decode:
         wkv_state, tm_shift, cm_shift = states
         tm_out, wkv_new, tm_last = rwkv6_time_mix(
             lp["mix"], tm_in, cfg, state=wkv_state, decode=True, shift_state=tm_shift)
     else:
-        tm_out, wkv_new, tm_last = rwkv6_time_mix(lp["mix"], tm_in, cfg)
+        tm_out, wkv_new, tm_last = rwkv6_time_mix(lp["mix"], tm_in, cfg, seq=seq)
         cm_shift = None
     h = h + tm_out
-    cm_in = rms_norm(h, lp["ln2"], cfg.norm_eps)
-    cm_out, cm_last = rwkv6_channel_mix(lp["mix"], cm_in, cfg, shift_state=cm_shift)
+    cm_in = rms_norm(h, fsdp.tp_copy(lp["ln2"]) if seq else lp["ln2"], cfg.norm_eps)
+    cm_out, cm_last = rwkv6_channel_mix(lp["mix"], cm_in, cfg, shift_state=cm_shift, seq=seq)
     return h + cm_out, (wkv_new, tm_last, cm_last)
 
 
-def _block_h(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
-    return _block(lp, h, cfg)[0]
+def _block_h(lp: dict, h: torch.Tensor, cfg, seq: bool) -> torch.Tensor:
+    return _block(lp, h, cfg, seq=seq)[0]
 
 
-def hidden_states(params: dict, tokens, cfg) -> torch.Tensor:
-    h = embed_tokens(params, tokens, cfg)
+def hidden_states(params: dict, tokens, cfg) -> tuple:
+    """-> (h, whether ``h`` is this rank's slice of the sequence)."""
+    seq = fsdp.input_split("tokens")
+    h = embed_tokens(params, tokens, cfg, seq)
     for lp in unstack(params["layers"], cfg.num_layers):
-        h = remat(cfg, _block_h, lp, h, cfg)
-    return h
+        h = remat(cfg, _block_h, lp, h, cfg, seq)
+    return h, seq
 
 
 def forward(params: dict, tokens, cfg) -> torch.Tensor:
-    return unembed(params, hidden_states(params, tokens, cfg), cfg)
+    h, seq = hidden_states(params, tokens, cfg)
+    return unembed(params, h, cfg, seq)
 
 
 def loss_fn(params: dict, batch: dict, cfg) -> tuple:
-    logits = forward(params, batch["tokens"], cfg)
-    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    mask = (labels >= 0).float()
-    xent = softmax_xent(logits, torch.clamp(labels, min=0), mask,
-                        vocab_parallel=logits.shape[-1] < cfg.padded_vocab)
+    h, seq = hidden_states(params, batch["tokens"], cfg)
+    xent = lm_xent(params, h, batch["labels"], cfg, seq)
     return xent, {"loss": xent, "xent": xent}
 
 

@@ -16,11 +16,12 @@ rank of the mesh making the same calls: the weights and the cache are
 DTensors placed by the rules (``kvcache.init_cache(..., mesh, rules)``),
 decode runs through the sharded decode step
 (``train.step.jit_decode_step``; split-KV where the rules split the
-cache's sequence), and the fused prefill through ``train.step.jit_prefill``,
-which keeps each rank's share of the cache it builds, so the cache stays
-where the rules place it (the reference's prefill replaces its placed
-cache with an unplaced one).  Every rank gathers the logits and picks the
-same tokens.
+cache's sequence), a MoE routing each step's tokens as one group over the
+whole batch as the reference's engine does, and the fused prefill through
+``train.step.jit_prefill``, which keeps each rank's share of the cache it
+builds, so the cache stays where the rules place it (the reference's
+prefill replaces its placed cache with an unplaced one).  Every rank
+gathers the logits and picks the same tokens.
 
 ``ContinuousBatchingEngine`` serves a request *stream*: a paged KV pool
 (``serve/kvcache.py``) replaces the contiguous per-batch cache, each batch
@@ -136,11 +137,12 @@ class ServingEngine:
                 raise ValueError(f"device {device} is not the mesh's ({self.device.type})")
             shape = ShapeConfig("serve", capacity, batch, "decode")
             self.rules = rules = rules or sharding_rules(cfg, mesh, shape)
-            # a MoE groups a step's tokens as its batch rows are split: with
-            # the batch whole, every rank routes it as one group, as the
-            # reference's engine does (the rules' act_tokens count the
-            # cell's cache positions, not a step's tokens)
-            step_rules = dict(rules, act_tokens=tuple(rules.get("act_batch", ())))
+            # a MoE routes a step's tokens as one group over the whole batch,
+            # as the reference's engine does (it steps outside any sharding
+            # context): the rules' act_tokens count the cell's cache
+            # positions, not a step's tokens, so the steps' rules give it no
+            # axis, while the batch stays split as the rules split it
+            step_rules = dict(rules, act_tokens=())
             self._decode_fn, p_sh, self._decode_sh = jit_decode_step(self.api, mesh, shape,
                                                                      step_rules)
             if self.api.prefill is not None:

@@ -21,14 +21,16 @@ and Adafactor moments reduce over the sharded axes).  Tensor parallelism
 over 'model' runs for every family (the dense and MoE blocks, rwkv6,
 zamba2, pixtral's vision projection, seamless's encoder-decoder blocks:
 ``dist/fsdp.py``'s rule), and a decode cache split along its sequence
-decodes split-KV (the same docstring).  The layouts the port
-does not run raise ``NotImplementedError`` naming ROADMAP item 11b
-(``_check_layout``): sequence parallelism on a 'model' axis larger than
-1, KV heads split with the query heads whole, a parameter split on
-'model' along another logical axis than ``TP_AXES``, a Mamba-2
-``d_inner`` split that is not whole heads, and a cache leaf whose
-sequence the divisibility guard keeps whole where ``act_kv_seq`` splits
-it.
+decodes split-KV, each leaf by its own placement (the same docstring).
+Every layout the rules and their overrides give runs: sequence parallelism
+where an input's placement splits its sequence over 'model', KV heads split
+with the query heads whole, a Mamba-2 ``d_inner`` split over whole heads, a
+parameter split on 'model' along an axis outside ``fsdp.TP_AXES`` (gathered
+whole at its use) and a cache leaf the divisibility guard keeps whole.
+What the placement of the inputs says reaches the models through
+``fsdp.context``'s ``layout`` (``_layout``), which refuses with
+``ValueError`` an input split along its sequence over another axis than
+'model' and a batch split over 'model'.
 """
 from __future__ import annotations
 
@@ -106,75 +108,54 @@ def make_decode_step(api):
 # ---------------------------------------------------------------------------
 
 
-# The logical parameter axes tensor parallelism over 'model' splits.
-TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "embed_out", "ssm_inner", "expert", "moe_mlp")
+def _axes_of(entry) -> tuple:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
 
 
-def _live_splits(schema, rules, mesh) -> dict:
-    """{logical axis: the mesh axes of size > 1 that split it in some leaf
-    of ``schema``} under ``pspec``."""
+def _layout(cfg, shape: ShapeConfig, rules, mesh, bt_specs: dict, inputs: dict) -> dict:
+    """What the placement of a step's inputs (``bt_specs``, their specs;
+    ``inputs``, anything with their shapes) says to the models (``fsdp.context``'s
+    ``layout``): the inputs whose sequence is split over 'model' (sequence
+    parallelism), with ``"residual"`` among them where the decoder's
+    residual stream splits (the tokens, after pixtral's patches: their
+    whole length through the same divisibility guard), and for each decode
+    cache leaf the live mesh axes its sequence is split over.  An
+    input split along its sequence over another axis than 'model', or a
+    batch split over 'model', raises ``ValueError``: no model computes on
+    such a slice."""
+    from repro_torch.dist.sharding import _INPUT_AXES
+
     sizes = mesh_axis_sizes(mesh)
-    out: dict = {}
-    for s in tree_leaves(schema):
-        for name, e in zip(s.axes, pspec(s.axes, s.shape, rules, mesh)):
-            live = {a for a in ((e,) if isinstance(e, str) else e or ()) if sizes[a] > 1}
-            if live:
-                out.setdefault(name, set()).update(live)
-    return out
+    live = [a for a in rules.get("act_batch", ()) if sizes.get(a, 1) > 1]
+    if "model" in live:
+        raise ValueError(f"{cfg.name}: act_batch splits the batch over 'model' ({live}): "
+                         "'model' carries the heads, experts or the sequence")
+    specs = dict(bt_specs)
+    if "tokens" in inputs:
+        B, n = inputs["tokens"].shape[:2]
+        n += inputs["patch_embeds"].shape[1] if "patch_embeds" in inputs else 0
+        specs["residual"] = pspec(("act_batch", "act_seq"), (B, n), rules, mesh)
+    seq = set()
+    for key, spec in specs.items():
+        axes = ("act_batch", "act_seq") if key == "residual" else _INPUT_AXES.get(key, ())
+        if key == "cache" or "act_seq" not in axes:
+            continue
+        d = axes.index("act_seq")
+        got = [a for a in _axes_of(spec[d] if d < len(spec) else None) if sizes[a] > 1]
+        if set(got) - {"model"}:
+            raise ValueError(f"{cfg.name}: the input {key!r} is split along its sequence over "
+                             f"{got}: sequence parallelism splits it over 'model' only")
+        if got:
+            seq.add(key)
+    kv_seq = {}
+    if "cache" in bt_specs:
+        from repro_torch.models.api import get_model
 
-
-def _model_ways(spec, axis, rules, mesh) -> int:
-    """How many ways 'model' splits the logical ``axis`` of ``spec``."""
-    parts = pspec(spec.axes, spec.shape, rules, mesh)
-    e = parts[spec.axes.index(axis)] if spec.axes.index(axis) < len(parts) else None
-    return mesh_axis_sizes(mesh)["model"] if "model" in ((e,) if isinstance(e, str)
-                                                         else e or ()) else 1
-
-
-def _check_layout(api, mesh, rules, shape: Optional[ShapeConfig] = None) -> None:
-    """Raise for the layouts the port does not run (ROADMAP item 11b):
-    under a 'model' axis larger than 1, sequence parallelism, a parameter
-    split on 'model' along another logical axis than ``TP_AXES``, KV heads
-    split with the query heads whole, or a Mamba-2 ``d_inner`` split that
-    is not whole heads; on any mesh, a decode cell (``shape``) with a cache
-    leaf whose sequence the divisibility guard keeps whole on an axis the
-    rules' ``act_kv_seq`` splits (the split-KV decode reads the split from
-    the rules)."""
-    cfg = api.cfg
-    model = mesh_axis_sizes(mesh).get("model", 1)
-    if model > 1 and cfg.sequence_parallel:
-        raise NotImplementedError(f"{cfg.name}: sequence parallelism ({fsdp.ITEM_11B})")
-    if model > 1:
-        split = {n for n, axes in _live_splits(api.schema, rules, mesh).items()
-                 if "model" in axes}
-        if split - set(TP_AXES):
-            raise NotImplementedError(
-                f"{cfg.name}: parameters split over 'model' on {sorted(split - set(TP_AXES))}: "
-                f"only {TP_AXES} are ported ({fsdp.ITEM_11B})")
-        if "kv_heads" in split and "heads" not in split:
-            raise NotImplementedError(f"{cfg.name}: KV heads split over 'model' with the "
-                                      f"query heads whole ({fsdp.ITEM_11B})")
-        mamba = api.schema.get("layers", {}).get("mamba")
-        if mamba is not None:  # a rank's share of d_inner must be whole heads
-            inner = _model_ways(mamba["wx"], "ssm_inner", rules, mesh)
-            heads = _model_ways(mamba["wdt"], "heads", rules, mesh)
-            if inner != heads:
-                raise NotImplementedError(
-                    f"{cfg.name}: d_inner split {inner} ways over 'model' and the Mamba-2 "
-                    f"heads {heads}: a rank's channels are not whole heads ({fsdp.ITEM_11B})")
-    if shape is not None and shape.kind == "decode":
-        sizes = mesh_axis_sizes(mesh)
-        want = [a for a in rules.get("act_kv_seq", ()) if sizes.get(a, 1) > 1]
-        for key, s in api.cache_schema(shape.global_batch, shape.seq_len).items():
-            if "act_kv_seq" not in s.axes:
-                continue
-            e = pspec(s.axes, s.shape, rules, mesh) + (None,) * len(s.axes)
-            got = e[s.axes.index("act_kv_seq")]
-            got = [a for a in ((got,) if isinstance(got, str) else got or ()) if sizes[a] > 1]
-            if got != want:
-                raise NotImplementedError(
-                    f"{cfg.name}: the cache leaf {key!r} of {tuple(s.shape)} is split along its "
-                    f"sequence over {got}, not over act_kv_seq's {want} ({fsdp.ITEM_11B})")
+        for key, s in get_model(cfg).cache_schema(shape.global_batch, shape.seq_len).items():
+            if "act_kv_seq" in s.axes:
+                e = (bt_specs["cache"][key] + (None,) * len(s.axes))[s.axes.index("act_kv_seq")]
+                kv_seq[key] = tuple(a for a in _axes_of(e) if sizes[a] > 1)
+    return {"seq": frozenset(seq), "kv_seq": kv_seq}
 
 
 def _local(tree):
@@ -199,9 +180,11 @@ def _from_local(x: torch.Tensor, mesh, spec: tuple):
     return DTensor.from_local(x, mesh, NamedSharding(mesh, spec).placements)
 
 
-def _logits_spec(api, rules, mesh, ndim: int) -> tuple:
+def _logits_spec(api, rules, mesh, ndim: int, seq: bool = False) -> tuple:
     """The spec of this rank's logits: the batch dim split as the batch,
-    the vocabulary over 'model' where the unembedding splits it."""
+    the vocabulary over 'model' where the unembedding splits it; where it
+    keeps the vocabulary whole and ``seq`` (the residual stream is this
+    rank's slice of the sequence), the sequence over 'model'."""
     cfg = api.cfg
     name, vocab_dim = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
     w = api.schema[name]
@@ -209,6 +192,8 @@ def _logits_spec(api, rules, mesh, ndim: int) -> tuple:
     batch = tuple(rules.get("act_batch", ()))
     parts = [None if not batch else batch[0] if len(batch) == 1 else batch]
     parts += [None] * (ndim - 2) + ["model" if entry == "model" else None]
+    if seq and entry != "model" and ndim == 3:
+        parts[1] = "model"
     while parts and parts[-1] is None:
         parts.pop()
     return tuple(parts)
@@ -225,14 +210,15 @@ def jit_train_step(api, optimizer, mesh, shape: ShapeConfig, rules: Optional[dic
 
     cfg = api.cfg
     rules = rules or sharding_rules(cfg, mesh, shape)
-    _check_layout(api, mesh, rules, shape)
     st_sh = state_shardings(api, optimizer, rules, mesh, report)
-    bt_sh = shardings_of(batch_pspecs(cfg, shape, rules, mesh, input_specs(cfg, shape),
-                                      report), mesh)
+    inputs = input_specs(cfg, shape)
+    bt_specs = batch_pspecs(cfg, shape, rules, mesh, inputs, report)
+    layout = _layout(cfg, shape, rules, mesh, bt_specs, inputs)
+    bt_sh = shardings_of(bt_specs, mesh)
     step = make_train_step(api, optimizer)
 
     def step_with_fsdp(state, batch):
-        with fsdp.context(mesh, rules):
+        with fsdp.context(mesh, rules, layout):
             return step(state, _local(batch))
 
     return step_with_fsdp, st_sh, bt_sh
@@ -246,16 +232,17 @@ def jit_forward(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None, rep
 
     cfg = api.cfg
     rules = rules or sharding_rules(cfg, mesh, shape)
-    _check_layout(api, mesh, rules, shape)
     p_sh = param_shardings(api.schema, rules, mesh, report)
-    bt_sh = shardings_of(batch_pspecs(cfg, shape, rules, mesh, input_specs(cfg, shape),
-                                      report), mesh)
+    inputs = input_specs(cfg, shape)
+    bt_specs = batch_pspecs(cfg, shape, rules, mesh, inputs, report)
+    layout = _layout(cfg, shape, rules, mesh, bt_specs, inputs)
+    bt_sh = shardings_of(bt_specs, mesh)
     fwd = make_forward(api)
-    spec = _logits_spec(api, rules, mesh, 3)
+    spec = _logits_spec(api, rules, mesh, 3, "residual" in layout["seq"])
 
     @torch.no_grad()
     def fwd_with_fsdp(params, batch):
-        with fsdp.context(mesh, rules):
+        with fsdp.context(mesh, rules, layout):
             return _from_local(fwd(params, _local(batch)), mesh, spec)
 
     return fwd_with_fsdp, p_sh, bt_sh
@@ -271,16 +258,17 @@ def jit_decode_step(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None,
 
     cfg = api.cfg
     rules = rules or sharding_rules(cfg, mesh, shape)
-    _check_layout(api, mesh, rules, shape)
     p_sh = param_shardings(api.schema, rules, mesh, report)
-    bt_sh = shardings_of(batch_pspecs(cfg, shape, rules, mesh, input_specs(cfg, shape),
-                                      report), mesh)
+    inputs = input_specs(cfg, shape)
+    bt_specs = batch_pspecs(cfg, shape, rules, mesh, inputs, report)
+    layout = _layout(cfg, shape, rules, mesh, bt_specs, inputs)
+    bt_sh = shardings_of(bt_specs, mesh)
     spec = _logits_spec(api, rules, mesh, 2)
     step = make_decode_step(api)
 
     @torch.no_grad()
     def decode_with_fsdp(params, batch):
-        with fsdp.context(mesh, rules):
+        with fsdp.context(mesh, rules, layout):
             logits, cache = step(params, _local(batch))
         cache = tree_map(lambda x, sh: _from_local(x, mesh, sh.spec), cache, bt_sh["cache"])
         return _from_local(logits, mesh, spec), cache
@@ -288,17 +276,18 @@ def jit_decode_step(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None,
     return decode_with_fsdp, p_sh, bt_sh
 
 
-def _seq_share(x: torch.Tensor, spec) -> torch.Tensor:
+def _seq_share(x: torch.Tensor, spec, sharding) -> torch.Tensor:
     """This rank's share of a whole cache leaf along its sequence
-    (``act_kv_seq``, split over ``fsdp.kv_seq_axes()``): a local slice, no
-    collective.  Inside a ``fsdp.context``."""
-    axes = fsdp.kv_seq_axes()
-    if "act_kv_seq" not in spec.axes or not axes:
+    (``act_kv_seq``), as the leaf's own placement (``sharding``) splits it:
+    a local slice, no collective.  Inside a ``fsdp.context``."""
+    if "act_kv_seq" not in spec.axes:
         return x
     dim = spec.axes.index("act_kv_seq")
-    mesh = fsdp.active()[0]
-    local = x.shape[dim] // math.prod(mesh_axis_sizes(mesh)[a] for a in axes)
-    return x.narrow(dim, fsdp.kv_seq_offset(local), local).contiguous()
+    sizes = mesh_axis_sizes(sharding.mesh)
+    axes = [a for a in _axes_of((sharding.spec + (None,) * len(spec.axes))[dim])
+            if sizes[a] > 1]
+    local = x.shape[dim] // math.prod(sizes[a] for a in axes)
+    return x.narrow(dim, fsdp.kv_seq_offset(local, axes), local).contiguous()
 
 
 def jit_prefill(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None,
@@ -318,7 +307,6 @@ def jit_prefill(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None,
         raise NotImplementedError(f"{cfg.name}: this family has no fused prefill; feed the "
                                   "prompt through the decode step")
     rules = rules or sharding_rules(cfg, mesh, shape)
-    _check_layout(api, mesh, rules, shape)
     p_sh = param_shardings(api.schema, rules, mesh, report)
     schema = api.cache_schema(shape.global_batch, shape.seq_len)
     c_sh = param_shardings(schema, rules, mesh, report)
@@ -327,10 +315,11 @@ def jit_prefill(api, mesh, shape: ShapeConfig, rules: Optional[dict] = None,
     @torch.no_grad()
     def prefill_with_fsdp(params, tokens):
         tok_spec = pspec(("act_batch", "act_seq"), tokens.shape, rules, mesh)  # as a batch's
-        with fsdp.context(mesh, rules):
+        layout = _layout(cfg, shape, rules, mesh, {"tokens": tok_spec}, {"tokens": tokens})
+        with fsdp.context(mesh, rules, layout):
             tokens = _local(device_put(tokens, NamedSharding(mesh, tok_spec)))
             logits, cache = api.prefill(params, tokens, shape.seq_len)
-            cache = tree_map(lambda x, s, sh: _from_local(_seq_share(x, s), mesh, sh.spec),
+            cache = tree_map(lambda x, s, sh: _from_local(_seq_share(x, s, sh), mesh, sh.spec),
                              cache, schema, c_sh)
         return _from_local(logits, mesh, spec), cache
 

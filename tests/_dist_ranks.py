@@ -27,10 +27,21 @@ STEPS, LR_STEPS = 3, 5
 READ_ONLY = ("enc_k", "enc_v")  # the cache leaves a decode step reads and never writes
 
 
-def _config(arch):
+def _config(arch, over=None):
+    """The reduced config in fp32, with a case's field overrides."""
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32", **(over or {}))
+
+
+def _rules(cfg, mesh, shape, case):
+    """The cell's rules with a case's ``rules`` overrides, or None."""
+    from repro_torch.dist.sharding import sharding_rules
+
+    if not case.get("rules"):
+        return None
+    return dict(sharding_rules(cfg, mesh, shape),
+                **{k: tuple(v) for k, v in case["rules"].items()})
 
 
 def _mesh(shape):
@@ -73,13 +84,14 @@ def run_train(name, case, ref, out, rank):
     from repro_torch.optim.optimizer import make_optimizer
     from repro_torch.train.step import jit_train_step
 
-    cfg = _config(case["arch"])
+    cfg = _config(case["arch"], case.get("cfg"))
     api, opt = get_model(cfg), make_optimizer(cfg, LR_STEPS)
     mesh = _mesh(case["mesh"])
     flat = _load(ref, name)
     shape = dataclasses.replace(TRAIN_4K, seq_len=case.get("seq", 16),
                                 global_batch=case.get("batch", 8), name="t")
-    fn, st_sh, bt_sh = jit_train_step(api, opt, mesh, shape)
+    fn, st_sh, bt_sh = jit_train_step(api, opt, mesh, shape,
+                                      rules=_rules(cfg, mesh, shape, case))
     params = params_from_numpy(_sub(flat, "params/"), device="cpu")
     state = {"params": params, "opt": opt.init(params),
              "step": torch.zeros((), dtype=torch.int32)}
@@ -96,6 +108,8 @@ def run_train(name, case, ref, out, rank):
     res.update(_full(state["params"], "params/"))
     res.update({k: v for k, v in _full(state["opt"], "opt/").items()
                 if k.startswith("opt/m/") or k.startswith("opt/stats/")})
+    res.update({f"placements/{k}": np.array([str(p) for p in sh.placements])
+                for k, sh in bt_sh.items()})
     if case.get("shards"):
         from repro_torch.checkpoint.ckpt import flatten
 
@@ -118,21 +132,24 @@ def run_serve(name, case, ref, out, rank):
     from repro_torch.models.api import get_model
     from repro_torch.train.step import jit_decode_step, jit_forward
 
-    cfg = _config(case["arch"])
+    cfg = _config(case["arch"], case.get("cfg"))
     api = get_model(cfg)
     mesh = _mesh(case["mesh"])
     flat = _load(ref, name)
     params = params_from_numpy(_sub(flat, "params/"), device="cpu")
-    B, S, cap = case.get("batch", 8), 16, 32
+    B, S, cap = case.get("batch", 8), 16, case.get("cap", 32)
     res = {}
     if case.get("forward", True):
-        fn, p_sh, bt_sh = jit_forward(api, mesh, ShapeConfig("p", S, B, "prefill"))
+        pshape = ShapeConfig("p", S, B, "prefill")
+        fn, p_sh, bt_sh = jit_forward(api, mesh, pshape, rules=_rules(cfg, mesh, pshape, case))
         prompt = {k: torch.as_tensor(v).long() if v.dtype.kind == "i" else torch.as_tensor(v)
                   for k, v in _sub(flat, "prompt/").items()}
         logits = fn(device_put(params, p_sh), device_put(prompt, bt_sh))
         res.update(logits=logits.full_tensor().numpy(),
                    logits_placements=np.array([str(p) for p in logits.placements]))
-    dfn, dp_sh, dbt_sh = jit_decode_step(api, mesh, ShapeConfig("d", cap, B, "decode"))
+    dshape = ShapeConfig("d", cap, B, "decode")
+    dfn, dp_sh, dbt_sh = jit_decode_step(api, mesh, dshape,
+                                         rules=_rules(cfg, mesh, dshape, case))
     dparams = device_put(params, dp_sh)
     for i, n in enumerate(case["lens"]):
         dbatch = {"token": torch.as_tensor(flat["token"]).long(), "cache_len": int(n),
@@ -170,12 +187,13 @@ def run_restore(name, case, ref, out, rank):
         np.savez(os.path.join(out, f"{name}-port.npz"), **res)
 
 
-def run_raises(name, case, ref, out, rank):
-    """Each listed layout's step on this mesh must raise
-    NotImplementedError; the messages are recorded.  ``case["layouts"]``
-    maps a name to ``[arch, kind, global batch, config overrides, rules
-    overrides]``: ``train`` builds the train step, ``decode`` the decode
-    step of a 32-position cache."""
+def run_layouts(name, case, ref, out, rank):
+    """Each listed layout's step on this mesh must build; the outcomes are
+    recorded ("builds", or the error).  ``case["layouts"]`` maps a name to
+    ``[arch, kind, global batch, config overrides, rules overrides]``:
+    ``train`` builds the train step, ``decode`` the decode step of a
+    32-position cache (what each computes is held against the reference by
+    the train and serve cases)."""
     from repro_torch.configs import TRAIN_4K, ShapeConfig
     from repro_torch.dist.sharding import sharding_rules
     from repro_torch.models.api import get_model
@@ -197,9 +215,9 @@ def run_raises(name, case, ref, out, rank):
                 jit_train_step(get_model(cfg), make_optimizer(cfg), mesh, shape, rules=rules)
             else:
                 jit_decode_step(get_model(cfg), mesh, shape, rules=rules)
-            got[key] = "no error"
-        except NotImplementedError as e:
-            got[key] = str(e)
+            got[key] = "builds"
+        except Exception as e:  # recorded, so the test names it
+            got[key] = f"{type(e).__name__}: {e}"
     if rank == 0:
         with open(os.path.join(out, f"{name}-port.json"), "w") as f:
             json.dump(got, f)
@@ -299,7 +317,7 @@ def run_collectives(name, case, ref, out, rank):
     from repro_torch.train.state import init_state
     from repro_torch.train.step import jit_train_step
 
-    cfg = _config(case["arch"])
+    cfg = _config(case["arch"], case.get("cfg"))
     api, opt = get_model(cfg), make_optimizer(cfg)
     shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=8, name="t")
     fn, st_sh, bt_sh = jit_train_step(api, opt, _mesh(case["mesh"]), shape)
@@ -455,7 +473,7 @@ def run_engine(name, case, ref, out, rank):
     from repro_torch.models.api import get_model
     from repro_torch.serve.engine import ServingEngine
 
-    cfg = _config(case["arch"])
+    cfg = _config(case["arch"], case.get("cfg"))
     mesh = _mesh(case["mesh"])
     flat = _load(ref, name)
     params = params_from_numpy(_sub(flat, "params/"), device="cpu")
@@ -507,7 +525,7 @@ def run_disagg(name, case, ref, out, rank):
 
 
 RUN = {"train": run_train, "powersgd": run_powersgd, "serve": run_serve, "restore": run_restore,
-       "raises": run_raises, "bg_slice": run_bg_slice, "remesh": run_remesh,
+       "layouts": run_layouts, "bg_slice": run_bg_slice, "remesh": run_remesh,
        "collectives": run_collectives, "exec": run_exec, "coord": run_coord,
        "tp_tenant": run_tp_tenant, "engine": run_engine, "disagg": run_disagg}
 

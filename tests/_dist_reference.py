@@ -40,8 +40,18 @@ def make_mesh(shape):
     return Mesh(np.array(jax.devices()[: math.prod(shape)]).reshape(shape), axes)
 
 
-def config(arch):
-    return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+def config(arch, over=None):
+    """The reduced config in fp32, with a case's field overrides."""
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32", **(over or {}))
+
+
+def rules_for(cfg, mesh, shape, case):
+    """The cell's rules with a case's ``rules`` overrides (lists of mesh
+    axes), or None where it has none (the step derives its own)."""
+    if not case.get("rules"):
+        return None
+    return dict(sharding_rules(cfg, mesh, shape),
+                **{k: tuple(v) for k, v in case["rules"].items()})
 
 
 def batch_np(cfg, B, S, seed, uneven):
@@ -71,12 +81,13 @@ def batch_np(cfg, B, S, seed, uneven):
 
 
 def run_train(name, case, out):
-    cfg = config(case["arch"])
+    cfg = config(case["arch"], case.get("cfg"))
     api, opt = get_model(cfg), make_optimizer(cfg, LR_STEPS)
     mesh = make_mesh(tuple(case["mesh"]))
     B, S = case.get("batch", 8), case.get("seq", 16)
     shape = dataclasses.replace(TRAIN_4K, seq_len=S, global_batch=B, name="t")
-    fn, st_sh, bt_sh = jit_train_step(api, opt, mesh, shape, donate=False)
+    fn, st_sh, bt_sh = jit_train_step(api, opt, mesh, shape, donate=False,
+                                      rules=rules_for(cfg, mesh, shape, case))
     state0 = init_state(jax.random.PRNGKey(case.get("seed", 0)), api, opt)
     batch = batch_np(cfg, B, S, case.get("seed", 0) + 1, case.get("uneven", True))
     inputs = {"params/" + k: np.asarray(v) for k, v in _flatten(state0["params"]).items()}
@@ -109,15 +120,16 @@ def run_train(name, case, out):
 
 def run_serve(name, case, out):
     """``jit_forward`` on a prefill batch (unless ``case["forward"]`` is
-    false) and ``jit_decode_step`` with the rules' own decode layout on a
-    seeded cache of 32 positions, once for each length of ``case["lens"]``
-    (each from the same seeded cache; the second's results under
-    ``end/``).  Every cache leaf a decode step writes is saved; the
-    encoder memory (``READ_ONLY``) is only read."""
-    cfg = config(case["arch"])
+    false) and ``jit_decode_step`` with the rules' own decode layout (and
+    the case's overrides) on a seeded cache of ``case["cap"]`` positions
+    (32), once for each length of ``case["lens"]`` (each from the same
+    seeded cache; the second's results under ``end/``).  Every cache leaf
+    a decode step writes is saved; the encoder memory (``READ_ONLY``) is
+    only read."""
+    cfg = config(case["arch"], case.get("cfg"))
     api = get_model(cfg)
     mesh = make_mesh(tuple(case["mesh"]))
-    B, S, cap = case.get("batch", 8), 16, 32
+    B, S, cap = case.get("batch", 8), 16, case.get("cap", 32)
     params = api.init(jax.random.PRNGKey(0))
     rng = np.random.default_rng(5)
     prompt = batch_np(cfg, B, S, 6, uneven=False)
@@ -133,11 +145,13 @@ def run_serve(name, case, out):
 
     res = {}
     if case.get("forward", True):
-        fn, p_sh, bt_sh = jit_forward(api, mesh, ShapeConfig("p", S, B, "prefill"))
+        pshape = ShapeConfig("p", S, B, "prefill")
+        fn, p_sh, bt_sh = jit_forward(api, mesh, pshape, rules=rules_for(cfg, mesh, pshape, case))
         res["logits"] = np.asarray(fn(jax.device_put(params, p_sh), jax.device_put(
             {k: jnp.asarray(v) for k, v in prompt.items()}, bt_sh)))
     dshape = ShapeConfig("d", cap, B, "decode")
-    dfn, dp_sh, dbt_sh = jit_decode_step(api, mesh, dshape, donate=False)
+    drules = rules_for(cfg, mesh, dshape, case)
+    dfn, dp_sh, dbt_sh = jit_decode_step(api, mesh, dshape, donate=False, rules=drules)
     dparams = jax.device_put(params, dp_sh)
     for i, n in enumerate(case["lens"]):
         dbatch = {"token": jnp.asarray(token), "cache_len": jnp.int32(n),
@@ -147,7 +161,8 @@ def run_serve(name, case, out):
         res[pre + "decode_logits"] = np.asarray(dlogits)
         res.update({f"{pre}cache/{k}": np.asarray(v) for k, v in new_cache.items()
                     if k not in READ_ONLY})
-    res["act_kv_seq"] = np.array(list(sharding_rules(cfg, mesh, dshape)["act_kv_seq"]) or [""])
+    res["act_kv_seq"] = np.array(list((drules or sharding_rules(cfg, mesh, dshape))["act_kv_seq"])
+                                 or [""])
     np.savez(os.path.join(out, f"{name}-out.npz"), **res)
 
 
@@ -206,7 +221,7 @@ def run_engine(name, case, out):
     last decode step of the same run by hand (``generate``'s loop)."""
     from repro.serve.engine import ServingEngine
 
-    cfg = config(case["arch"])
+    cfg = config(case["arch"], case.get("cfg"))
     api = get_model(cfg)
     mesh = make_mesh(tuple(case["mesh"]))
     B, cap, P, new = case["batch"], case["capacity"], case["prompt"], case["new"]

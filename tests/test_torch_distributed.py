@@ -29,6 +29,15 @@ scripted clock and coordinator scenario: every rank's results equal, and
 each rank issued exactly its share), a quantum-2 tenant on a
 tensor-parallel rank slice, ``ServingEngine(mesh=, rules=)`` and
 ``ContinuousBatchingEngine`` over ``split_mesh_for_serving(2, ranks=)``.
+
+The same spawn holds every layout the rules and their overrides give
+beyond the defaults against the reference, each case carrying its config
+and rules overrides to both sides (``TRAIN_LAYOUTS``, ``SERVE_LAYOUTS``,
+``ENGINE_OVERRIDES``): sequence parallelism over 'model' for every family,
+KV heads split with the query heads whole, Mamba-2's ``d_inner`` split
+over whole heads, parameters split on 'model' along ``norm`` or ``embed``,
+a cache the divisibility guard keeps whole, and the MoE engine routing a
+step as one group over the whole batch.
 """
 import dataclasses
 import json
@@ -64,6 +73,24 @@ TRAIN = {  # case -> (arch, mesh)
     "seamless-4x2": ("seamless-m4t-large-v2", [4, 2]),  # 4/4 heads, d_ff and frontend_proj
     "pod-2x2x1": ("llama3-8b", [2, 2, 1]),
 }
+SP = {"sequence_parallel": True}
+KV_ONLY = {"kv_tp": True, "attn_tp": False}
+# the layouts the rules and their overrides give beyond the defaults, each on
+# (4, 2) with uneven labels: case -> (arch, config overrides, rules overrides)
+TRAIN_LAYOUTS = {
+    "sp-llama-4x2": ("llama3-8b", SP, {}),  # heads split: the Megatron crossings
+    "sp-qwen2-4x2": ("qwen2-1.5b", SP, {}),  # heads whole: gathered, then sliced
+    "sp-moe-4x2": ("qwen3-moe-30b-a3b", SP, {}),  # experts: routing on the gathered sequence
+    "sp-grok-4x2": ("grok-1-314b", SP, {}),  # tensor-parallel experts
+    "sp-rwkv-4x2": ("rwkv6-1.6b", SP, {}),  # token shifts across a slice boundary
+    "sp-zamba-4x2": ("zamba2-2.7b", SP, {}),  # the causal conv, the shared block
+    "sp-seamless-4x2": ("seamless-m4t-large-v2", SP, {}),  # frames and tokens split apart
+    "sp-pixtral-4x2": ("pixtral-12b", SP, {}),  # the prefix's global order
+    "kv-minicpm-4x2": ("minicpm-2b", KV_ONLY, {}),  # 4 KV heads split, 4 query heads whole
+    "zamba-heads-whole-4x2": ("zamba2-2.7b", {"attn_tp": False}, {}),  # and d_inner split
+    "norm-on-model-4x2": ("llama3-8b", {}, {"norm": ["model"]}),  # an axis outside TP_AXES
+    "embed-on-data-model-4x2": ("llama3-8b", {}, {"embed": ["data", "model"]}),  # FSDP over all
+}
 POOLS = {"7": [0, 1, 2, 3, 5, 6, 7], "6": [0, 1, 2, 3, 4, 5], "5": [7, 6, 5, 4, 3],
          "2": [3, 6]}
 SERVE = {  # case -> (arch, global batch, forward too): on (4, 2), decode_32k's rules
@@ -82,6 +109,27 @@ SPLIT_KV = {  # the cases whose cache the rules split along its sequence -> act_
     "serve-zamba-b1-4x2": ["data"], "serve-moe-b1-4x2": ["data", "model"],
     "serve-seamless-b1-4x2": ["data"]}
 CACHE_CAP, CACHE_LEN = 32, 20  # a decode cache of 32 positions, 20 filled
+KEPT_WHOLE = 33  # a capacity the divisibility guard keeps whole over 2 and over 4
+# serve cases with overrides, on (4, 2): case -> (arch, global batch, forward too,
+# config overrides, rules overrides, cache capacity, the rules' act_kv_seq, the
+# cache leaves the guard keeps whole)
+SERVE_LAYOUTS = {
+    # sequence parallelism at a prefill shape, the vocabulary whole: the
+    # logits are each rank's positions (the sequence on 'model')
+    "serve-sp-4x2": ("llama3-8b", 8, True, SP, {"vocab": []}, CACHE_CAP, ["model"], []),
+    "serve-sp-pixtral-4x2": ("pixtral-12b", 8, True, SP, {}, CACHE_CAP, ["model"], []),
+    # KV heads split with the query heads whole, at 8 and at 1 (the sequence on
+    # 'data'), and seamless's 4 KV heads with the rules' heads emptied
+    "serve-kv-minicpm-4x2": ("minicpm-2b", 8, True, KV_ONLY, {}, CACHE_CAP, [], []),
+    "serve-kv-minicpm-b1-4x2": ("minicpm-2b", 1, False, KV_ONLY, {}, CACHE_CAP, ["data"], []),
+    "serve-seamless-heads-whole-4x2": ("seamless-m4t-large-v2", 8, False, {}, {"heads": []},
+                                       CACHE_CAP, [], []),
+    # a cache the guard keeps whole where act_kv_seq splits it; seamless's
+    # encoder memory splits beside its whole self-attention cache
+    "serve-kept-whole-4x2": ("llama3-8b", 8, False, {}, {}, KEPT_WHOLE, ["model"], ["k", "v"]),
+    "serve-seamless-kept-whole-b1-4x2": ("seamless-m4t-large-v2", 1, False, {}, {}, KEPT_WHOLE,
+                                         ["data"], ["k", "v"]),
+}
 # the plan carving over ranks (ROADMAP item 11b): run_executable's cases, each
 # cold and warm, and the coordinator scenario, in submesh mode on 8 ranks
 EXEC_RANK_CASES = [[p, r, fb] for p in ("vgg16@8", "inception@8") for r in ("mixed", "two")
@@ -92,7 +140,18 @@ ENGINES = {  # case -> (arch, global batch): ServingEngine on (4, 2), decode rul
     "engine-rwkv-4x2": ("rwkv6-1.6b", 8),  # the prompt token by token
     "engine-seamless-4x2": ("seamless-m4t-large-v2", 8),
 }
-ENGINE_SPLIT = {"engine-llama-4x2": ["model"], "engine-moe-b1-4x2": ["data", "model"]}
+ENGINE_SPLIT = {"engine-llama-4x2": ["model"], "engine-moe-b1-4x2": ["data", "model"],
+                "engine-kept-whole-4x2": ["model"], "engine-moe-4x2": ["model"],
+                "engine-sp-4x2": ["model"]}
+# engines beyond the decode cell's defaults: a capacity the guard keeps
+# whole; qwen3-moe at a batch of 8 split over 'data' with a capacity factor
+# at which every step drops pairs (``test_moe_engine_routes_one_group``)
+MOE_DROPS = {"capacity_factor": 0.5}
+ENGINE_OVERRIDES = {"engine-kept-whole-4x2": ("llama3-8b", 8, {"capacity": KEPT_WHOLE}),
+                    "engine-moe-4x2": ("qwen3-moe-30b-a3b", 8, {"cfg": MOE_DROPS}),
+                    # the fused prefill's 12 prompt tokens split over 'model'
+                    "engine-sp-4x2": ("llama3-8b", 8, {"cfg": SP})}
+ENGINES.update({n: v[:2] for n, v in ENGINE_OVERRIDES.items()})
 SMOKE_TRACE = os.path.join(HERE, "..", "benchmarks", "traces", "requests_smoke.json")
 DISAGG = {"kind": "disagg", "arch": "llama3-8b", "n_prefill": 2, "trace": SMOKE_TRACE,
           "engine": {"lanes": 4, "n_pages": 25, "page_tokens": 4, "lane_capacity": 24}}
@@ -102,8 +161,8 @@ def _engine_case(name):
     arch, batch = ENGINES[name]
     # 12 prompt tokens and 8 new ones: the writes cross from the first cache
     # slice into the next where the sequence is split
-    return {"kind": "engine", "arch": arch, "mesh": [4, 2], "batch": batch, "capacity": 32,
-            "prompt": 12, "new": 8}
+    return dict({"kind": "engine", "arch": arch, "mesh": [4, 2], "batch": batch, "capacity": 32,
+                 "prompt": 12, "new": 8}, **ENGINE_OVERRIDES.get(name, (0, 0, {}))[2])
 
 
 RANK_CASES = {"exec-8": {"kind": "exec", "cases": EXEC_RANK_CASES},
@@ -115,9 +174,9 @@ RAISE_LAYOUTS = {  # name -> (arch, step kind, global batch, cfg overrides, rule
     "kv-heads-split-query-heads-whole": ("seamless-m4t-large-v2", "decode", 8, {},
                                          {"heads": []}),
 }
-RAISE_WANT = {"sequence-parallel": "sequence parallelism",
-              "kv-heads-split-query-heads-whole": "KV heads split over 'model' with the query "
-                                                  "heads whole"}
+# the case that holds each of them against the reference
+RAISE_HELD = {"sequence-parallel": "sp-llama-4x2",
+              "kv-heads-split-query-heads-whole": "serve-seamless-heads-whole-4x2"}
 SHARD_LEAF = "layers/attn/wq"
 # the leaves whose gradients cross the tensor-parallel boundary in a way the
 # design rule must get right (dist/fsdp.py): a norm over a split width, a
@@ -131,6 +190,9 @@ TP_GRAD_LEAVES = [("rwkv-4x2", "layers/mix/ln_x"), ("rwkv-4x2", "layers/mix/w_lo
 
 
 def _train_case(name):
+    if name in TRAIN_LAYOUTS:
+        arch, cfg, rules = TRAIN_LAYOUTS[name]
+        return {"kind": "train", "arch": arch, "mesh": [4, 2], "cfg": cfg, "rules": rules}
     arch, mesh = TRAIN[name]
     case = {"kind": "train", "arch": arch, "mesh": mesh}
     if name == "pod-2x2x1":
@@ -147,6 +209,13 @@ def _slice_len(name) -> int:
 
 
 def _serve_case(name):
+    if name in SERVE_LAYOUTS:
+        arch, batch, forward, cfg, rules, cap, split, whole = SERVE_LAYOUTS[name]
+        # 20 positions filled, then the last position of the first slice
+        local = cap if cap % 2 else cap // math.prod({"data": 4, "model": 2}[a] for a in split)
+        return {"kind": "serve", "arch": arch, "mesh": [4, 2], "batch": batch,
+                "forward": forward, "lens": [CACHE_LEN, local - 1], "cfg": cfg,
+                "rules": rules, "cap": cap}
     arch, batch, forward = SERVE[name]
     # 20 positions filled (the write lands on a later slice where the cache
     # splits), then the last position of the first slice
@@ -156,9 +225,12 @@ def _serve_case(name):
 
 SPAWNS = [  # (mesh, cases), in order: the restore reads the (4, 2) spawn's checkpoint
     ([4, 2], {**{n: _train_case(n) for n in TRAIN if TRAIN[n][1] == [4, 2]},
-              **{n: _serve_case(n) for n in SERVE},
-              "raises-4x2": {"kind": "raises", "mesh": [4, 2], "layouts": RAISE_LAYOUTS},
+              **{n: _train_case(n) for n in TRAIN_LAYOUTS},
+              **{n: _serve_case(n) for n in list(SERVE) + list(SERVE_LAYOUTS)},
+              "layouts-4x2": {"kind": "layouts", "mesh": [4, 2], "layouts": RAISE_LAYOUTS},
               "collectives-4x2": {"kind": "collectives", "arch": "llama3-8b", "mesh": [4, 2]},
+              "collectives-sp-4x2": {"kind": "collectives", "arch": "llama3-8b", "mesh": [4, 2],
+                                     "cfg": SP},
               **RANK_CASES,
               "tp-tenant": {"kind": "tp_tenant", "arch": "qwen2-1.5b", "batch": 6,
                             "steps": 3}}),
@@ -190,8 +262,8 @@ def runs(tmp_path_factory):
     """(reference dir, port dir) after every case has run on both sides."""
     ref = str(tmp_path_factory.mktemp("ref"))
     port = str(tmp_path_factory.mktemp("port"))
-    ref_cases = {n: _train_case(n) for n in TRAIN}
-    ref_cases.update({n: _serve_case(n) for n in SERVE})
+    ref_cases = {n: _train_case(n) for n in list(TRAIN) + list(TRAIN_LAYOUTS)}
+    ref_cases.update({n: _serve_case(n) for n in list(SERVE) + list(SERVE_LAYOUTS)})
     ref_cases["remesh"] = {"kind": "remesh", "pools": POOLS}
     ref_cases.update(RANK_CASES)
     _check([sys.executable, os.path.join(HERE, "_dist_reference.py"), ref,
@@ -235,12 +307,9 @@ def _noise(ref, key):
     return out
 
 
-@pytest.mark.parametrize("name", sorted(TRAIN))
-def test_train_step_matches_reference_sharded(runs, name):
-    """3 steps of the port's ``jit_train_step`` on gloo ranks: losses,
-    every parameter and every first moment (Adafactor's statistics) equal
-    the reference's ``jit_train_step`` on the same mesh shape."""
-    ref_dir, port = runs
+def _held_to_reference(ref_dir, port, name):
+    """Losses, every parameter and every first moment (Adafactor's
+    statistics) of the port's 3 steps against the reference's."""
     ref = _npz(os.path.join(ref_dir, f"{name}-out.npz"))
     got = _npz(_port_file(port, name))
     np.testing.assert_allclose(got["losses"], ref["losses"], rtol=LOSS_TOL)
@@ -257,6 +326,29 @@ def test_train_step_matches_reference_sharded(runs, name):
             noise, 2 * LR * STEPS, PARAM_ATOL)
         bad = np.abs(g - w) > tol + MOMENT_TOL * np.abs(w)
         assert not bad.any(), (k, float(np.abs(g - w)[bad].max()), int(bad.sum()))
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN) + sorted(TRAIN_LAYOUTS))
+def test_train_step_matches_reference_sharded(runs, name):
+    """3 steps of the port's ``jit_train_step`` on gloo ranks: losses,
+    every parameter and every first moment (Adafactor's statistics) equal
+    the reference's ``jit_train_step`` on the same mesh shape, with the
+    same config and rules overrides (``TRAIN_LAYOUTS``: sequence
+    parallelism for every family, KV heads split with the query heads
+    whole, Mamba-2's ``d_inner`` split over whole heads, parameters split
+    on 'model' along ``norm`` or ``embed``)."""
+    _held_to_reference(*runs, name)
+
+
+@pytest.mark.parametrize("name", sorted(n for n in TRAIN_LAYOUTS if n.startswith("sp-")))
+def test_sequence_parallel_splits_the_inputs(runs, name):
+    """The sequence-parallel cases run split: each input's sequence lies on
+    'model' (seamless's frames and tokens each by their own guard,
+    pixtral's patches and text), the batch on 'data'."""
+    got = _npz(_port_file(runs[1], name))
+    keys = [k for k in got if k.startswith("placements/")]
+    assert keys and {k: got[k].tolist() for k in keys} == {k: ["S(0)", "S(1)"] for k in keys}
 
 
 @pytest.mark.parametrize("name,leaf", TP_GRAD_LEAVES)
@@ -444,14 +536,91 @@ def test_seamless_forward_matches_reference_sharded(runs):
 
 @pytest.mark.parametrize("layout", sorted(RAISE_LAYOUTS))
 def test_item_11b_layouts_raise(runs, layout):
-    """The layouts still not ported refuse, naming item 11b: sequence
-    parallelism on a 'model' axis, and KV heads split over 'model' while
-    the query heads stay whole (seamless's 4 KV heads with the rules'
-    ``heads`` emptied)."""
-    _, port = runs
-    with open(_port_file(port, "raises-4x2", "json")) as f:
-        msg = json.load(f)[layout]
-    assert "item 11b" in msg and RAISE_WANT[layout] in msg, msg
+    """The layouts item 11b once refused build their step on the 8 gloo
+    ranks (sequence parallelism on a 'model' axis, and KV heads split over
+    'model' while the query heads stay whole: seamless's 4 KV heads with
+    the rules' ``heads`` emptied), and what each computes equals the
+    reference's (``RAISE_HELD``: 3 train steps, or the decode's logits and
+    cache)."""
+    ref_dir, port = runs
+    with open(_port_file(port, "layouts-4x2", "json")) as f:
+        assert json.load(f)[layout] == "builds"
+    held = RAISE_HELD[layout]
+    if held in TRAIN_LAYOUTS:
+        _held_to_reference(ref_dir, port, held)
+        return
+    want, got = _npz(os.path.join(ref_dir, f"{held}-out.npz")), _npz(_port_file(port, held))
+    for key in ("decode_logits", "cache/k", "cache/v", "cache/enc_k", "end/decode_logits"):
+        if key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                       atol=OUT_TOL * np.abs(want[key]).max(), err_msg=key)
+
+
+LAYOUT_KEYS = ["decode_logits", "cache/k", "cache/v", "end/decode_logits", "end/cache/k",
+               "end/cache/v"]
+
+
+@pytest.mark.parametrize("name,key", [(n, k) for n in sorted(SERVE_LAYOUTS)
+                                      for k in (["logits"] if SERVE_LAYOUTS[n][2] else [])
+                                      + LAYOUT_KEYS])
+def test_layouts_forward_and_decode_match_reference(runs, name, key):
+    """``jit_forward`` and ``jit_decode_step`` at (4, 2) with the case's
+    overrides against the reference's, to 1e-5 of the largest magnitude:
+    sequence parallelism at a prefill shape (llama3-8b with its vocabulary
+    whole, so the logits lie split along the sequence; pixtral's prefix);
+    KV heads split with the query heads whole (minicpm-2b at a batch of 8
+    and of 1, whose cache then splits over 'data'; seamless with the rules'
+    ``heads`` emptied); a capacity of 33, which the guard keeps whole where
+    the rules split it (llama3-8b; seamless at a batch of 1, whose encoder
+    memory splits over 'data' beside its whole self-attention cache).  The
+    reference's rules split the cache as the case says, and the placements
+    name which leaves stay whole."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.dist.sharding import param_pspecs, sharding_rules
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.api import get_model
+
+    ref_dir, port = runs
+    arch, batch, _, cfg_over, rules_over, cap, split, whole = SERVE_LAYOUTS[name]
+    ref = _npz(os.path.join(ref_dir, f"{name}-out.npz"))
+    assert [a for a in ref["act_kv_seq"].tolist() if a] == split
+    got = _npz(_port_file(port, name))
+    np.testing.assert_allclose(got[key], ref[key], rtol=0, atol=OUT_TOL * np.abs(ref[key]).max())
+    if key == "logits":  # batch over 'data'; the vocabulary over 'model', or the sequence
+        want = ["S(0)", "S(2)"] if not rules_over.get("vocab") == [] else ["S(0)", "S(1)"]
+        assert got["logits_placements"].tolist() == want
+    cfg = dataclasses.replace(_small_arch(arch), **cfg_over)
+    mesh = AbstractMesh((4, 2), ("data", "model"))
+    rules = dict(sharding_rules(cfg, mesh, ShapeConfig("d", cap, batch, "decode")),
+                 **{k: tuple(v) for k, v in rules_over.items()})
+    specs = param_pspecs(get_model(cfg).cache_schema(batch, cap), rules, mesh)
+    kept = sorted(k for k, sp in specs.items() if split and (len(sp) < 3 or sp[2] is None))
+    assert kept == sorted(whole), specs
+
+
+def _small_arch(arch):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+
+
+def test_moe_engine_routes_one_group(runs):
+    """``ServingEngine(mesh=(4, 2))`` serving qwen3-moe at a batch of 8,
+    split over 'data', routes each step's tokens as one group over the
+    whole batch, as the reference's engine does: at a capacity factor of
+    0.5 every step drops pairs (its experts' slots hold fewer than its
+    pairs), so a rank's rows routed as a group of their own would keep
+    other pairs; the tokens equal the reference's."""
+    from repro_torch.models.moe import _capacity
+
+    ref_dir, port = runs
+    cfg = dataclasses.replace(_small_arch("qwen3-moe-30b-a3b"), **MOE_DROPS)
+    case = _engine_case("engine-moe-4x2")
+    for tokens in (case["batch"], case["batch"] * case["prompt"]):  # a decode step, the prefill
+        assert cfg.num_experts * _capacity(tokens, cfg) < tokens * cfg.experts_per_tok
+    want = _npz(os.path.join(ref_dir, "engine-moe-4x2-out.npz"))
+    got = _npz(_port_file(port, "engine-moe-4x2"))
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
 
 
 def test_fake_group_counts_the_gloo_ranks_collectives(runs):
@@ -541,6 +710,83 @@ def test_step_collective_bytes_equal_the_analytic_count(runs):
     reduce = 4 * ((1 + 2 * L + L + 2 * L + 1) * B * S * D
                   + 2 * L * B * S * cfg.num_kv_heads * cfg.d_head
                   + 3 * B * S + 2 + (2 * L + 1) * D)
+    assert gloo["collectives"] == {"all-gather": gather, "reduce-scatter": scatter,
+                                   "all-reduce": reduce}
+
+
+def test_fake_group_counts_the_sp_step_collectives(runs):
+    """As ``test_fake_group_counts_the_gloo_ranks_collectives``, for the
+    same step with sequence parallelism: the fake (4, 2) group's counts,
+    by kind, equal the gloo ranks'."""
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.launch.dryrun import run_step
+    from repro_torch.launch.mesh import fake_world, make_mesh
+
+    _, port = runs
+    with open(_port_file(port, "collectives-sp-4x2", "json")) as f:
+        gloo = json.load(f)
+    cfg = dataclasses.replace(_small_arch("llama3-8b"), **SP)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=8, name="t")
+    with fake_world(8, "meta"):
+        rec = run_step(cfg, shape, make_mesh(4, 2), "meta")
+    assert rec["collective_bytes"] == gloo["collectives"]
+    assert rec["collective_diag"]["n_collective_ops"] == gloo["n_collective_ops"] > 0
+
+
+def test_sp_step_collective_bytes_equal_the_analytic_count(runs):
+    """The same step with sequence parallelism on the (4, 2) gloo ranks:
+    the FSDP gathers and scatters of the parameters are the ones without it
+    (``test_step_collective_bytes_equal_the_analytic_count``); the
+    sequence's crossings move (B/4, S/2, D) pieces, ``P`` bytes, in each
+    all-gather and (B/4, S, D) inputs, ``2 P``, in each reduce-scatter
+    (an operand's bytes):
+
+      - all-gather: each layer's two entries forward, again in the
+        recompute (which stops before the MLP's exit), and the gradients
+        of its two exits; the entry of the unembedding; the gradient of
+        the embedding's exit; the token ids and the labels (int64);
+      - reduce-scatter: each layer's two exits, the attention's again in
+        the recompute, and the gradients of its two entries; the
+        embedding's exit and the gradient of the unembedding's entry;
+      - all-reduce: the vocab-parallel cross-entropy's max, sum and target
+        logit over the whole sequence (B/4, S); two scalars for the global
+        mean; the gradients of the norm scales over 'data' (the batch's
+        partial sums, as without sequence parallelism) and over 'model'
+        (read by each rank's positions); those of the whole K/V weights
+        over 'model' (read by each rank's query heads)."""
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.dist.sharding import pspec, sharding_rules
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.api import get_model
+
+    _, port = runs
+    with open(_port_file(port, "collectives-sp-4x2", "json")) as f:
+        gloo = json.load(f)
+    cfg = dataclasses.replace(_small_arch("llama3-8b"), **SP)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=16, global_batch=8, name="t")
+    dp, tp = 4, 2
+    mesh = AbstractMesh((dp, tp), ("data", "model"))
+    rules = sharding_rules(cfg, mesh, shape)
+    api = get_model(cfg)
+    axes = flatten(api.axes())
+    gather = scatter = 0
+    for key, leaf in flatten(api.abstract()).items():
+        spec = pspec(axes[key], leaf.shape, rules, mesh)
+        names = {a for p in spec if p for a in ((p,) if isinstance(p, str) else p)}
+        if "data" not in names:
+            continue
+        gathered = math.prod(leaf.shape) * leaf.dtype.itemsize // (tp if "model" in names else 1)
+        assert cfg.remat_policy == "full"
+        gather += (2 if key.startswith("layers/") else 1) * gathered // dp
+        scatter += gathered
+    B, S, D, L = shape.global_batch // dp, shape.seq_len, cfg.d_model, cfg.num_layers
+    piece = 4 * B * (S // tp) * D
+    ids = 8 * B * (S // tp)
+    gather += L * (2 + 2 + 2) * piece + 2 * piece + 2 * ids
+    scatter += L * (2 + 1 + 2) * 2 * piece + 2 * 2 * piece
+    reduce = 4 * (3 * B * S + 2 + 2 * (2 * L + 1) * D
+                  + 2 * L * D * cfg.num_kv_heads * cfg.d_head)
     assert gloo["collectives"] == {"all-gather": gather, "reduce-scatter": scatter,
                                    "all-reduce": reduce}
 
@@ -736,7 +982,11 @@ def test_serving_engine_on_a_mesh_matches_reference(runs, name):
     decode step's to 1e-5 of the largest; on every rank the cache is
     placed as the rules say after the prefill and after the last step
     (the fused prefill keeps each rank's share of the sequence where the
-    rules split it)."""
+    rules split it).  Beyond the decode cell's defaults: a capacity of 33,
+    which the guard keeps whole; qwen3-moe at a batch of 8 split over
+    'data' (``test_moe_engine_routes_one_group``); llama3-8b with sequence
+    parallelism, whose 12 prompt tokens the fused prefill splits over
+    'model'."""
     ref_dir, port = runs
     want = _npz(os.path.join(ref_dir, f"{name}-out.npz"))
     got = _npz(_port_file(port, name))

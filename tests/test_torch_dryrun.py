@@ -2,8 +2,9 @@
 of a fake process group.  The state part of a train cell's argument bytes
 per device equals what the reference's specs give the same leaves on the
 reference's ``AbstractMesh``; a prefill cell's FLOPs equal the analytic
-count; a cell the port refuses fails naming ROADMAP item 11b; the CLI
-writes one record with the reference's keys.  The fake tensors are
+count; the layouts item 11b once refused record the FLOPs of their
+twins; a layout no model computes on fails naming it; the CLI writes one
+record with the reference's keys.  The fake tensors are
 ``meta`` here (this torch has no CUDA build), which the port sends down
 the card's path."""
 import dataclasses
@@ -95,28 +96,50 @@ def test_prefill_flops_equal_the_analytic_count():
     assert rec["output_bytes"] == B * S * cfg.padded_vocab * 2  # the logits, in cfg.dtype (bf16)
 
 
-REFUSED = {  # (arch, shape) -> (CLI overrides, a layout the port still refuses)
-    ("seamless-m4t-large-v2", "train_4k"): (["--cfg-override", '{"sequence_parallel": true}'],
-                                            "sequence parallelism"),
-    ("llama3-8b", "decode_32k"): (["--rules-override", '{"norm": ["model"]}'], "['norm']"),
+ONE_LAYER = {"num_layers": 1, "num_encoder_layers": 1}
+REFUSED = {  # (arch, shape) -> (CLI overrides of a layout item 11b once refused)
+    ("seamless-m4t-large-v2", "train_4k"): ("--cfg-override", {"sequence_parallel": True}),
+    ("llama3-8b", "decode_32k"): ("--rules-override", {"norm": ["model"]}),
 }
 
 
 @pytest.mark.parametrize("arch,shape", sorted(REFUSED))
 def test_refused_cell_fails_naming_item_11b(arch, shape, tmp_path, capsys):
-    """A layout the port does not run on the (16, 16) mesh, asked for
+    """The layouts item 11b once refused on the (16, 16) mesh, asked for
     through the CLI's overrides (sequence parallelism on seamless; a
     parameter split over 'model' along ``norm``, an axis no block splits,
-    on llama3-8b's decode cell): a failed cell (exit 1, the message
-    printed), never a skipped one."""
+    on llama3-8b's decode cell), cut to one layer: each writes its record
+    (exit 0) with the FLOPs of the same cell without the override, since
+    it is the same work; the sequence-parallel one splits its activations,
+    so its peak lies below its twin's."""
+    flag, over = REFUSED[(arch, shape)]
+    recs = []
+    for extra in ([flag, json.dumps(over)], []):
+        out = tmp_path / f"d{len(recs)}.jsonl"
+        cfg = dict(ONE_LAYER, **over) if flag == "--cfg-override" and extra else ONE_LAYER
+        args = ["--cfg-override", json.dumps(cfg)] + (extra if flag == "--rules-override" else [])
+        assert dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single",
+                            "--out", str(out)] + args) == 0
+        recs.append(json.loads(out.read_text().splitlines()[-1]))
+    got, twin = recs
+    assert got["flops"] == twin["flops"] > 0
+    assert (got["cfg_override"], got["rules_override"]) == (
+        (dict(ONE_LAYER, **over), {}) if flag == "--cfg-override" else (ONE_LAYER, over))
+    if flag == "--cfg-override":
+        assert got["peak_bytes"] < twin["peak_bytes"]
+    assert "FAILED" not in capsys.readouterr().err
+
+
+def test_unrunnable_layout_fails_naming_it(tmp_path, capsys):
+    """A layout no model computes on, the batch whole and its sequence
+    split over 'data', fails the cell (exit 1) with a message that names
+    it; nothing falls through silently."""
     out = tmp_path / "d.jsonl"
-    args, want = REFUSED[(arch, shape)]
-    rc = dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single",
-                      "--out", str(out)] + args)
+    rc = dryrun.main(["--arch", "llama3-8b", "--shape", "train_4k", "--mesh", "single",
+                      "--out", str(out), "--cfg-override", json.dumps(ONE_LAYER),
+                      "--rules-override", '{"act_batch": [], "act_seq": ["data"]}'])
     err = capsys.readouterr().err
-    assert rc == 1
-    assert "item 11b" in err and arch in err and want in err
-    assert not out.exists()
+    assert rc == 1 and "split along its sequence over ['data']" in err and not out.exists()
 
 
 FLASH = ("flash_attention_fwd", "flash_attention_bwd")

@@ -15,7 +15,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.launch.mesh import fake_world
-from repro_torch.launch.op_analysis import BLOCK, analyze_step
+from repro_torch.launch.op_analysis import BLOCK, MIB, _LargePool, analyze_step
 
 
 def _grad_of_tanh_stack(x, ws):
@@ -201,3 +201,24 @@ def test_formulas_are_the_bound_columns_counts():
     assert round(wk.chunk_flops(4, 4096, 32, 64, backward=True) / 1e9, 2) == 25.77
     assert round(wk.recurrence_flops(4, 4096, 32, 64) / 1e9, 2) == 10.87
     assert round(wk.recurrence_flops(4, 4096, 32, 64, backward=True) / 1e9, 2) == 30.06
+
+
+def test_large_blocks_take_the_allocators_blocks():
+    """Over 1 MiB a block is the caching allocator's: a new segment (20 MiB
+    below 10 MiB, else rounded up to 2 MiB), held whole where splitting it
+    would leave 1 MiB or less (the vocab-parallel loss's (16, 1024, 16016)
+    fp32 tensors, 1001 MiB, hold 1002), else split; a freed block is taken
+    again by the smallest request it fits, split where it leaves more than
+    1 MiB, and merges with its free neighbours.  A step's new meta tensors
+    count so, its arguments at their sizes (made before the step)."""
+    pool = _LargePool()
+    assert pool.malloc(1001 * MIB) == (0, 0, 1002 * MIB)
+    assert pool.malloc(3 * MIB) == (1, 0, 3 * MIB)  # a 20 MiB segment, split
+    a = pool.malloc(10 * MIB + MIB // 2)  # from its free 17 MiB, split
+    assert a == (1, 3 * MIB, 10 * MIB + MIB // 2)
+    assert pool.malloc(16 * MIB) == (2, 0, 16 * MIB)  # 6.5 MiB free: a new segment
+    pool.release(*a[:2])  # merges with the free 6.5 MiB after it: 17 MiB
+    assert pool.malloc(16 * MIB + MIB // 2) == (1, 3 * MIB, 17 * MIB)  # held whole
+    big = torch.empty((16, 1024, 16016), dtype=torch.float32, device="meta")
+    costs = analyze_step(lambda x: x * 2.0, big)
+    assert costs.peak_bytes == 1001 * MIB + 1002 * MIB
