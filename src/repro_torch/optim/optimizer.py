@@ -12,6 +12,9 @@ Unlike the reference's pure ``update``, both ``update``s write the new
 state and parameters in place (under ``no_grad``) and return the same
 tensors: at rwkv6-1.6b's 1.6 B fp32 parameters a functional update would
 hold a second copy of parameters and moments, 19 GB.
+
+Each ``update`` marks its global-norm clip as the span ``optim.clip`` and
+its loop over the leaves as ``optim.update`` (``repro_torch.spans``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models.layers import ParamSpec, tree_leaves, tree_map
+from repro_torch.spans import span
 
 # ---------------------------------------------------------------------------
 # LR schedules: step (a number) -> learning rate (a float)
@@ -107,7 +111,8 @@ def adamw(
 
     @torch.no_grad()
     def update(grads, state, params):
-        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        with span("optim.clip"):
+            grads, _ = clip_by_global_norm(grads, max_grad_norm)
         count = state["count"] + 1
         cf = float(count)
         lr_t = lr(cf)
@@ -122,9 +127,10 @@ def adamw(
                 step.add_(p.float(), alpha=weight_decay)
             p.copy_(p.float() - lr_t * step)
 
-        for g, m, v, p in zip(*(tree_leaves(t) for t in (grads, state["m"], state["v"],
-                                                          params))):
-            upd(g, m, v, p)
+        with span("optim.update"):
+            for g, m, v, p in zip(*(tree_leaves(t) for t in (grads, state["m"], state["v"],
+                                                              params))):
+                upd(g, m, v, p)
         return params, {"m": state["m"], "v": state["v"], "count": count}
 
     def state_schema(schema):
@@ -184,7 +190,8 @@ def adafactor(
 
     @torch.no_grad()
     def update(grads, state, params):
-        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        with span("optim.clip"):
+            grads, _ = clip_by_global_norm(grads, max_grad_norm)
         count = state["count"] + 1
         cf = float(count)
         beta = 1.0 - cf ** (-decay)
@@ -208,8 +215,9 @@ def adafactor(
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             p.copy_(p.float() - lr_t * u)
 
-        for g, (p, st) in zip(tree_leaves(grads), _param_stats(params, state["stats"])):
-            upd(g, st, p)
+        with span("optim.update"):
+            for g, (p, st) in zip(tree_leaves(grads), _param_stats(params, state["stats"])):
+                upd(g, st, p)
         return params, {"stats": state["stats"], "count": count}
 
     def state_schema(schema):

@@ -5,7 +5,11 @@ step: loss, ``torch.autograd.grad`` over the parameter leaves, an optional
 ``grad_transform`` (PowerSGD, ``optim/grad_compression.py``), then
 ``optimizer.update`` (which clips and writes in place), for every family,
 the encoder-decoder (``frames`` batches) and vision (``patch_embeds``)
-ones included.
+ones included.  Its phases are spans (``repro_torch.spans``):
+``train.step`` around the whole, and inside it ``train.forward``,
+``train.backward``, ``train.grad_transform`` (when set) and
+``train.optimizer``; every step built on it, the sharded one and the
+background tenants' included, carries them.
 
 ``jit_train_step``, ``jit_forward`` and ``jit_decode_step`` keep the
 reference's names so a reader finds the counterpart (``jit_prefill``, the
@@ -52,6 +56,7 @@ from repro_torch.dist.sharding import (
     shardings_of,
 )
 from repro_torch.models.layers import tree_leaves, tree_map
+from repro_torch.spans import span
 
 
 def make_train_step(api, optimizer, grad_transform: Optional[Callable] = None):
@@ -59,19 +64,26 @@ def make_train_step(api, optimizer, grad_transform: Optional[Callable] = None):
         raise NotImplementedError(f"{api.cfg.name}: this ModelAPI has no loss_fn to train")
 
     def train_step(state, batch):
-        params = state["params"]
-        leaves = tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss, metrics = api.loss(params, batch)
-        grads = iter(torch.autograd.grad(loss, leaves))
-        # tree_leaves and tree_map walk the dict keys in one order
-        grads = tree_map(lambda _: next(grads), _sorted(params))
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        new_params, new_opt = optimizer.update(grads, state["opt"], params)
-        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
-        return new_state, {k: v.detach() for k, v in metrics.items()}
+        with span("train.step"):
+            params = state["params"]
+            leaves = tree_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            with span("train.forward"):
+                loss, metrics = api.loss(params, batch)
+            # autograd's own thread issues the recompute and the backward while
+            # this one waits here: their launches fall inside this span by time
+            with span("train.backward"):
+                grads = iter(torch.autograd.grad(loss, leaves))
+                # tree_leaves and tree_map walk the dict keys in one order
+                grads = tree_map(lambda _: next(grads), _sorted(params))
+            if grad_transform is not None:
+                with span("train.grad_transform"):
+                    grads = grad_transform(grads)
+            with span("train.optimizer"):
+                new_params, new_opt = optimizer.update(grads, state["opt"], params)
+            new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+            return new_state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
 
